@@ -1,0 +1,91 @@
+"""Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on first use, into
+``build/lib<name>-<hash>.so`` inside this package (a directory git ignores), keyed by
+the source's content so that an edited source is rebuilt.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+KERNELS = ("rrdb", "chain")
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build where the CUDA toolkit is")
+    return path
+
+
+def source(name: str) -> Path:
+    return SRC_DIR / f"{name}.cu"
+
+
+def library(name: str) -> Path:
+    digest = hashlib.sha1(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every missing library in parallel (one nvcc per source).
+
+    Returns {name: compiler output} for what was compiled (ptxas register and
+    shared-memory report); raises RuntimeError if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """Build if needed, load, and declare ``fn`` (returning a cudaError_t as int)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library(name)))
+        lib.hcflow_error_string.argtypes = [ctypes.c_int]
+        lib.hcflow_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return lib
+
+
+def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
+    if err != 0:
+        msg = lib.hcflow_error_string(err).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")

@@ -1,0 +1,119 @@
+"""Per-level conditional flow, SR reverse direction: RRDB encoder, prior, inverse steps.
+
+A split-off latent ``a`` (the channels removed at a hierarchy level) is sampled
+conditionally on ``u`` (the retained channels, concatenated with the upsampled
+conditioning features of the deeper levels):
+
+- conditioning encoder: conv_first -> RRDB trunk0 = feat1 -> RRDB trunk1 ->
+  trunk_conv1, plus the conv_first skip = feat2; the cond features are
+  cat(feat1, feat2) (2 nf channels);
+- a zero-init conv prior head maps them to (mean, logs), ``z = mean + exp(logs)*eps``;
+- ``n_flow_step`` conditional flow steps are inverted on z.
+
+With packed weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the
+trunks run the RRDB kernel (ops/rrdb.py) and the steps the inverse-chain kernel
+(ops/chain.py); otherwise the plain step-by-step path runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from ..ops import chain, densities, nets, rrdb
+from . import stack
+from .flowstep import FlowStepSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ConditionalFlowSpec:
+    num_channels: int  # channels entering the split at this level
+    num_channels_split: int  # channels retained (passed on); a has the rest
+    n_flow_step: int = 0
+    num_levels_condition: int = 0
+    rrdb_nb: Sequence[int] = (5, 5)
+    rrdb_nf: int = 64
+    rrdb_gc: int = 32
+    hidden_channels: int = 64
+    compute_dtype: Optional[str] = None  # 'bfloat16' => coupling and encoder nets in bf16
+
+    @property
+    def a_channels(self) -> int:
+        return self.num_channels - self.num_channels_split
+
+    @property
+    def cond_channels(self) -> int:
+        return 2 * self.rrdb_nf  # cat(feat1, feat2)
+
+    @property
+    def conv_first_in(self) -> int:
+        return self.num_channels_split + self.cond_channels * self.num_levels_condition
+
+    @property
+    def step_spec(self) -> FlowStepSpec:
+        return FlowStepSpec(
+            in_channels=self.a_channels,
+            cond_channels=self.cond_channels,
+            hidden_channels=self.hidden_channels,
+            compute_dtype=self.compute_dtype,
+        )
+
+    def init(self, generator: torch.Generator) -> dict:
+        nf = self.rrdb_nf
+        w_first, b_first = nets.torch_default_conv(generator, (nf, self.conv_first_in, 3, 3))
+        w_trunk, b_trunk = nets.torch_default_conv(generator, (nf, nf, 3, 3))
+        params = {
+            "conv_first": {"w": w_first, "b": b_first},
+            "trunk0": nets.init_rrdb_trunk(generator, self.rrdb_nb[0], nf, self.rrdb_gc),
+            "trunk1": nets.init_rrdb_trunk(generator, self.rrdb_nb[1], nf, self.rrdb_gc),
+            "trunk_conv1": {"w": w_trunk, "b": b_trunk},
+            "f": nets.init_conv_zeros(self.cond_channels, self.a_channels * 2, 3),
+        }
+        if self.n_flow_step > 0:
+            params["steps"] = stack.init_stack(self.step_spec, generator, self.n_flow_step)
+        return params
+
+    # ------------------------------------------------------------------- encoder
+    def _trunk(self, params: dict, name: str, x: torch.Tensor, cd) -> torch.Tensor:
+        packed = params.get(f"{name}_fused")
+        if packed is not None:
+            return rrdb.trunk_apply(packed, x)
+        return nets.apply_rrdb_trunk(params[name], x, cd)
+
+    def cond_feature(self, params: dict, u: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        first = nets.conv2d(u, params["conv_first"]["w"], params["conv_first"]["b"], cd)
+        feat1 = self._trunk(params, "trunk0", first, cd)
+        tc = params["trunk_conv1"]
+        feat2 = nets.conv2d(self._trunk(params, "trunk1", feat1, cd), tc["w"], tc["b"], cd)
+        return torch.cat([feat1, feat2 + first], -1)
+
+    def _prior(self, params: dict, cond: torch.Tensor):
+        h = nets.apply_conv_zeros(params["f"], cond)
+        return h[..., 0::2], h[..., 1::2]  # (mean, logs)
+
+    def _run_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """Invert the steps: the chain kernel when packed, else the hoisted plain path."""
+        ss = self.step_spec
+        packed = params.get("steps_fused")
+        if packed is None:
+            return stack.inverse_stack_hoisted(ss, params["steps"], z, cond)[0]
+        uc = stack.compute_u_contribs(ss, params["steps"], cond)
+        return chain.inverse_chain(packed, z, uc.to(packed["w1"].dtype).contiguous())
+
+    # ------------------------------------------------------------------- reverse
+    def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None):
+        """Sample a from the conditional prior at temperature eps_std (or take the
+        explicit whitened latent ``eps``: z = mean + exp(logs) * eps, eps_std unused)
+        and invert the steps.  Returns (a, cond)."""
+        cond = self.cond_feature(params, u)
+        mean, logs = self._prior(params, cond)
+        if eps is None:
+            z = densities.gaussian_sample(generator, mean, logs, eps_std)
+        else:
+            z = mean + torch.exp(logs) * eps
+        if self.n_flow_step > 0:
+            z = self._run_steps(params, z, cond)
+        return z, cond

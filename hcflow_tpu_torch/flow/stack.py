@@ -1,0 +1,49 @@
+"""Sequences of K homogeneous flow steps, held as a list of per-step param dicts.
+
+The JAX package stacks the steps' params and runs ``lax.scan``; here a Python loop
+runs the list.  The inverse runs the steps from k = K-1 down to 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import invconv, nets
+from .flowstep import FlowStepSpec
+
+
+def init_stack(spec: FlowStepSpec, generator: torch.Generator, n_steps: int) -> list:
+    return [spec.init(generator) for _ in range(n_steps)]
+
+
+def precompute_invconv(steps: list) -> list:
+    """Attach every step's invconv inverse (out of the serving hot path)."""
+    return [{**p, "invconv": invconv.precompute(p["invconv"])} for p in steps]
+
+
+def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
+    for p in reversed(steps):
+        z, logdet = spec.inverse(p, z, u, logdet)
+    return z, logdet
+
+
+def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torch.Tensor:
+    """All K steps' conv1 cond contributions as ONE wide conv.
+
+    conv1 is linear and bias-free, and u is the same for every step, so the K cond
+    slices of its weight concatenate into one conv.  Returns NHWC (B, H, W, K*hidden):
+    channels ``k*hidden : (k+1)*hidden`` are step k's term, the layout the chain
+    kernel reads.
+    """
+    cond = spec.cond_channels
+    w_u = torch.cat([p["coupling"]["f"]["conv1"]["w"][:, -cond:] for p in steps], 0)
+    return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype)
+
+
+def inverse_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None):
+    """Inverse with every step's cond term precomputed by :func:`compute_u_contribs`."""
+    uc = compute_u_contribs(spec, steps, u)
+    hid = spec.hidden_channels
+    for k in reversed(range(len(steps))):
+        z, logdet = spec.inverse_hoisted(steps[k], z, uc[..., k * hid : (k + 1) * hid], logdet)
+    return z, logdet

@@ -1,0 +1,167 @@
+"""Inverse flow-step chain: the CUDA kernel ``csrc/chain.cu``, its plain version and
+their packing.
+
+Replaces ``hcflow_tpu/ops/pallas_chain.py`` (``inverse_chain`` / ``_make_kernel``).  A
+chain is K Affine+FCN+invconv steps run from k = K-1 down to 0.  Step k:
+
+1. ``h1 = relu((conv3x3(z1) + uc_k + b1) * e1)``          (uc_k: hoisted cond term)
+2. ``h2 = relu((h1 @ W2 + b2) * e2)``
+3. ``p = conv3x3(h2) * g3 + bg3`` = [shift | scale]      (``exp(3*logs)`` folded in)
+4. ``z2 = z2 * exp(-0.318 * atan(2 * scale)) - shift``
+5. ``z = [z1, z2] @ Wt.T - ab``, ``Wt = diag(exp(-logs)) W^-1``, all float32.
+
+In the bf16 recipe z1, h1, h2 and the net weights are rounded to bf16 and every sum
+is float32; the invertible tail (steps 4-5) stays float32 throughout.
+
+Bound on the card: bytes and operations about even.  A step reads z (f32) and its
+cond term (64 bf16 channels) and writes z, ~300 bytes per pixel, for ~45 kFLOP per
+pixel of bf16 convs: ~150 FLOP/byte against the ~295 FLOP/byte ridge, so the least
+time is 0.02-0.05 ms per 13-step chain at the main path's shapes.  The TPU kernel
+kept a whole image resident in VMEM for all K steps; on the card a whole 80x80
+image's state exceeds the 227 KB of shared memory, and a halo fused over 13 steps
+would be 26 pixels.  So the kernel runs one launch per step, tiled 8x8 over space
+with a 2-pixel halo (1 for conv1, 1 for conv3): h1 and h2 live only in shared
+memory and never reach device memory, and z ping-pongs between two buffers.  This
+first version computes the convs with CUDA-core FMAs out of shared memory, which
+is what bounds it now (5-11 ms per chain, PERF.md); tensor-core tiles and a CUDA
+graph over the 52 launches are later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from . import nets
+
+launches = 0  # chain-step kernel launches (one per flow step)
+
+_FN = "hcflow_chain_inverse"
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def pack_inverse_chain(steps: list, compute_dtype=None) -> dict:
+    """Pack a chain's per-step params (invconv inverses attached) for the kernel.
+
+    The conv weights go to the net dtype; the tail ``Wt``/``ab`` and the per-channel
+    vectors stay float32.  Per step k: ``w1`` (9, c1, hid) ``[tap][c][j]``, ``w2``
+    (hid, hid) ``[in][out]``, ``w3`` (9, hid, 2 c2) with the outputs permuted from
+    the even/odd "cross" split to [shift | scale], ``vec`` = b1, e1, b2, e2, g3, bg3
+    (``e = exp(logs)``, ``g3 = exp(3 logs3)`` folded into conv3's gain and bias),
+    ``wt`` = diag(exp(-logs)) W^-1 and ``ab`` the ActNorm bias.
+    """
+    nd = nets.net_dtype(compute_dtype)
+    f = [p["coupling"]["f"] for p in steps]
+    c = steps[0]["invconv"]["w_inv"].shape[0]
+    c1, c2 = c // 2, c - c // 2
+    perm = torch.cat([torch.arange(0, 2 * c2, 2), torch.arange(1, 2 * c2, 2)]).to(
+        steps[0]["invconv"]["w_inv"].device)
+    w1 = torch.stack([q["conv1"]["w"][:, :c1] for q in f])  # (K, hid, c1, 3, 3)
+    w2 = torch.stack([q["conv2"]["w"][:, :, 0, 0] for q in f])  # (K, out, in)
+    w3 = torch.stack([q["conv3"]["w"][perm] for q in f])
+    K, hid = w1.shape[:2]
+    g3 = torch.stack([torch.exp(3.0 * q["conv3"]["logs"]) for q in f])[:, perm]
+    bg3 = torch.stack([q["conv3"]["b"] for q in f])[:, perm] * g3
+    vec = torch.cat([
+        torch.stack([q["conv1"]["actnorm"]["bias"] for q in f]),
+        torch.stack([torch.exp(q["conv1"]["actnorm"]["logs"]) for q in f]),
+        torch.stack([q["conv2"]["actnorm"]["bias"] for q in f]),
+        torch.stack([torch.exp(q["conv2"]["actnorm"]["logs"]) for q in f]),
+        g3, bg3,
+    ], 1)
+    wt = torch.stack([torch.exp(-p["actnorm"]["logs"])[:, None] * p["invconv"]["w_inv"]
+                      for p in steps])
+    packed = {
+        "w1": w1.permute(0, 3, 4, 2, 1).reshape(K, 9, c1, hid),
+        "w2": w2.transpose(1, 2),
+        "w3": w3.permute(0, 3, 4, 2, 1).reshape(K, 9, hid, 2 * c2),
+        "vec": vec,
+        "wt": wt,
+        "ab": torch.stack([p["actnorm"]["bias"] for p in steps]),
+    }
+    return {k: v.to(nd if k in ("w1", "w2", "w3") else torch.float32).contiguous()
+            for k, v in packed.items()}
+
+
+def _dims(packed):
+    K, _, c1, hid = packed["w1"].shape
+    return K, c1, packed["wt"].shape[1], hid
+
+
+def _conv3x3(x, w_tap):
+    """x NHWC, w_tap (9, cin, cout) -> NHWC, float32."""
+    w = w_tap.float().reshape(3, 3, *w_tap.shape[1:]).permute(3, 2, 0, 1)
+    return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+
+
+def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (float32 convs, bf16 rounding where
+    the kernel rounds)."""
+    K, c1, c, hid = _dims(packed)
+    c2 = c - c1
+    bf = packed["w1"].dtype == torch.bfloat16
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf else (lambda t: t)
+    with nets.exact_f32():
+        for k in reversed(range(K)):
+            b1, e1, b2, e2, g3, bg3 = packed["vec"][k].split([hid] * 4 + [2 * c2] * 2)
+            z1, z2 = z[..., :c1], z[..., c1:]
+            h = _conv3x3(rnd(z1), packed["w1"][k])
+            if uc is not None:
+                h = h + uc[..., k * hid : (k + 1) * hid].float()
+            h = rnd(torch.relu((h + b1) * e1))
+            h = rnd(torch.relu((h @ packed["w2"][k].float() + b2) * e2))
+            p = _conv3x3(h, packed["w3"][k]) * g3 + bg3
+            shift, scale = p[..., :c2], p[..., c2:]
+            z2 = z2 * torch.exp(-0.318 * torch.atan(2.0 * scale)) - shift
+            z = torch.cat([z1, z2], -1) @ packed["wt"][k].T - packed["ab"][k]
+    return z
+
+
+def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
+    """Run the K-step inverse chain (k = K-1 down to 0) on NHWC float32 z.
+
+    ``uc`` (a conditional chain only): the hoisted cond terms of
+    ``stack.compute_u_contribs``, (B, H, W, K*hid) in the packed weights' dtype.  A CPU
+    tensor takes the plain version; a CUDA tensor the kernel."""
+    if not z.is_cuda:
+        return inverse_chain_plain(packed, z, uc)
+    return _launch(packed, z, uc)
+
+
+def _launch(packed, z, uc):
+    global launches
+    K, c1, c, hid = _dims(packed)
+    B, H, W, cz = z.shape
+    if cz != c or z.dtype != torch.float32:
+        raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
+    for name in ("w1", "w2", "w3"):
+        if packed[name].dtype != torch.bfloat16:
+            raise ValueError("the chain kernel takes the bf16 recipe's packed weights")
+    c2 = c - c1
+    shapes = {"w2": (K, hid, hid), "w3": (K, 9, hid, 2 * c2), "vec": (K, 4 * hid + 4 * c2),
+              "wt": (K, c, c), "ab": (K, c)}
+    for name, shape in shapes.items():
+        if tuple(packed[name].shape) != shape:
+            raise ValueError(f"packed {name} has shape {tuple(packed[name].shape)}, not {shape}")
+    if uc is not None and (uc.dtype != torch.bfloat16 or tuple(uc.shape) != (B, H, W, K * hid)):
+        raise ValueError(f"uc must be bf16 of shape {(B, H, W, K * hid)}")
+    z = z.contiguous()
+    tensors = [z, *(packed[n] for n in ("w1", "w2", "w3", "vec", "wt", "ab"))]
+    if uc is not None:
+        tensors.append(uc)
+    if not all(t.is_cuda and t.is_contiguous() for t in tensors):
+        raise ValueError("chain kernel inputs must be contiguous CUDA tensors")
+    bufs = [torch.empty_like(z), torch.empty_like(z)]
+    lib = _build.load("chain", _FN, _ARGTYPES)
+    err = lib.hcflow_chain_inverse(
+        z.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+        uc.data_ptr() if uc is not None else None,
+        *(packed[n].data_ptr() for n in ("w1", "w2", "w3", "vec", "wt", "ab")),
+        B, H, W, c, hid, K, torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _build.check(lib, _FN, err)
+    launches += K
+    return bufs[(K - 1) % 2]

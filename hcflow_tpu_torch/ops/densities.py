@@ -1,0 +1,26 @@
+"""Diagonal Gaussian density over NHWC feature maps."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+
+def gaussian_likelihood(mean, logs, x):
+    """Elementwise log N(x; mean, exp(logs)^2)."""
+    return -0.5 * (logs * 2.0 + ((x - mean) ** 2) * torch.exp(-2.0 * logs) + LOG_2PI)
+
+
+def gaussian_logp(mean, logs, x):
+    """Sum of the elementwise log-likelihood over (H, W, C); shape (B,)."""
+    return gaussian_likelihood(mean, logs, x).sum(dim=(1, 2, 3))
+
+
+def gaussian_sample(generator, mean, logs, eps_std) -> torch.Tensor:
+    """mean + exp(logs) * eps with eps ~ N(0, eps_std^2), drawn from ``generator``
+    (a generator on the device of ``mean``, or None for the global one)."""
+    eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(logs) * (eps * eps_std)

@@ -1,0 +1,182 @@
+"""Non-invertible sub-networks: conv+ActNorm, Conv2dZeros, FCN and the RRDB encoder.
+
+Functions take NHWC tensors and OIHW weights (PyTorch's conv layout); each conv runs
+as ``F.conv2d`` on an NCHW view of the NHWC tensor, which is channels-last memory.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import actnorm
+
+_DTYPES = {"bfloat16": torch.bfloat16}  # compute_dtype None is the float32 recipe
+
+
+def net_dtype(compute_dtype) -> torch.dtype:
+    return torch.float32 if compute_dtype is None else _DTYPES[compute_dtype]
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Run float32 convolutions and matrix products in full float32.
+
+    cuDNN computes float32 convolutions in TF32 by default (about three decimal
+    digits), and a caller may have allowed TF32 matrix products; the invertible
+    path and the plain kernel versions must use neither.
+    """
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def conv2d(x, w, b=None, compute_dtype=None) -> torch.Tensor:
+    """'same'-padded stride-1 conv, NHWC x OIHW -> NHWC float32.
+
+    compute_dtype=None: full float32.  compute_dtype='bfloat16': bf16 operands, the
+    output rounded through bf16 and upcast, as hcflow_tpu/ops/nets.py:48-55 writes it.
+    """
+    pad = (w.shape[2] - 1) // 2
+    xc = x.permute(0, 3, 1, 2)
+    if compute_dtype is not None:
+        dt = _DTYPES[compute_dtype]
+        y = F.conv2d(xc.to(dt), w.to(dt), padding=pad).float()
+    else:
+        with exact_f32():
+            y = F.conv2d(xc.float(), w, padding=pad)
+    y = y.permute(0, 2, 3, 1)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def lrelu(x):
+    return F.leaky_relu(x, 0.2)
+
+
+# ---------------------------------------------------------------------------- inits
+def _fans(shape):  # OIHW
+    o, i, kh, kw = shape
+    return i * kh * kw, o * kh * kw
+
+
+def xavier_normal(generator, shape, scale=1.0):
+    fan_in, fan_out = _fans(shape)
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    return torch.randn(shape, generator=generator) * (std * scale)
+
+
+def torch_default_conv(generator, shape):
+    """PyTorch's default Conv2d init: U(+-1/sqrt(fan_in)) for weight and bias."""
+    fan_in, _ = _fans(shape)
+    bound = 1.0 / math.sqrt(fan_in)
+    w = (torch.rand(shape, generator=generator) * 2 - 1) * bound
+    b = (torch.rand(shape[0], generator=generator) * 2 - 1) * bound
+    return w, b
+
+
+# ------------------------------------------------------------------- Conv + ActNorm
+def init_conv_actnorm(generator, cin, cout, ksize, scale=0.1):
+    """Bias-free conv (xavier init) followed by ActNorm."""
+    return {
+        "w": xavier_normal(generator, (cout, cin, ksize, ksize), scale),
+        "actnorm": actnorm.init(cout),
+    }
+
+
+def apply_conv_actnorm(params, x, compute_dtype=None):
+    y = conv2d(x, params["w"], compute_dtype=compute_dtype)
+    return actnorm.forward(params["actnorm"], y)[0]
+
+
+# ----------------------------------------------------------------------- Conv2dZeros
+def init_conv_zeros(cin, cout, ksize=3):
+    return {
+        "w": torch.zeros(cout, cin, ksize, ksize),
+        "b": torch.zeros(cout),
+        "logs": torch.zeros(cout),
+    }
+
+
+def apply_conv_zeros(params, x, logscale_factor: float = 3.0):
+    """Always float32: its output feeds the invertible arithmetic."""
+    y = conv2d(x, params["w"], params["b"])
+    return y * torch.exp(params["logs"] * logscale_factor)
+
+
+# ------------------------------------------------------------------------------ FCN
+def init_fcn(generator, cin, cout, hidden, kernel_hidden=1):
+    return {
+        "conv1": init_conv_actnorm(generator, cin, hidden, 3),
+        "conv2": init_conv_actnorm(generator, hidden, hidden, kernel_hidden),
+        "conv3": init_conv_zeros(hidden, cout, 3),
+    }
+
+
+def apply_fcn(params, x, compute_dtype=None):
+    x = torch.relu(apply_conv_actnorm(params["conv1"], x, compute_dtype))
+    x = torch.relu(apply_conv_actnorm(params["conv2"], x, compute_dtype))
+    return apply_conv_zeros(params["conv3"], x)
+
+
+def apply_fcn_hoisted(params, z1, u_contrib, compute_dtype=None):
+    """FCN whose conv1 contribution from the cond channels is precomputed.
+
+    conv1 is linear and bias-free, so conv1(cat(z1, u)) = conv1_z(z1) + conv1_u(u).
+    """
+    w_z = params["conv1"]["w"][:, : z1.shape[-1]]
+    h = conv2d(z1, w_z, compute_dtype=compute_dtype) + u_contrib
+    h = torch.relu(actnorm.forward(params["conv1"]["actnorm"], h)[0])
+    h = torch.relu(apply_conv_actnorm(params["conv2"], h, compute_dtype))
+    return apply_conv_zeros(params["conv3"], h)
+
+
+# --------------------------------------------------------------- RDB / RRDB encoder
+def init_rdb(generator, nf=64, gc=32):
+    """ResidualDenseBlock: xavier(0.1) convs, out = conv_stack(x) * 0.2 + x."""
+    p = {}
+    for i in range(5):
+        cin, cout = nf + i * gc, (gc if i < 4 else nf)
+        p[f"conv{i + 1}"] = {
+            "w": xavier_normal(generator, (cout, cin, 3, 3), 0.1),
+            "b": torch.zeros(cout),
+        }
+    return p
+
+
+def apply_rdb(params, x, compute_dtype=None):
+    feats = [x]
+    for i in range(1, 5):
+        c = params[f"conv{i}"]
+        feats.append(lrelu(conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype)))
+    c = params["conv5"]
+    return conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype) * 0.2 + x
+
+
+def init_rrdb(generator, nf=64, gc=32):
+    return {f"rdb{i}": init_rdb(generator, nf, gc) for i in (1, 2, 3)}
+
+
+def apply_rrdb(params, x, compute_dtype=None):
+    out = x
+    for i in (1, 2, 3):
+        out = apply_rdb(params[f"rdb{i}"], out, compute_dtype)
+    return out * 0.2 + x
+
+
+def init_rrdb_trunk(generator, nb, nf=64, gc=32):
+    """A trunk is a list of ``nb`` RRDB parameter dicts."""
+    return [init_rrdb(generator, nf, gc) for _ in range(nb)]
+
+
+def apply_rrdb_trunk(params, x, compute_dtype=None):
+    for p in params:
+        x = apply_rrdb(p, x, compute_dtype)
+    return x

@@ -1,0 +1,130 @@
+"""RRDB encoder block: the CUDA kernel ``csrc/rrdb.cu``, its plain version and packing.
+
+Replaces ``hcflow_tpu/ops/pallas_rdb.py`` (``rrdb_apply`` / ``_make_kernel``, driven
+by ``trunk_apply``).  One RRDB is three residual dense blocks; a dense block with
+input x runs five 3x3 convs over growing concats,
+``x_i = lrelu_0.2(conv_i(cat(x, x_1..x_{i-1})) + b_i)`` for i = 1..4 and
+``x <- 0.2 * (conv_5(cat(x, x_1..x_4)) + b_5) + x``; the RRDB returns
+``0.2 * x + x_in``.  Operands are bf16, every sum and the residual carries float32.
+
+Bound on the card: operations.  At nf 64 / gc 32 a dense block is 239,616 MAC per
+pixel, so the four trunks of the x4 reverse pass are about 2.58 TFLOP at batch 16
+(2.6 ms at the card's 989 TFLOP/s bf16 peak) against a few hundred MB of
+activations.  The kernel therefore runs every conv on the tensor cores (WMMA bf16,
+float32 accumulation) as one launch per conv over 8x16-pixel tiles, with the
+concats free: each dense block writes its features into channel slices of one
+NHWC bf16 buffer and each conv reads a channel prefix of it.  The TPU kernel's
+grouping of the convs by source feature existed for the TPU's 128-lane layout and
+is not carried over; unlike it, the RRDB input and the carries stay float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from . import nets
+
+launches = 0  # CUDA kernel launches made by rrdb_apply (16 per RRDB)
+LAUNCHES_PER_RRDB = 16  # one bf16 conversion of the input, then 15 convs
+
+_FN = "hcflow_rrdb_apply"
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
+    """Pack one RRDB's params (rdb1..3, conv1..5 OIHW) for the kernel.
+
+    ``w``: 15 weights (9, cin, cout) in the net dtype, ``[tap][ci][co]`` with tap =
+    3 * ky + kx, dense block r's conv i+1 at index 5 r + i; ``b``: the 15 biases, f32.
+    """
+    nd = nets.net_dtype(compute_dtype)
+    ws, bs = [], []
+    for r in (1, 2, 3):
+        for i in range(1, 6):
+            conv = rrdb[f"rdb{r}"][f"conv{i}"]
+            cout, cin = conv["w"].shape[:2]
+            ws.append(conv["w"].permute(2, 3, 1, 0).reshape(9, cin, cout).to(nd).contiguous())
+            bs.append(conv["b"].float().contiguous())
+    return {"w": ws, "b": bs}
+
+
+def pack_rrdb_trunk(trunk: list, compute_dtype=None) -> list:
+    return [pack_rrdb(p, compute_dtype) for p in trunk]
+
+
+def _conv(x, w_tap, b):
+    """x NHWC, w_tap (9, cin, cout) -> NHWC float32 conv + bias, in full float32."""
+    cout = w_tap.shape[2]
+    w = w_tap.float().reshape(3, 3, -1, cout).permute(3, 2, 0, 1)
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
+
+
+def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: the conv operands rounded to the
+    packed weights' dtype, float32 sums, float32 carries."""
+    wd = packed["w"][0].dtype
+
+    def rnd(t):
+        return t.to(wd).float()
+
+    x_in = x = x.float()
+    with nets.exact_f32():
+        for r in range(3):
+            feats = [rnd(x)]
+            for i in range(4):
+                k = 5 * r + i
+                feats.append(rnd(nets.lrelu(_conv(torch.cat(feats, -1), packed["w"][k],
+                                                  packed["b"][k]))))
+            k = 5 * r + 4
+            x = _conv(torch.cat(feats, -1), packed["w"][k], packed["b"][k]) * 0.2 + x
+    return x * 0.2 + x_in
+
+
+def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
+    """One RRDB on NHWC float32 x.  A CPU tensor takes the plain version; a CUDA
+    tensor the kernel."""
+    if not x.is_cuda:
+        return rrdb_apply_plain(packed, x)
+    global launches
+    B, H, W, nf = x.shape
+    gc = packed["w"][0].shape[2]
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32, got {x.dtype}")
+    if nf % 32 or gc % 32 or nf > 64 or gc > 64:
+        raise ValueError(f"the RRDB kernel takes nf and gc of 32 or 64, got nf={nf} gc={gc}")
+    tensors = packed["w"] + packed["b"]
+    if any(w.dtype != torch.bfloat16 for w in packed["w"]):
+        raise ValueError("the RRDB kernel takes the bf16 recipe's packed weights")
+    for k, w in enumerate(packed["w"]):
+        cout = gc if k % 5 < 4 else nf
+        if tuple(w.shape) != (9, nf + k % 5 * gc, cout) or packed["b"][k].shape != (cout,):
+            raise ValueError(f"packed conv {k} has shape {tuple(w.shape)}")
+    if not all(t.is_cuda and t.is_contiguous() for t in tensors):
+        raise ValueError("RRDB kernel weights must be contiguous CUDA tensors")
+    # the two dense-block buffers: (B, H, W, nf + 4 gc) bf16 each
+    dense = [torch.empty((B, H, W, nf + 4 * gc), dtype=torch.bfloat16, device=x.device)
+             for _ in range(2)]
+    out = torch.empty_like(x)
+    lib = _build.load("rrdb", _FN, _ARGTYPES)
+    w_ptrs = (ctypes.c_void_p * 15)(*(w.data_ptr() for w in packed["w"]))
+    b_ptrs = (ctypes.c_void_p * 15)(*(b.data_ptr() for b in packed["b"]))
+    err = lib.hcflow_rrdb_apply(
+        x.data_ptr(), out.data_ptr(), dense[0].data_ptr(), dense[1].data_ptr(),
+        ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), B, H, W, nf, gc,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, _FN, err)
+    launches += LAUNCHES_PER_RRDB
+    return out
+
+
+def trunk_apply(packed: list, x: torch.Tensor) -> torch.Tensor:
+    """A trunk of RRDBs (packed by :func:`pack_rrdb_trunk`) on NHWC x; float32 out."""
+    x = x.float().contiguous()
+    for p in packed:
+        x = rrdb_apply(p, x)
+    return x
