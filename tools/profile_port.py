@@ -1,13 +1,13 @@
 """Profile the PyTorch port's x4 SR reverse pass on one NVIDIA GPU with torch.profiler.
 
-    python3 tools/profile_port.py [--passes 3] [--trace chiprun_out/port_trace.json]
+    python3 tools/profile_port.py [--passes 3] [--trace port_trace.json]
 
 Same model, weights and workload as chip_smoke.py phase 3 (full width, bf16 serving
 recipe, batch 16, 40x40 -> 160x160, heat 0.9, kernel path).  After two warm-up passes
 it profiles ``--passes`` passes and prints the device time by kernel name, the
 window's wall time (CUDA events) and the device's busy share (summed kernel time
-over wall time; one stream, so kernels do not overlap).  The driver does not run
-it: it is the measurement behind PERF.md's breakdown.
+over wall time; one stream, so kernels do not overlap).  It is the measurement
+behind PERF.md's breakdown; chip_smoke.py does not run it.
 """
 
 from __future__ import annotations
