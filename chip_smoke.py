@@ -1,24 +1,35 @@
-"""Drive the PyTorch port's x4 SR serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--json PATH]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases:
 
-1. print the card's name and power limit; build both CUDA kernels from
-   hcflow_tpu_torch/csrc with nvcc (sm_90a) and print the build time;
-2. hold each kernel against its plain PyTorch version on the card, at every shape
-   of the main path (RRDB at 40x40 and 80x80; the four inverse chains), with bf16
-   weights perturbed from a seed, and time both;
-3. run the flagship x4 model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
+1. print the card's name and power limit; build the three CUDA kernels from
+   hcflow_tpu_torch/csrc with nvcc (sm_90a, in parallel) and print their ptxas
+   register and shared-memory lines and the build time;
+2. hold each kernel against its plain PyTorch version on the card, at every shape of
+   both main paths, with bf16 weights perturbed from a seed, and time both: the SR
+   path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
+   path's chain3s main chains (K 8, c 24 at 40x40 and c 12 at 80x80), RRDB at gc 16
+   at both sizes and 6-step split-off chains;
+3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
    against the plain path under the same explicit latents, that heat 0 is
-   deterministic and that both kernels ran; time the pass with CUDA events;
-4. print the kernels' JSON line, then the JSON status line last.
+   deterministic and the exact launch count of each kernel; time the pass;
+4. the x4 rescaling model at full width (default_x4: K 14 with 6 split-off steps,
+   Haar squeeze, Affine3shift/DenseBlock main chains of growth 32, RRDB nb (2, 1),
+   nf 64, gc 16) in the bf16 serving recipe: an HR batch (16, 160, 160, 3) is
+   downscaled by the forward, quantized to 8 bits and upscaled by the reverse at heat
+   1.0, as a few requests with different generator seeds; check the outputs, the
+   exact launch counts, the kernel path against the plain path, heat 0, and the round
+   trip HR -> (LR, latents) -> HR; time the downscale and the upscale;
+5. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Any failed check raises, and the script exits non-zero without the status line.
-Weights are random (the checkpoint of the repo is a tiny topology), perturbed so
-that the zero-initialised layers (coupling conv3s, the prior head) do work.
+Weights are random (no trained checkpoint of these topologies is in the repo),
+perturbed so that the zero-initialised layers (coupling conv3s and conv5s, the prior
+heads) do work.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import sys
 import time
 
 BATCH, LR_HW, SCALE, HEAT = 16, 40, 4, 0.9
+RS_HEAT = 1.0  # the rescaling test config's heat (configs/test_Rescaling_DF2K_4X_HCFlow.yml)
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # float32 outside the tensor cores
@@ -44,6 +56,16 @@ KERNEL_RTOL = 1e-3  # max |kernel - plain| / max |plain|
 # path also rounds each net conv's OUTPUT through bf16 (as the JAX recipe does) and
 # the kernels do not, about 2^-9 relative per conv, carried through 52 steps.
 MODEL_MAX_RTOL, MODEL_MEAN_RTOL = 5e-2, 1e-2  # of max |plain| and of mean |plain|
+# Rescaling round trip HR -> (LR, latents) -> HR, HR in [0, 1], before the clamp and the
+# quantization.  Plain path: forward and reverse run the same nets on inputs equal to
+# float32 rounding, so only an input landing across a bf16 rounding boundary moves a
+# net's output, by one bf16 step (2^-8 relative of a shift below ~0.5), at a few
+# pixels: 2e-3 max abs.  Kernel path: the reverse's kernels also do not round the net
+# outputs through bf16 as the forward's plain nets do, 2^-9 relative of every shift
+# and scale, mostly cancelling over the steps: 5e-3 max abs, 5e-4 mean abs.  (Measured
+# on an H100: 3.6e-4 plain; 6.0e-4 max and 8.5e-5 mean on the kernel path.)
+RT_PLAIN_MAX = 2e-3
+RT_KERNEL_MAX, RT_KERNEL_MEAN = 5e-3, 5e-4
 
 
 def log(msg):
@@ -125,82 +147,186 @@ def chain_work(B, H, W, c, hid, K, cond):
     return bf, f32, nbytes
 
 
+def chain3s_work(B, H, W, c, gc, K):
+    """(bf16 FLOP, f32 FLOP, bytes) of one K-step rescaling main chain at its real
+    (unpadded) widths: z in and out once, the weights once."""
+    px = B * H * W
+    macs = 0
+    for k in range(K):
+        cin, fout = (3, 2 * (c - 3)) if k % 2 == 0 else (c - 3, 3)
+        macs += sum(9 * (cin + i * gc) * (gc if i < 4 else fout) for i in range(5))
+    f32 = 4 * px * K * c  # the coupling update and the ActNorm inverse, ~4 FLOP a value
+    weights = 2 * macs + 4 * K * (4 * gc + 2 * c)  # one weight per MAC; biases, ActNorm
+    return 2 * px * macs, f32, 2 * px * c * 4 + weights
+
+
 def bound(ops_s, nbytes):
     mem_s = nbytes / PEAK_BYTES
     return (max(ops_s, mem_s) * 1e3, "operations" if ops_s >= mem_s else "bytes")
 
 
 # --------------------------------------------------------------------------- phases
-def phase_kernels(torch, gen):
-    from hcflow_tpu_torch.flow import stack
-    from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
-    from hcflow_tpu_torch.ops import chain, nets, rrdb
-
-    dev = DEV
-    nf, gc, hid, K, nb = 64, 32, 64, 13, 7
-    rows = {"rrdb": [], "chain": []}
-
-    log("phase 2: kernels against their plain versions on the card")
-    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(11), 1, nf, gc), gen)
-    packed = rrdb.pack_rrdb(trunk[0], "bfloat16")
-    packed = {k: [t.to(dev) for t in v] for k, v in packed.items()}
-    for hw, calls in ((LR_HW, 2 * nb), (2 * LR_HW, 2 * nb)):  # trunk0 + trunk1 per level
-        x = torch.randn(BATCH, hw, hw, nf, device=dev, generator=gen)
-        got = rrdb.rrdb_apply(packed, x)
-        ref = rrdb.rrdb_apply_plain(packed, x)
-        torch.cuda.synchronize()
-        err = check_rel(f"rrdb {BATCH}x{hw}x{hw}x{nf}", got, ref, KERNEL_RTOL)
-        ms = cuda_time(lambda: rrdb.rrdb_apply(packed, x), reps=10)
-        plain_ms = cuda_time(lambda: rrdb.rrdb_apply_plain(packed, x), reps=3)
-        flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc)
-        b_ms, b_by = bound(flops / PEAK_BF16, nbytes)
-        log(f"    {ms:.4f} ms/RRDB (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s), {calls} calls per pass")
-        rows["rrdb"].append(dict(shape=[BATCH, hw, hw, nf], calls_per_pass=calls, err=err,
-                                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-
-    # (level, cond, c, spatial): the cond chains and the main chains of both levels
-    chains = [("L1 cond", True, 21, LR_HW), ("L0 cond", True, 6, 2 * LR_HW),
-              ("L1 main", False, 24, LR_HW), ("L0 main", False, 12, 2 * LR_HW)]
-    for name, cond, c, hw in chains:
-        spec = FlowStepSpec(in_channels=c, cond_channels=2 * nf if cond else None,
-                            hidden_channels=hid, compute_dtype="bfloat16")
-        steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
-        steps = stack.precompute_invconv(perturb(steps, gen))
-        steps = [{k: _to(v, dev) for k, v in s.items()} for s in steps]
-        pk = chain.pack_inverse_chain(steps, "bfloat16")
-        z = torch.randn(BATCH, hw, hw, c, device=dev, generator=gen)
-        uc = None
-        if cond:
-            u = torch.randn(BATCH, hw, hw, 2 * nf, device=dev, generator=gen)
-            uc = stack.compute_u_contribs(spec, steps, u).to(torch.bfloat16).contiguous()
-        got = chain.inverse_chain(pk, z, uc)
-        ref = chain.inverse_chain_plain(pk, z, uc)
-        torch.cuda.synchronize()
-        err = check_rel(f"chain {name} {BATCH}x{hw}x{hw}x{c} K={K}", got, ref, KERNEL_RTOL)
-        ms = cuda_time(lambda: chain.inverse_chain(pk, z, uc), reps=20)
-        plain_ms = cuda_time(lambda: chain.inverse_chain_plain(pk, z, uc), reps=5)
-        bf, f32, nbytes = chain_work(BATCH, hw, hw, c, hid, K, cond)
-        b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
-        log(f"    {ms:.4f} ms/chain (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}), "
-            f"1 call per pass")
-        rows["chain"].append(dict(shape=[BATCH, hw, hw, c], chain=name, K=K, calls_per_pass=1,
-                                  err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by))
-    return rows
-
-
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, **extra):
+    """Check one kernel call against its plain version and time both.  work = (bf16
+    FLOP, float32 FLOP, bytes) of the function."""
+    import torch
+
+    def first(r):
+        return r[0] if isinstance(r, tuple) else r  # chain3s also returns its logdet
+
+    got, ref = first(fn()), first(plain_fn())
+    torch.cuda.synchronize()
+    err = check_rel(label, got, ref, KERNEL_RTOL)
+    ms = cuda_time(fn, reps=reps)
+    plain_ms = cuda_time(plain_fn, reps=max(2, reps // 4))
+    bf, f32, nbytes = work
+    b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+    log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+        f"{(bf + f32) / ms / 1e9:.1f} TFLOP/s), {calls} calls per {path} unit")
+    rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **extra))
+
+
+def _rrdb_rows(torch, gen, rows, gc, shapes, path):
+    from hcflow_tpu_torch.ops import nets, rrdb
+
+    nf = 64
+    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(11), 1, nf, gc), gen)
+    packed = _to(rrdb.pack_rrdb(trunk[0], "bfloat16"), DEV)
+    for hw, calls in shapes:
+        x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
+        flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc)
+        _row(rows, "rrdb", f"rrdb gc {gc} {BATCH}x{hw}x{hw}x{nf}",
+             lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
+             (flops, 0, nbytes), 10, path, calls, shape=[BATCH, hw, hw, nf], gc=gc)
+
+
+def _chain_rows(torch, gen, rows, K, cond_ch, chains, path):
+    from hcflow_tpu_torch.flow import stack
+    from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
+    from hcflow_tpu_torch.ops import chain
+
+    hid = 64
+    for name, cond, c, hw in chains:
+        spec = FlowStepSpec(in_channels=c, cond_channels=cond_ch if cond else None,
+                            hidden_channels=hid, compute_dtype="bfloat16")
+        steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
+        steps = _to(stack.precompute_invconv(perturb(steps, gen)), DEV)
+        pk = chain.pack_inverse_chain(steps, "bfloat16")
+        z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
+        uc = None
+        if cond:
+            u = torch.randn(BATCH, hw, hw, cond_ch, device=DEV, generator=gen)
+            uc = stack.compute_u_contribs(spec, steps, u).to(torch.bfloat16).contiguous()
+        _row(rows, "chain", f"chain {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+             lambda: chain.inverse_chain(pk, z, uc), lambda: chain.inverse_chain_plain(pk, z, uc),
+             chain_work(BATCH, hw, hw, c, hid, K, cond), 20, path, 1,
+             shape=[BATCH, hw, hw, c], chain=name, K=K)
+
+
+def _chain3s_rows(torch, gen, rows, K, chains, path):
+    from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
+    from hcflow_tpu_torch.ops import chain3s
+
+    gc = 32
+    for name, c, hw in chains:
+        specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype="bfloat16",
+                              flow_permutation="none", flow_coupling="Affine3shift",
+                              nn_module="DenseBlock", lr_vs_others=(k % 2 == 0))
+                 for k in range(K)]
+        g = torch.Generator().manual_seed(13)
+        steps = _to(perturb([s.init(g) for s in specs], gen), DEV)
+        pk = chain3s.pack_inverse_chain3s(steps, "bfloat16")
+        z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
+        _row(rows, "chain3s", f"chain3s {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+             lambda: chain3s.inverse_chain(pk, z), lambda: chain3s.inverse_chain3s_plain(pk, z),
+             chain3s_work(BATCH, hw, hw, c, gc, K), 10, path, 1,
+             shape=[BATCH, hw, hw, c], chain=name, K=K)
+
+
+def phase_kernels(torch, gen):
+    """Every kernel against its plain version at every shape of both main paths.
+    calls_per_pass counts a row's calls per SR reverse pass or per rescaling request
+    (downscale + upscale)."""
+    rows = {"rrdb": [], "chain": [], "chain3s": []}
+    log("phase 2: kernels against their plain versions on the card")
+    log("  SR path (x4, nb 7, gc 32, K 13, hidden 64)")
+    _rrdb_rows(torch, gen, rows, 32, ((LR_HW, 14), (2 * LR_HW, 14)), "sr")  # trunk0+1 x 7
+    _chain_rows(torch, gen, rows, 13, 128, [("L1 cond", True, 21, LR_HW),
+                                            ("L0 cond", True, 6, 2 * LR_HW),
+                                            ("L1 main", False, 24, LR_HW),
+                                            ("L0 main", False, 12, 2 * LR_HW)], "sr")
+    log("  rescaling path (x4, nb (2, 1), gc 16, main K 8 growth 32, split-off K 6)")
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, LR_HW), ("L0 main", 12, 2 * LR_HW)],
+                  "rescaling")
+    # 3 RRDBs a level, run by the downscale and again by the upscale
+    _rrdb_rows(torch, gen, rows, 16, ((LR_HW, 6), (2 * LR_HW, 6)), "rescaling")
+    _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, LR_HW),
+                                          ("L0 cond", True, 6, 2 * LR_HW)], "rescaling")
+    return rows
+
+
+def _counts():
+    from hcflow_tpu_torch.ops import chain, chain3s, rrdb
+
+    return {"rrdb": rrdb.launches, "chain": chain.launches, "chain3s": chain3s.launches}
+
+
+def _reset_counts():
+    from hcflow_tpu_torch.ops import chain, chain3s, rrdb
+
+    rrdb.launches = chain.launches = chain3s.launches = 0
+
+
+def _check_counts(path, launches, per_unit, n):
+    log(f"  {n} requests: launches {launches}")
+    for k, per in per_unit.items():
+        if launches[k] != per * n:
+            raise AssertionError(f"{path}: {k} made {launches[k]} launches, expected {per} "
+                                 f"per request")
+
+
+def _compare_paths(name, a, b):
+    """Kernel path a against plain path b, before the clamp."""
+    d = (a - b).abs()
+    max_abs, mean_abs = d.max().item(), d.mean().item()
+    max_ref, mean_ref = b.abs().max().item(), b.abs().mean().item()
+    log(f"  {name}, kernel path vs plain path: max abs {max_abs:.3e} of max |plain| "
+        f"{max_ref:.3e} (tol {MODEL_MAX_RTOL:g} x), mean abs {mean_abs:.3e} of mean |plain| "
+        f"{mean_ref:.3e} (tol {MODEL_MEAN_RTOL:g} x)")
+    if not (max_abs <= MODEL_MAX_RTOL * max_ref and mean_abs <= MODEL_MEAN_RTOL * mean_ref):
+        raise AssertionError(f"{name}: the kernel path disagrees with the plain path")
+    return max_abs, mean_abs
+
+
+def _median_ms(fn, n=7):
+    """Median ms of n calls, each timed alone with CUDA events (after warm-up)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
 
 
 def phase_model(torch, gen):
     from hcflow_tpu_torch.models import HCFlowSRSpec
-    from hcflow_tpu_torch.ops import chain, nets, rrdb
+    from hcflow_tpu_torch.ops import nets
 
-    log("phase 3: flagship x4 model, full width, bf16 serving recipe")
+    log("phase 3: flagship x4 SR model, full width, bf16 serving recipe")
     model = HCFlowSRSpec.for_scale(SCALE, compute_dtype="bfloat16")
     t0 = time.perf_counter()
     params = perturb(model.init(0, device=DEV), gen)
@@ -236,15 +362,11 @@ def phase_model(torch, gen):
 
     # the main path: a few requests, counted
     seeds = (1, 2, 3)
-    rrdb.launches = chain.launches = 0
+    _reset_counts()
     outs = [request(s) for s in seeds]
     torch.cuda.synchronize()
-    launches = {"rrdb": rrdb.launches, "chain": chain.launches}
-    log(f"  {len(seeds)} requests: launches {launches}")
-    per_pass = {"rrdb": 28 * rrdb.LAUNCHES_PER_RRDB, "chain": 4 * 13}
-    for k, n in per_pass.items():
-        if launches[k] != n * len(seeds):
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {n} per pass")
+    launches = _counts()
+    _check_counts("SR", launches, {"rrdb": 28 * 16, "chain": 4 * 13, "chain3s": 0}, len(seeds))
     for s, out in zip(seeds, outs):
         if tuple(out.shape) != hr_shape or not torch.isfinite(out).all():
             raise AssertionError(f"request {s}: bad output {tuple(out.shape)}")
@@ -262,27 +384,12 @@ def phase_model(torch, gen):
     eps = [torch.randn(BATCH, 2 * LR_HW, 2 * LR_HW, 6, device=DEV, generator=gen),
            torch.randn(BATCH, LR_HW, LR_HW, 21, device=DEV, generator=gen)]
     with torch.no_grad():
-        a = model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps)
-        b = model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps)
-    d = (a - b).abs()
-    max_abs, mean_abs = d.max().item(), d.mean().item()
-    max_ref, mean_ref = b.abs().max().item(), b.abs().mean().item()
-    log(f"  kernel path vs plain path (same eps_list, before the clamp): max abs "
-        f"{max_abs:.3e} of max |plain| {max_ref:.3e} (tol {MODEL_MAX_RTOL:g} x), mean abs "
-        f"{mean_abs:.3e} of mean |plain| {mean_ref:.3e} (tol {MODEL_MEAN_RTOL:g} x)")
-    if not (max_abs <= MODEL_MAX_RTOL * max_ref and mean_abs <= MODEL_MEAN_RTOL * mean_ref):
-        raise AssertionError("the kernel path disagrees with the plain path")
+        max_abs, mean_abs = _compare_paths(
+            "SR reverse (same eps_list)", model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps),
+            model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps))
 
     # time per pass, CUDA events, after warm-up
-    times = []
-    for i in range(7):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        request(100 + i)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
+    ms, times = _median_ms(lambda: request(100))
     plain_ms = cuda_time(lambda: request(200, p=plain), reps=2, warmup=1)
     mps = BATCH * (LR_HW * SCALE) ** 2 / 1e6 / (ms / 1e3)
     log(f"  reverse pass: median {ms:.3f} ms over {len(times)} passes "
@@ -293,11 +400,107 @@ def phase_model(torch, gen):
                 head_rel_err=head_err, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def phase_rescaling(torch, gen):
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, quantize
+
+    log("phase 4: x4 rescaling model, full width, bf16 serving recipe")
+    model = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
+    params = perturb(model.init(0, device=DEV), gen)
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params, fused=False)
+    hr = torch.rand(BATCH, LR_HW * SCALE, LR_HW * SCALE, 3, device=DEV, generator=gen)
+    lr_shape = (BATCH, LR_HW, LR_HW, 3)
+
+    def request(seed, heat=RS_HEAT, p=fused):
+        lr, _ = model.forward(p, hr)
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        return lr, model.reverse(p, quantize(lr), heat, generator=g)
+
+    request(0)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: a few requests (downscale, quantize, upscale), counted
+    seeds = (1, 2, 3)
+    _reset_counts()
+    outs = [request(s) for s in seeds]
+    torch.cuda.synchronize()
+    launches = _counts()
+    # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
+    # steps; 2 main chains of 1 + 5 x 8 launches
+    _check_counts("rescaling", launches, {"rrdb": 2 * 6 * 16, "chain": 2 * 6, "chain3s": 2 * 41},
+                  len(seeds))
+    for s, (lr, out) in zip(seeds, outs):
+        if tuple(lr.shape) != lr_shape or tuple(out.shape) != tuple(hr.shape):
+            raise AssertionError(f"request {s}: bad shapes {tuple(lr.shape)} {tuple(out.shape)}")
+        for t in (lr, out):
+            if not torch.isfinite(t).all() or t.min() < 0 or t.max() > 1:
+                raise AssertionError(f"request {s}: output not finite in [0, 1]")
+    inside = ((outs[0][1] > 0) & (outs[0][1] < 1)).float().mean().item()
+    log(f"  LR {lr_shape} and HR {tuple(hr.shape)}, finite, in [0, 1]; {inside:.3f} of HR "
+        "values inside (0, 1)")
+    if torch.equal(outs[0][1], outs[1][1]):
+        raise AssertionError("heat 1.0: two seeds gave the same image")
+    if not torch.equal(request(1, 0.0)[1], request(2, 0.0)[1]):
+        raise AssertionError("heat 0 is not deterministic across seeds")
+    log("  heat 0 deterministic across seeds; heat 1.0 differs by seed")
+
+    with torch.no_grad():
+        # the downscale: its LR does not pass the encoders and is the same on both
+        # paths; its latents do, through the RRDB kernel (fused) or the plain encoders
+        z_f, zs_f = model.flow.normal_flow(fused, hr)
+        z_p, zs_p = model.flow.normal_flow(plain, hr)
+        if not torch.equal(z_f, z_p):
+            raise AssertionError("the downscale's LR differs between the two paths")
+        fwd_err = [_compare_paths(f"downscale latent, level {i}", a, b)
+                   for i, (a, b) in enumerate(zip(zs_f, zs_p))]
+        # the upscale under the same explicit latents, before the clamp
+        eps = [torch.randn(BATCH, 2 * LR_HW, 2 * LR_HW, 6, device=DEV, generator=gen),
+               torch.randn(BATCH, LR_HW, LR_HW, 21, device=DEV, generator=gen)]
+        lq = quantize(z_p.clamp(0, 1))
+        rev_err = _compare_paths("upscale (same eps_list)",
+                                 model.flow.reverse_flow(fused, lq, RS_HEAT, eps_list=eps),
+                                 model.flow.reverse_flow(plain, lq, RS_HEAT, eps_list=eps))
+        # the round trip: the unquantized LR and its own latents give HR back
+        rt_plain = (model.flow.reverse_flow(plain, z_p, RS_HEAT, eps_list=zs_p) - hr).abs()
+        rt_kernel = (model.flow.reverse_flow(fused, z_f, RS_HEAT, eps_list=zs_f) - hr).abs()
+    rt = dict(plain_max=rt_plain.max().item(), kernel_max=rt_kernel.max().item(),
+              kernel_mean=rt_kernel.mean().item())
+    log(f"  round trip HR -> (LR, latents) -> HR: plain path max abs {rt['plain_max']:.3e} "
+        f"(tol {RT_PLAIN_MAX:g}); kernel path max abs {rt['kernel_max']:.3e} (tol "
+        f"{RT_KERNEL_MAX:g}), mean abs {rt['kernel_mean']:.3e} (tol {RT_KERNEL_MEAN:g})")
+    if not (rt["plain_max"] <= RT_PLAIN_MAX and rt["kernel_max"] <= RT_KERNEL_MAX
+            and rt["kernel_mean"] <= RT_KERNEL_MEAN):
+        raise AssertionError("the round trip does not reproduce HR")
+
+    # time the downscale and the upscale, CUDA events, after warm-up
+    lq = quantize(model.forward(fused, hr)[0])
+    g = torch.Generator(device=DEV).manual_seed(100)
+    down_ms, down_times = _median_ms(lambda: model.forward(fused, hr))
+    up_ms, up_times = _median_ms(lambda: model.reverse(fused, lq, RS_HEAT, generator=g))
+    down_plain = cuda_time(lambda: model.forward(plain, hr), reps=2, warmup=1)
+    up_plain = cuda_time(lambda: model.reverse(plain, lq, RS_HEAT, generator=g), reps=2,
+                         warmup=1)
+    hr_mp = BATCH * (LR_HW * SCALE) ** 2 / 1e6
+    out = dict(launches=launches, up_ms=up_ms, up_times_ms=up_times,
+               up_mp_per_s=hr_mp / up_ms * 1e3, up_plain_ms=up_plain, down_ms=down_ms,
+               down_times_ms=down_times, down_mp_per_s=hr_mp / down_ms * 1e3, down_plain_ms=down_plain,
+               down_path_err=fwd_err, up_path_err=rev_err, round_trip=rt,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for name in ("up", "down"):
+        log(f"  {'upscale' if name == 'up' else 'downscale'}: median {out[name + '_ms']:.3f} ms "
+            f"over 7 passes ({', '.join(f'{t:.3f}' for t in out[name + '_times_ms'])}) = "
+            f"{out[name + '_mp_per_s']:.3f} HR MP/s; plain path {out[name + '_plain_ms']:.3f} ms")
+    return out
+
+
 def kernel_lines(rows, launches):
+    """One entry a kernel; ms, plain_ms and bound_ms summed over one SR reverse pass
+    and one rescaling request."""
     out = []
     meta = {
         "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547"),
         "chain": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360"),
+        "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305"),
     }
     for name, (source, replaces) in meta.items():
         rs = rows[name]
@@ -305,12 +508,15 @@ def kernel_lines(rows, launches):
                for k in ("ms", "plain_ms", "bound_ms")}
         share = {b: sum(r["bound_ms"] * r["calls_per_pass"] for r in rs if r["bound_by"] == b)
                  for b in ("bytes", "operations")}
-        by = max(share, key=share.get)  # what bounds most of the pass's least time
+        by = max(share, key=share.get)  # what bounds most of the least time
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(r["err"] for r in rs),
+            "launches": sum(n[name] for n in launches.values()),
+            "max_abs_err": max(r["err"] for r in rs),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": by, "library_ms": None, "per": "reverse pass", "shapes": rs,
+            "bound_by": by, "library_ms": None,
+            "per": "SR reverse pass + rescaling request (downscale + upscale)",
+            "launches_by_path": {p: n[name] for p, n in launches.items()}, "shapes": rs,
         })
     return out
 
@@ -338,18 +544,19 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
     log(f"  kernels built in {build_s:.1f} s: {', '.join(_build.KERNELS)}")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(torch, gen)
-    model = phase_model(torch, gen)
-    kernels = kernel_lines(rows, model["launches"])
+    sr = phase_model(torch, gen)
+    rs = phase_rescaling(torch, gen)
+    kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"]})
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": model},
-                      f, indent=1)
+            json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
+                       "rescaling": rs}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

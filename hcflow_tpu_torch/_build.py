@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on first use, into
 ``build/lib<name>-<hash>.so`` inside this package (a directory git ignores), keyed by
-the source's content so that an edited source is rebuilt.  A failed build raises.
+the content of the source and of the shared headers ``csrc/*.cuh``, so that an edited
+source is rebuilt.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("rrdb", "chain")
+KERNELS = ("rrdb", "chain", "chain3s")
 
 _loaded: dict = {}
 
@@ -38,7 +39,9 @@ def source(name: str) -> Path:
 
 
 def library(name: str) -> Path:
-    digest = hashlib.sha1(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    text = source(name).read_bytes() + headers
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -1,8 +1,10 @@
 """Params of the JAX package, as numpy arrays, in this package's layout.
 
 The JAX package keeps conv weights HWIO, stacks the K steps of a chain and the nb
-RRDBs of a trunk along a leading axis (for ``lax.scan``), and nests dicts.  Here
-conv weights are OIHW and stacks are lists of per-step / per-RRDB dicts.
+RRDBs of a trunk along a leading axis (for ``lax.scan``), and nests dicts; the
+rescaling model's main chains, whose steps differ in shape, it keeps as lists of
+per-step dicts.  Here conv weights are OIHW and every chain or trunk is a list of
+per-step / per-RRDB dicts.
 """
 
 from __future__ import annotations
@@ -36,14 +38,20 @@ def _index(tree, i):
 
 def _unstack(tree, device) -> list:
     """A stacked subtree (leading scan axis) as a list of converted per-entry dicts."""
-    if isinstance(tree, (list, tuple)) and len(tree) == 0:
-        return []
     return [_convert(_index(tree, i), device) for i in range(_leading(tree))]
+
+
+def _steps(tree, device) -> list:
+    """A chain: a list of per-step dicts converted one by one, or a stacked tree."""
+    if isinstance(tree, (list, tuple)):
+        return [_convert(p, device) for p in tree]
+    return _unstack(tree, device)
 
 
 def params_from_jax(tree: dict, spec, device="cuda") -> dict:
     """Convert ``FlowNetSpec.init`` params of the JAX package (every leaf a numpy
-    array) for ``spec`` (an ``HCFlowSRSpec`` or ``FlowNetSpec`` of this package).
+    array) for ``spec`` (an ``HCFlowSRSpec``, ``HCFlowRescalingSpec`` or
+    ``FlowNetSpec`` of this package).
 
     Derived entries (invconv inverses, packed kernel weights) are not carried over:
     ``precompute_inference`` makes them.
@@ -59,5 +67,5 @@ def params_from_jax(tree: dict, spec, device="cuda") -> dict:
             cond[name] = _unstack(c[name], device)
         if lv.cond_spec.n_flow_step > 0:
             cond["steps"] = _unstack(c["steps"], device)
-        out[f"level{lv.level}"] = {"main": _unstack(lp["main"], device), "cond": cond}
+        out[f"level{lv.level}"] = {"main": _steps(lp["main"], device), "cond": cond}
     return out

@@ -1,18 +1,24 @@
-"""Per-level conditional flow, SR reverse direction: RRDB encoder, prior, inverse steps.
+"""Per-level conditional flow: RRDB encoder, prior, conditional flow steps.
 
-A split-off latent ``a`` (the channels removed at a hierarchy level) is sampled
+A split-off latent ``a`` (the channels removed at a hierarchy level) is modelled
 conditionally on ``u`` (the retained channels, concatenated with the upsampled
 conditioning features of the deeper levels):
 
 - conditioning encoder: conv_first -> RRDB trunk0 = feat1 -> RRDB trunk1 ->
-  trunk_conv1, plus the conv_first skip = feat2; the cond features are
-  cat(feat1, feat2) (2 nf channels);
-- a zero-init conv prior head maps them to (mean, logs), ``z = mean + exp(logs)*eps``;
-- ``n_flow_step`` conditional flow steps are inverted on z.
+  trunk_conv1, plus the conv_first skip = feat2.  SR (``sr=True``): the cond
+  features are cat(feat1, feat2), 2 nf channels; rescaling (``sr=False``): feat2
+  alone, nf channels;
+- a zero-init conv prior head maps them to (mean, logs); the rescaling prior bounds
+  logs by ``0.318 * atan(2 * logs)``;
+- ``n_flow_step`` conditional flow steps on a.
+
+Reverse (both kinds): ``z = mean + exp(logs) * eps``, then the steps inverted.
+Forward (rescaling only): the steps, then the whitened ``fake_z = (z - mean) *
+exp(-logs)``; the SR forward (the NLL) is not ported.
 
 With packed weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the
-trunks run the RRDB kernel (ops/rrdb.py) and the steps the inverse-chain kernel
-(ops/chain.py); otherwise the plain step-by-step path runs.
+trunks run the RRDB kernel (ops/rrdb.py) and the inverse steps the inverse-chain
+kernel (ops/chain.py); otherwise the plain step-by-step path runs.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..ops import chain, densities, nets, rrdb
+from ..ops import chain, coupling, densities, nets, rrdb
 from . import stack
 from .flowstep import FlowStepSpec
 
@@ -33,6 +39,7 @@ class ConditionalFlowSpec:
     num_channels_split: int  # channels retained (passed on); a has the rest
     n_flow_step: int = 0
     num_levels_condition: int = 0
+    sr: bool = True  # SR prior and cond features, or the rescaling ones
     rrdb_nb: Sequence[int] = (5, 5)
     rrdb_nf: int = 64
     rrdb_gc: int = 32
@@ -45,7 +52,7 @@ class ConditionalFlowSpec:
 
     @property
     def cond_channels(self) -> int:
-        return 2 * self.rrdb_nf  # cat(feat1, feat2)
+        return 2 * self.rrdb_nf if self.sr else self.rrdb_nf  # cat(feat1, feat2) or feat2
 
     @property
     def conv_first_in(self) -> int:
@@ -88,11 +95,15 @@ class ConditionalFlowSpec:
         feat1 = self._trunk(params, "trunk0", first, cd)
         tc = params["trunk_conv1"]
         feat2 = nets.conv2d(self._trunk(params, "trunk1", feat1, cd), tc["w"], tc["b"], cd)
+        if not self.sr:
+            return feat2 + first
         return torch.cat([feat1, feat2 + first], -1)
 
     def _prior(self, params: dict, cond: torch.Tensor):
+        """(mean, logs); the rescaling prior bounds logs as the couplings do."""
         h = nets.apply_conv_zeros(params["f"], cond)
-        return h[..., 0::2], h[..., 1::2]  # (mean, logs)
+        mean, logs = h[..., 0::2], h[..., 1::2]
+        return mean, logs if self.sr else coupling.clamp_logscale(logs)
 
     def _run_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """Invert the steps: the chain kernel when packed, else the hoisted plain path."""
@@ -102,6 +113,19 @@ class ConditionalFlowSpec:
             return stack.inverse_stack_hoisted(ss, params["steps"], z, cond)[0]
         uc = stack.compute_u_contribs(ss, params["steps"], cond)
         return chain.inverse_chain(packed, z, uc.to(packed["w1"].dtype).contiguous())
+
+    # ------------------------------------------------------------------- forward
+    def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor):
+        """Rescaling: run the steps on a and whiten it against the prior.
+        Returns (fake_z, cond)."""
+        if self.sr:
+            raise NotImplementedError("the SR forward (NLL) is not ported")
+        cond = self.cond_feature(params, u)
+        z = a
+        if self.n_flow_step > 0:
+            z = stack.forward_stack_hoisted(self.step_spec, params["steps"], z, cond)[0]
+        mean, logs = self._prior(params, cond)
+        return (z - mean) * torch.exp(-logs), cond
 
     # ------------------------------------------------------------------- reverse
     def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None):

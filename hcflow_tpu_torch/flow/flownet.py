@@ -1,13 +1,21 @@
-"""Hierarchical flow network, SR reverse direction: L levels of (squeeze -> main flow
-steps -> split + conditional flow).
+"""Hierarchical flow network: L levels of (squeeze -> main flow steps -> split +
+conditional flow), for the SR and the rescaling models.
 
-Per level: checkerboard squeeze -> K[level] - after_splitoff[level] main flow steps
--> channel split (C//2 retained at inner levels, the 3 LR channels at the deepest).
-The reverse pass walks the levels deepest first: level i's conditioning input is
-cat(z_i, up_2(cf_{i+1}), up_4(cf_{i+2}), ...), the retained channels plus the
-nearest-upsampled cond features of every deeper level; the level's conditional
-flow samples the split-off channels, the main steps are inverted and the result is
-unsqueezed.
+Per level: squeeze (checkerboard or Haar) -> K[level] - after_splitoff[level] main
+flow steps -> channel split (C//2 retained at inner levels, the 3 LR channels at the
+deepest).  Level i's conditioning input is cat(z_i, up_2(cf_{i+1}), up_4(cf_{i+2}),
+...), the retained channels plus the nearest-upsampled cond features of every deeper
+level.
+
+- reverse (both models): the levels deepest first; the level's conditional flow
+  samples the split-off channels, the main steps are inverted, the result is
+  unsqueezed;
+- forward (rescaling only, ``normal_flow``): HR -> LR z plus one whitened latent per
+  level.
+
+The rescaling main chains alternate Affine3shift steps (``lr_vs_others`` True at even
+k, False at odd k) with DenseBlock nets and no permutation; their steps differ in
+shape, so a chain is a list of per-step dicts like every other chain here.
 """
 
 from __future__ import annotations
@@ -17,8 +25,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import chain, rrdb
-from ..ops.squeeze import nearest_upsample, unsqueeze2d
+from ..ops import chain, chain3s, rrdb
+from ..ops.squeeze import (
+    haar_squeeze2d,
+    haar_unsqueeze2d,
+    nearest_upsample,
+    squeeze2d,
+    unsqueeze2d,
+)
 from . import stack
 from .conditional import ConditionalFlowSpec
 from .flowstep import FlowStepSpec
@@ -30,18 +44,31 @@ class LevelSpec:
     channels: int  # channels after this level's squeeze
     n_main: int
     split_channels: int  # retained channels after the split
-    main_spec: FlowStepSpec
+    main_spec: FlowStepSpec  # template (lr_vs_others alternates per step, see below)
     cond_spec: ConditionalFlowSpec
+    alternate_lrvsothers: bool = False  # Affine3shift parity alternation (rescaling)
+
+    def main_step_spec(self, k: int) -> FlowStepSpec:
+        if not self.alternate_lrvsothers:
+            return self.main_spec
+        return dataclasses.replace(self.main_spec, lr_vs_others=(k % 2 == 0))
 
 
 @dataclasses.dataclass(frozen=True)
 class FlowNetSpec:
-    """SR flow: invconv permutation, Affine couplings with FCN nets, checkerboard squeeze."""
+    """SR defaults: invconv permutation, Affine couplings with FCN nets, checkerboard
+    squeeze.  The rescaling model sets the Haar squeeze, no permutation, Affine3shift
+    couplings with DenseBlock nets and ``sr=False``."""
 
     in_channels: int = 3
     L: int = 2
     K: Sequence[int] = (26, 26)
     after_splitoff: Sequence[int] = (13, 13)
+    squeeze: str = "checkerboard"  # 'checkerboard' | 'haar'
+    flow_permutation: str = "invconv"  # main chains: 'invconv' | 'none'
+    flow_coupling: str = "Affine"  # main chains: 'Affine' | 'Affine3shift'
+    nn_module: str = "FCN"  # main chains: 'FCN' | 'DenseBlock'
+    sr: bool = True
     hidden_channels: int = 64
     so_hidden_channels: int = 64
     rrdb_nb: Sequence[int] = (5, 5)
@@ -60,12 +87,16 @@ class FlowNetSpec:
                 in_channels=c,
                 hidden_channels=self.hidden_channels,
                 compute_dtype=self.compute_dtype,
+                flow_permutation=self.flow_permutation,
+                flow_coupling=self.flow_coupling,
+                nn_module=self.nn_module,
             )
             cond = ConditionalFlowSpec(
                 num_channels=c,
                 num_channels_split=split_c,
                 n_flow_step=self.after_splitoff[level],
                 num_levels_condition=self.L - 1 - level,
+                sr=self.sr,
                 rrdb_nb=tuple(self.rrdb_nb),
                 rrdb_nf=self.rrdb_nf,
                 rrdb_gc=self.rrdb_gc,
@@ -79,6 +110,7 @@ class FlowNetSpec:
                 split_channels=split_c,
                 main_spec=main,
                 cond_spec=cond,
+                alternate_lrvsothers=self.flow_coupling == "Affine3shift",
             ))
             c = split_c
         return tuple(out)
@@ -89,19 +121,37 @@ class FlowNetSpec:
         params = {}
         for lv in self.levels:
             params[f"level{lv.level}"] = {
-                "main": stack.init_stack(lv.main_spec, generator, lv.n_main),
+                "main": [lv.main_step_spec(k).init(generator) for k in range(lv.n_main)],
                 "cond": lv.cond_spec.init(generator),
             }
         return params
 
-    # -------------------------------------------------------------------- reverse
+    # -------------------------------------------------------------------- squeeze
+    def _squeeze(self, x):
+        return haar_squeeze2d(x) if self.squeeze == "haar" else squeeze2d(x)
+
+    def _unsqueeze(self, x):
+        return haar_unsqueeze2d(x) if self.squeeze == "haar" else unsqueeze2d(x)
+
+    # --------------------------------------------------------------- main chains
+    def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor) -> torch.Tensor:
+        for k, p in enumerate(main):
+            z = lv.main_step_spec(k).forward(p, z)[0]
+        return z
+
     def _main_inverse(self, lv: LevelSpec, level_params: dict, z: torch.Tensor) -> torch.Tensor:
+        """The chain kernels when packed, else the plain step loop."""
         if lv.n_main == 0:
             return z
+        packed3s = level_params.get("main3s_fused")
+        if packed3s is not None:
+            return chain3s.inverse_chain(packed3s, z)[0]
         packed = level_params.get("main_fused")
         if packed is not None:
             return chain.inverse_chain(packed, z)
-        return stack.inverse_stack(lv.main_spec, level_params["main"], z)[0]
+        for k in reversed(range(lv.n_main)):
+            z = lv.main_step_spec(k).inverse(level_params["main"][k], z)[0]
+        return z
 
     def _cond_input(self, i: int, y_i: torch.Tensor, cond_feats) -> torch.Tensor:
         """cat(y_i, up_2(cf_{i+1}), up_4(cf_{i+2}), ...)."""
@@ -110,6 +160,27 @@ class FlowNetSpec:
             pieces.append(nearest_upsample(cond_feats[j], 2 ** (j - i)))
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, -1)
 
+    # -------------------------------------------------------------------- forward
+    def normal_flow(self, params: dict, hr: torch.Tensor):
+        """Rescaling: HR (NHWC) -> (LR z, [whitened latent fake_z per level])."""
+        if self.sr:
+            raise NotImplementedError("the SR forward (NLL) is not ported")
+        z = hr
+        ys, a_s = [], []
+        for lv in self.levels:
+            z = self._main_forward(lv, params[f"level{lv.level}"]["main"], self._squeeze(z))
+            ys.append(z[..., : lv.split_channels])
+            a_s.append(z[..., lv.split_channels :])
+            z = ys[-1]
+        cond_feats = [None] * self.L
+        fake_zs = [None] * self.L
+        for i in reversed(range(self.L)):
+            u = self._cond_input(i, ys[i], cond_feats)
+            fake_zs[i], cond_feats[i] = self.levels[i].cond_spec.forward(
+                params[f"level{i}"]["cond"], a_s[i], u)
+        return z, fake_zs
+
+    # -------------------------------------------------------------------- reverse
     def reverse_flow(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
                      eps_list=None) -> torch.Tensor:
         """LR (NHWC) -> HR, sampling the split-off latents at temperature eps_std from
@@ -124,13 +195,14 @@ class FlowNetSpec:
                 eps=None if eps_list is None else eps_list[i],
             )
             z = self._main_inverse(lv, params[f"level{i}"], torch.cat([z, a], -1))
-            z = unsqueeze2d(z)
+            z = self._unsqueeze(z)
         return z
 
     # --------------------------------------------------------------- inference prep
     def precompute_inference(self, params: dict, fused: bool = False) -> dict:
         """Attach the invconv inverses for serving; with ``fused`` also pack every
-        chain for the inverse-chain kernel and every RRDB trunk for the RRDB kernel
+        chain for its chain kernel (ops/chain.py, or ops/chain3s.py for the
+        alternating rescaling chains) and every RRDB trunk for the RRDB kernel
         (the serving path on the card)."""
         new = {}
         for lv in self.levels:
@@ -141,8 +213,11 @@ class FlowNetSpec:
             if so.n_flow_step > 0:
                 cond["steps"] = stack.precompute_invconv(cond["steps"])
             if fused:
-                if lv.n_main > 0:
-                    lp["main_fused"] = chain.pack_inverse_chain(lp["main"], self.compute_dtype)
+                cd = self.compute_dtype
+                if lv.n_main > 0 and lv.alternate_lrvsothers:
+                    lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
+                elif lv.n_main > 0:
+                    lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd)
                 if so.n_flow_step > 0:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype)
                 for trunk in ("trunk0", "trunk1"):

@@ -1,8 +1,8 @@
-"""One Glow-style flow step, ActNorm -> invconv -> Affine coupling (FCN net);
-inverse direction.
+"""One Glow-style flow step: ActNorm -> (invertible 1x1 conv) -> coupling.
 
-The inverse runs the three inverses in reverse order.  Only the SR steps' kinds are
-ported: invconv permutation with a plain weight, Affine coupling with an FCN net.
+The inverse runs the three inverses in reverse order.  Ported kinds: permutation
+``invconv`` (plain weight) or ``none``; coupling ``Affine`` or ``Affine3shift`` with an
+``FCN`` or ``DenseBlock`` net.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ class FlowStepSpec:
     cond_channels: Optional[int] = None
     hidden_channels: int = 64
     compute_dtype: Optional[str] = None
+    flow_permutation: str = "invconv"  # 'invconv' | 'none'
+    flow_coupling: str = "Affine"  # 'Affine' | 'Affine3shift'
+    nn_module: str = "FCN"  # 'FCN' | 'DenseBlock'
+    lr_vs_others: bool = True  # Affine3shift only
 
     @property
     def coupling_spec(self) -> coupling.CouplingSpec:
@@ -29,21 +33,41 @@ class FlowStepSpec:
             cond_channels=self.cond_channels,
             hidden_channels=self.hidden_channels,
             compute_dtype=self.compute_dtype,
+            kind=self.flow_coupling,
+            nn_module=self.nn_module,
+            lr_vs_others=self.lr_vs_others,
         )
 
     def init(self, generator: torch.Generator) -> dict:
-        return {
-            "actnorm": actnorm.init(self.in_channels),
-            "invconv": invconv.init(generator, self.in_channels),
-            "coupling": self.coupling_spec.init(generator),
-        }
+        params = {"actnorm": actnorm.init(self.in_channels)}
+        if self.flow_permutation == "invconv":
+            params["invconv"] = invconv.init(generator, self.in_channels)
+        elif self.flow_permutation != "none":
+            raise ValueError(f"flow_permutation {self.flow_permutation} is not ported")
+        params["coupling"] = self.coupling_spec.init(generator)
+        return params
+
+    def forward(self, params: dict, z: torch.Tensor, u=None, logdet=None):
+        z, logdet = actnorm.forward(params["actnorm"], z, logdet)
+        if "invconv" in params:
+            z, logdet = invconv.forward(params["invconv"], z, logdet)
+        return self.coupling_spec.forward(params["coupling"], z, u, logdet)
+
+    def forward_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None):
+        """Forward with the coupling's cond term precomputed (see stack.py)."""
+        z, logdet = actnorm.forward(params["actnorm"], z, logdet)
+        if "invconv" in params:
+            z, logdet = invconv.forward(params["invconv"], z, logdet)
+        return self.coupling_spec.forward_hoisted(params["coupling"], z, u_contrib, logdet)
 
     def inverse(self, params: dict, z: torch.Tensor, u=None, logdet=None):
         z, logdet = self.coupling_spec.inverse(params["coupling"], z, u, logdet)
-        z, logdet = invconv.inverse(params["invconv"], z, logdet)
+        if "invconv" in params:
+            z, logdet = invconv.inverse(params["invconv"], z, logdet)
         return actnorm.inverse(params["actnorm"], z, logdet)
 
     def inverse_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None):
         z, logdet = self.coupling_spec.inverse_hoisted(params["coupling"], z, u_contrib, logdet)
-        z, logdet = invconv.inverse(params["invconv"], z, logdet)
+        if "invconv" in params:
+            z, logdet = invconv.inverse(params["invconv"], z, logdet)
         return actnorm.inverse(params["actnorm"], z, logdet)

@@ -1,7 +1,8 @@
 """Sequences of K homogeneous flow steps, held as a list of per-step param dicts.
 
 The JAX package stacks the steps' params and runs ``lax.scan``; here a Python loop
-runs the list.  The inverse runs the steps from k = K-1 down to 0.
+runs the list.  The forward runs the steps from k = 0 up, the inverse from k = K-1
+down to 0.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ def init_stack(spec: FlowStepSpec, generator: torch.Generator, n_steps: int) -> 
 
 
 def precompute_invconv(steps: list) -> list:
-    """Attach every step's invconv inverse (out of the serving hot path)."""
-    return [{**p, "invconv": invconv.precompute(p["invconv"])} for p in steps]
+    """Attach every step's invconv inverse (out of the serving hot path); a step
+    without an invconv is left as it is."""
+    return [{**p, "invconv": invconv.precompute(p["invconv"])} if "invconv" in p else p
+            for p in steps]
 
 
 def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
@@ -38,6 +41,15 @@ def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torc
     cond = spec.cond_channels
     w_u = torch.cat([p["coupling"]["f"]["conv1"]["w"][:, -cond:] for p in steps], 0)
     return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype)
+
+
+def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None):
+    """Forward with every step's cond term precomputed by :func:`compute_u_contribs`."""
+    uc = compute_u_contribs(spec, steps, u)
+    hid = spec.hidden_channels
+    for k in range(len(steps)):
+        z, logdet = spec.forward_hoisted(steps[k], z, uc[..., k * hid : (k + 1) * hid], logdet)
+    return z, logdet
 
 
 def inverse_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None):

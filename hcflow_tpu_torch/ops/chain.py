@@ -32,7 +32,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
 from . import nets
@@ -91,12 +90,6 @@ def _dims(packed):
     return K, c1, packed["wt"].shape[1], hid
 
 
-def _conv3x3(x, w_tap):
-    """x NHWC, w_tap (9, cin, cout) -> NHWC, float32."""
-    w = w_tap.float().reshape(3, 3, *w_tap.shape[1:]).permute(3, 2, 0, 1)
-    return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
-
-
 def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (float32 convs, bf16 rounding where
     the kernel rounds)."""
@@ -108,12 +101,12 @@ def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
         for k in reversed(range(K)):
             b1, e1, b2, e2, g3, bg3 = packed["vec"][k].split([hid] * 4 + [2 * c2] * 2)
             z1, z2 = z[..., :c1], z[..., c1:]
-            h = _conv3x3(rnd(z1), packed["w1"][k])
+            h = nets.conv_taps(rnd(z1), packed["w1"][k])
             if uc is not None:
                 h = h + uc[..., k * hid : (k + 1) * hid].float()
             h = rnd(torch.relu((h + b1) * e1))
             h = rnd(torch.relu((h @ packed["w2"][k].float() + b2) * e2))
-            p = _conv3x3(h, packed["w3"][k]) * g3 + bg3
+            p = nets.conv_taps(h, packed["w3"][k]) * g3 + bg3
             shift, scale = p[..., :c2], p[..., c2:]
             z2 = z2 * torch.exp(-0.318 * torch.atan(2.0 * scale)) - shift
             z = torch.cat([z1, z2], -1) @ packed["wt"][k].T - packed["ab"][k]

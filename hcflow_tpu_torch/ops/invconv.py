@@ -29,14 +29,23 @@ def precompute(params: dict) -> dict:
     return {**params, "w_inv": torch.linalg.inv(w), "logdet_w": torch.linalg.slogdet(w)[1]}
 
 
+def _logdet_w(params: dict) -> torch.Tensor:
+    ld_w = params.get("logdet_w")
+    return torch.linalg.slogdet(params["weight"])[1] if ld_w is None else ld_w
+
+
+def forward(params: dict, x: torch.Tensor, logdet=None):
+    y = _apply(params["weight"], x)
+    if logdet is not None:
+        logdet = logdet + _logdet_w(params) * (x.shape[1] * x.shape[2])
+    return y, logdet
+
+
 def inverse(params: dict, y: torch.Tensor, logdet=None):
     w_inv = params.get("w_inv")
     if w_inv is None:
         w_inv = torch.linalg.inv(params["weight"])
     x = _apply(w_inv, y)
     if logdet is not None:
-        ld_w = params.get("logdet_w")
-        if ld_w is None:
-            ld_w = torch.linalg.slogdet(params["weight"])[1]
-        logdet = logdet - ld_w * (y.shape[1] * y.shape[2])
+        logdet = logdet - _logdet_w(params) * (y.shape[1] * y.shape[2])
     return x, logdet

@@ -1,4 +1,5 @@
-"""Non-invertible sub-networks: conv+ActNorm, Conv2dZeros, FCN and the RRDB encoder.
+"""Non-invertible sub-networks: conv+ActNorm, Conv2dZeros, FCN, DenseBlock and the
+RRDB encoder.
 
 Functions take NHWC tensors and OIHW weights (PyTorch's conv layout); each conv runs
 as ``F.conv2d`` on an NCHW view of the NHWC tensor, which is channels-last memory.
@@ -59,6 +60,14 @@ def conv2d(x, w, b=None, compute_dtype=None) -> torch.Tensor:
 
 def lrelu(x):
     return F.leaky_relu(x, 0.2)
+
+
+def conv_taps(x, w_tap, b=None) -> torch.Tensor:
+    """3x3 'same' conv from a kernel's packed weight: x NHWC, w_tap (9, cin, cout)
+    ``[3 ky + kx][ci][co]`` -> NHWC, in x's dtype (the plain kernel versions call it
+    on float32 under :func:`exact_f32`)."""
+    w = w_tap.to(x.dtype).reshape(3, 3, *w_tap.shape[1:]).permute(3, 2, 0, 1)
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------- inits
@@ -136,6 +145,30 @@ def apply_fcn_hoisted(params, z1, u_contrib, compute_dtype=None):
     h = torch.relu(actnorm.forward(params["conv1"]["actnorm"], h)[0])
     h = torch.relu(apply_conv_actnorm(params["conv2"], h, compute_dtype))
     return apply_conv_zeros(params["conv3"], h)
+
+
+# ----------------------------------------------------------------------- DenseBlock
+def init_dense_block(generator, cin, cout, gc=32):
+    """5-conv dense block, xavier(0.1) convs; conv5 zero-init so the coupling starts
+    as the identity."""
+    p = {}
+    for i in range(4):
+        p[f"conv{i + 1}"] = {
+            "w": xavier_normal(generator, (gc, cin + i * gc, 3, 3), 0.1),
+            "b": torch.zeros(gc),
+        }
+    p["conv5"] = {"w": torch.zeros(cout, cin + 4 * gc, 3, 3), "b": torch.zeros(cout)}
+    return p
+
+
+def apply_dense_block(params, x, compute_dtype=None):
+    """``x_i = lrelu(conv_i(cat(x, x_1..x_{i-1})))`` for i = 1..4, then conv5 over all."""
+    feats = [x]
+    for i in range(1, 5):
+        c = params[f"conv{i}"]
+        feats.append(lrelu(conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype)))
+    c = params["conv5"]
+    return conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype)
 
 
 # --------------------------------------------------------------- RDB / RRDB encoder

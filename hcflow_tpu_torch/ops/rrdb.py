@@ -11,7 +11,8 @@ Bound on the card: operations.  At nf 64 / gc 32 a dense block is 239,616 MAC pe
 pixel, so the four trunks of the x4 reverse pass are about 2.58 TFLOP at batch 16
 (2.6 ms at the card's 989 TFLOP/s bf16 peak) against a few hundred MB of
 activations.  The kernel therefore runs every conv on the tensor cores (WMMA bf16,
-float32 accumulation) as one launch per conv over 8x16-pixel tiles, with the
+float32 accumulation) as one launch per conv over 8x16-pixel tiles (input channels
+staged 32 at a time with a 16-channel tail: nf and gc of 16, 32 or 64), with the
 concats free: each dense block writes its features into channel slices of one
 NHWC bf16 buffer and each conv reads a channel prefix of it.  The TPU kernel's
 grouping of the convs by source feature existed for the TPU's 128-lane layout and
@@ -23,7 +24,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
 from . import nets
@@ -56,13 +56,6 @@ def pack_rrdb_trunk(trunk: list, compute_dtype=None) -> list:
     return [pack_rrdb(p, compute_dtype) for p in trunk]
 
 
-def _conv(x, w_tap, b):
-    """x NHWC, w_tap (9, cin, cout) -> NHWC float32 conv + bias, in full float32."""
-    cout = w_tap.shape[2]
-    w = w_tap.float().reshape(3, 3, -1, cout).permute(3, 2, 0, 1)
-    return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
-
-
 def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: the conv operands rounded to the
     packed weights' dtype, float32 sums, float32 carries."""
@@ -77,10 +70,10 @@ def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
             feats = [rnd(x)]
             for i in range(4):
                 k = 5 * r + i
-                feats.append(rnd(nets.lrelu(_conv(torch.cat(feats, -1), packed["w"][k],
-                                                  packed["b"][k]))))
+                h = nets.conv_taps(torch.cat(feats, -1), packed["w"][k], packed["b"][k])
+                feats.append(rnd(nets.lrelu(h)))
             k = 5 * r + 4
-            x = _conv(torch.cat(feats, -1), packed["w"][k], packed["b"][k]) * 0.2 + x
+            x = nets.conv_taps(torch.cat(feats, -1), packed["w"][k], packed["b"][k]) * 0.2 + x
     return x * 0.2 + x_in
 
 
@@ -94,8 +87,8 @@ def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     gc = packed["w"][0].shape[2]
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32, got {x.dtype}")
-    if nf % 32 or gc % 32 or nf > 64 or gc > 64:
-        raise ValueError(f"the RRDB kernel takes nf and gc of 32 or 64, got nf={nf} gc={gc}")
+    if nf not in (16, 32, 64) or gc not in (16, 32, 64):
+        raise ValueError(f"the RRDB kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
     tensors = packed["w"] + packed["b"]
     if any(w.dtype != torch.bfloat16 for w in packed["w"]):
         raise ValueError("the RRDB kernel takes the bf16 recipe's packed weights")

@@ -34,16 +34,24 @@ def perturb(tree, seed=1, scale=0.05):
 
 def to_jax(tree, key=None):
     """A port param tree in the JAX package's layout, as numpy: lists of per-step or
-    per-RRDB dicts stacked along a leading axis, 4-D conv weights OIHW -> HWIO."""
+    per-RRDB dicts stacked along a leading axis, 4-D conv weights OIHW -> HWIO.  A list
+    whose entries differ in shape (the rescaling model's alternating main chain) stays
+    a list of per-step dicts, as the JAX package holds it."""
     if isinstance(tree, dict):
         return {k: to_jax(v, k) for k, v in tree.items()}
     if isinstance(tree, list):
         if not tree:
             return []
         per = [to_jax(v) for v in tree]
-        return _stack(per)
+        return _stack(per) if len({_shapes(p) for p in per}) == 1 else per
     a = tree.detach().numpy()
     return a.transpose(2, 3, 1, 0) if key == "w" and a.ndim == 4 else a
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(v)) for k, v in sorted(tree.items()))
+    return np.shape(tree)
 
 
 def _stack(per):

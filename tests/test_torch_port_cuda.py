@@ -16,7 +16,7 @@ import torch
 
 from hcflow_tpu_torch.flow import stack
 from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
-from hcflow_tpu_torch.ops import chain, nets, rrdb
+from hcflow_tpu_torch.ops import chain, chain3s, nets, rrdb
 
 RTOL = 1e-3
 
@@ -45,9 +45,10 @@ def _close(got, ref):
     assert (got - ref).abs().max().item() <= RTOL * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("gc", [32, 16])  # SR encoders; rescaling encoders (16-channel tails)
 @pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21)])  # exact tiles, ragged edges
-def test_rrdb_kernel_matches_plain(gen, B, H, W):
-    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, 64, 32), gen)
+def test_rrdb_kernel_matches_plain(gen, B, H, W, gc):
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, 64, gc), gen)
     packed = rrdb.pack_rrdb(trunk[0], "bfloat16")
     x = torch.randn(B, H, W, 64, device="cuda", generator=gen)
     before = rrdb.launches
@@ -75,3 +76,21 @@ def test_chain_kernel_matches_plain(gen, cond, c, H, W):
     torch.cuda.synchronize()
     assert chain.launches == before + 3
     _close(got, chain.inverse_chain_plain(packed, z, uc))
+
+
+@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17)])  # both level widths
+def test_chain3s_kernel_matches_plain(gen, c, K, H, W):
+    specs = [FlowStepSpec(in_channels=c, hidden_channels=32, compute_dtype="bfloat16",
+                          flow_permutation="none", flow_coupling="Affine3shift",
+                          nn_module="DenseBlock", lr_vs_others=(k % 2 == 0)) for k in range(K)]
+    steps = _perturb([s.init(torch.Generator().manual_seed(3 + k)) for k, s in enumerate(specs)],
+                     gen)
+    packed = chain3s.pack_inverse_chain3s(steps, "bfloat16")
+    z = torch.randn(2, H, W, c, device="cuda", generator=gen)
+    before = chain3s.launches
+    got, ld = chain3s.inverse_chain(packed, z)
+    torch.cuda.synchronize()
+    assert chain3s.launches == before + 1 + 5 * K
+    ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
+    _close(got, ref)
+    assert torch.equal(ld, ld_ref)

@@ -1,13 +1,16 @@
-"""Profile the PyTorch port's x4 SR reverse pass on one NVIDIA GPU with torch.profiler.
+"""Profile a serving path of the PyTorch port on one NVIDIA GPU with torch.profiler.
 
-    python3 tools/profile_port.py [--passes 3] [--trace port_trace.json]
+    python3 tools/profile_port.py [--path sr|upscale|downscale] [--passes 3]
+                                  [--trace port_trace.json]
 
-Same model, weights and workload as chip_smoke.py phase 3 (full width, bf16 serving
-recipe, batch 16, 40x40 -> 160x160, heat 0.9, kernel path).  After two warm-up passes
-it profiles ``--passes`` passes and prints the device time by kernel name, the
-window's wall time (CUDA events) and the device's busy share (summed kernel time
-over wall time; one stream, so kernels do not overlap).  It is the measurement
-behind PERF.md's breakdown; chip_smoke.py does not run it.
+``sr``: the x4 SR reverse pass of chip_smoke.py phase 3 (full width, bf16 serving
+recipe, batch 16, 40x40 -> 160x160, heat 0.9, kernel path).  ``upscale`` and
+``downscale``: the x4 rescaling model of phase 4 (full width, bf16, kernel path), its
+reverse at heat 1.0 from a quantized 40x40 LR, or its forward from a 160x160 HR.
+After two warm-up passes it profiles ``--passes`` passes and prints the device time
+by kernel name, the window's wall time (CUDA events) and the device's busy share
+(summed kernel time over wall time; one stream, so kernels do not overlap).  It is
+the measurement behind PERF.md's breakdowns; chip_smoke.py does not run it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import chip_smoke  # noqa: E402
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("sr", "upscale", "downscale"), default="sr")
     ap.add_argument("--passes", type=int, default=3)
     ap.add_argument("--trace", help="also export the Chrome trace to this file")
     args = ap.parse_args(argv)
@@ -31,22 +35,36 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hcflow_tpu_torch.models import HCFlowSRSpec
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec, quantize
 
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.card_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = HCFlowSRSpec.for_scale(chip_smoke.SCALE, compute_dtype="bfloat16")
+    B, hw = chip_smoke.BATCH, chip_smoke.LR_HW
+    if args.path == "sr":
+        model = HCFlowSRSpec.for_scale(chip_smoke.SCALE, compute_dtype="bfloat16")
+        heat = chip_smoke.HEAT
+    else:
+        model = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
+        heat = chip_smoke.RS_HEAT
     params = chip_smoke.perturb(model.init(0), gen)
     params = model.flow.precompute_inference(params, fused=True)
-    B, hw = chip_smoke.BATCH, chip_smoke.LR_HW
-    lr = torch.rand(B, hw, hw, 3, device="cuda", generator=gen)
+    if args.path == "downscale":
+        hr = torch.rand(B, hw * chip_smoke.SCALE, hw * chip_smoke.SCALE, 3, device="cuda",
+                        generator=gen)
 
-    def run(seed):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        return model.reverse(params, lr, chip_smoke.HEAT, generator=g)
+        def run(seed):
+            return model.forward(params, hr)
+    else:
+        lr = torch.rand(B, hw, hw, 3, device="cuda", generator=gen)
+        if args.path == "upscale":
+            lr = quantize(lr)
+
+        def run(seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return model.reverse(params, lr, heat, generator=g)
 
     for s in range(2):
         run(s)
