@@ -4,14 +4,18 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases:
 
-1. print the card's name and power limit; build the three CUDA kernels from
+1. print the card's name and power limit; build the five CUDA kernels from
    hcflow_tpu_torch/csrc with nvcc (sm_90a, in parallel) and print their ptxas
    register and shared-memory lines and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at every shape of
-   both main paths, with bf16 weights perturbed from a seed, and time both: the SR
+   the main paths, with bf16 weights perturbed from a seed, and time both: the x4 SR
    path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
    path's chain3s main chains (K 8, c 24 at 40x40 and c 12 at 80x80), RRDB at gc 16
-   at both sizes and 6-step split-off chains;
+   at both sizes and 6-step split-off chains; the x8 SR path's resident trunk (nb 5,
+   gc 32) at 20x20, 40x40 and 80x80, also against the per-RRDB kernel (bit-identical
+   expected) and timed beside it, and its six 13-step chains; the standalone conv3x3
+   (on no path, as in the JAX package) at the model's library 3x3 shapes, timed
+   beside cuDNN's bf16 conv (its library time, never called by the port);
 3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
@@ -24,7 +28,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    1.0, as a few requests with different generator seeds; check the outputs, the
    exact launch counts, the kernel path against the plain path, heat 0, and the round
    trip HR -> (LR, latents) -> HR; time the downscale and the upscale;
-5. print the kernels' JSON line, the card line, then the JSON status line last.
+5. the x8 SR model (the CelebA-8X topology, for_scale(8): L 3, K 26 with 13 split-off
+   steps a level, nb 5, nf 64, gc 32, hidden 64) at full width in the bf16 serving
+   recipe with resident trunks, batch 16, 20x20 -> 160x160, heat 0.8, as phase 3
+   checks x4, and also against the per-RRDB kernel path; time the pass on all three
+   paths;
+6. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Any failed check raises, and the script exits non-zero without the status line.
 Weights are random (no trained checkpoint of these topologies is in the repo),
@@ -44,6 +53,10 @@ import time
 
 BATCH, LR_HW, SCALE, HEAT = 16, 40, 4, 0.9
 RS_HEAT = 1.0  # the rescaling test config's heat (configs/test_Rescaling_DF2K_4X_HCFlow.yml)
+# x8: 20x20 LR -> 160x160 HR, the CelebA-8X test config's heat 0.8
+# (configs/test_SR_CelebA_8X_HCFlow.yml)
+X8_LR_HW, X8_SCALE, X8_HEAT = 20, 8, 0.8
+X8_NB = 5
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # float32 outside the tensor cores
@@ -134,6 +147,21 @@ def rrdb_work(B, H, W, nf, gc):
     return 2 * 3 * macs * px, 2 * px * nf * 4 + 2 * weights + 4 * biases
 
 
+def trunk_work(B, H, W, nf, gc, nb):
+    """(bf16 FLOP, bytes) of a trunk of nb RRDBs: the input read once, the output
+    written once, every RRDB's weights and biases read once."""
+    flops, nbytes = rrdb_work(B, H, W, nf, gc)
+    io = 2 * B * H * W * nf * 4
+    return nb * flops, io + nb * (nbytes - io)
+
+
+def conv_work(B, H, W, C, N):
+    """(bf16 FLOP, bytes) of a 3x3 conv: float32 x read and float32 out written once,
+    the float32 HWIO weights and bias read once."""
+    px = B * H * W
+    return 2 * px * 9 * C * N, px * (C + N) * 4 + (9 * C * N + N) * 4
+
+
 def chain_work(B, H, W, c, hid, K, cond):
     """(bf16 FLOP, f32 FLOP, bytes) of one K-step inverse chain: z in and out once,
     the cond terms once, the packed weights once."""
@@ -174,9 +202,10 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, **extra):
-    """Check one kernel call against its plain version and time both.  work = (bf16
-    FLOP, float32 FLOP, bytes) of the function."""
+def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=None, **extra):
+    """Check one kernel call against its plain version and time both (and the one
+    library call computing the same function, where there is one).  work = (bf16
+    FLOP, float32 FLOP, bytes) of the function.  Returns the kernel's output."""
     import torch
 
     def first(r):
@@ -187,12 +216,16 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, **extra):
     err = check_rel(label, got, ref, KERNEL_RTOL)
     ms = cuda_time(fn, reps=reps)
     plain_ms = cuda_time(plain_fn, reps=max(2, reps // 4))
+    library_ms = None if library_fn is None else cuda_time(library_fn, reps=reps)
     bf, f32, nbytes = work
     b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
-    log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}, "
         f"{(bf + f32) / ms / 1e9:.1f} TFLOP/s), {calls} calls per {path} unit")
     rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **extra))
+                           plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                           bound_by=b_by, **extra))
+    return got
 
 
 def _rrdb_rows(torch, gen, rows, gc, shapes, path):
@@ -207,6 +240,58 @@ def _rrdb_rows(torch, gen, rows, gc, shapes, path):
         _row(rows, "rrdb", f"rrdb gc {gc} {BATCH}x{hw}x{hw}x{nf}",
              lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
              (flops, 0, nbytes), 10, path, calls, shape=[BATCH, hw, hw, nf], gc=gc)
+
+
+def _trunk_rows(torch, gen, rows, shapes, path):
+    """The resident trunk (nb 5, gc 32) against its plain version and against the
+    per-RRDB kernel run nb times (bit-identical expected), timed beside it."""
+    from hcflow_tpu_torch.ops import nets, rrdb
+
+    nf, gc = 64, 32
+    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(14), X8_NB, nf, gc), gen)
+    trunk = _to(trunk, DEV)
+    res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
+    per = rrdb.pack_rrdb_trunk(trunk, "bfloat16")
+    for hw, calls in shapes:
+        x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
+        label = f"rrdb_trunk nb {X8_NB} gc {gc} {BATCH}x{hw}x{hw}x{nf}"
+        flops, nbytes = trunk_work(BATCH, hw, hw, nf, gc, X8_NB)
+        got = _row(rows, "rrdb_trunk", label, lambda: rrdb.trunk_apply(res, x),
+                   lambda: rrdb.trunk_apply_resident_plain(res, x), (flops, 0, nbytes), 10, path,
+                   calls, shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
+        ref = rrdb.trunk_apply(per, x)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        err = 0.0 if same else check_rel(f"{label} vs per-RRDB kernel", got, ref, KERNEL_RTOL)
+        per_ms = cuda_time(lambda: rrdb.trunk_apply(per, x), reps=10)
+        log(f"    vs the per-RRDB kernel ({X8_NB} x {rrdb.LAUNCHES_PER_RRDB} launches, "
+            f"{per_ms:.4f} ms/trunk): {'bit-identical' if same else f'max abs {err:.3e}'}")
+        rows["rrdb_trunk"][-1].update(per_rrdb_ms=per_ms, identical_to_per_rrdb=same,
+                                      per_rrdb_max_abs=err)
+
+
+def _conv_rows(torch, gen, rows, shapes, path):
+    """conv3x3 against its plain version, and cuDNN's bf16 conv on the same operands
+    (its library time)."""
+    from hcflow_tpu_torch.ops import conv
+
+    F = torch.nn.functional
+    for hw, C, N, relu in shapes:
+        x = torch.randn(BATCH, hw, hw, C, device=DEV, generator=gen)
+        w = torch.randn(3, 3, C, N, device=DEV, generator=gen) / math.sqrt(9 * C)
+        b = 0.1 * torch.randn(N, device=DEV, generator=gen)
+        # the library call: NCHW views of channels-last bf16 operands, OIHW weight
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bb = b.to(torch.bfloat16)
+        act = ", bias + lrelu" if relu else ", bias"
+        flops, nbytes = conv_work(BATCH, hw, hw, C, N)
+        _row(rows, "conv3x3", f"conv3x3 {C}->{N}{act} {BATCH}x{hw}x{hw}",
+             lambda: conv.conv3x3(x, w, b, relu=relu),
+             lambda: conv.conv3x3_plain(x, w, b, relu=relu), (flops, 0, nbytes), 10, path, 1,
+             library_fn=lambda: F.conv2d(xb, wb, bb, padding=1), shape=[BATCH, hw, hw, C], N=N,
+             relu=relu)
 
 
 def _chain_rows(torch, gen, rows, K, cond_ch, chains, path):
@@ -253,10 +338,10 @@ def _chain3s_rows(torch, gen, rows, K, chains, path):
 
 
 def phase_kernels(torch, gen):
-    """Every kernel against its plain version at every shape of both main paths.
+    """Every kernel against its plain version at every shape of the main paths.
     calls_per_pass counts a row's calls per SR reverse pass or per rescaling request
-    (downscale + upscale)."""
-    rows = {"rrdb": [], "chain": [], "chain3s": []}
+    (downscale + upscale); conv3x3, on no path, counts one call at each shape."""
+    rows = {"rrdb": [], "rrdb_trunk": [], "chain": [], "chain3s": [], "conv3x3": []}
     log("phase 2: kernels against their plain versions on the card")
     log("  SR path (x4, nb 7, gc 32, K 13, hidden 64)")
     _rrdb_rows(torch, gen, rows, 32, ((LR_HW, 14), (2 * LR_HW, 14)), "sr")  # trunk0+1 x 7
@@ -271,19 +356,32 @@ def phase_kernels(torch, gen):
     _rrdb_rows(torch, gen, rows, 16, ((LR_HW, 6), (2 * LR_HW, 6)), "rescaling")
     _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, LR_HW),
                                           ("L0 cond", True, 6, 2 * LR_HW)], "rescaling")
+    log(f"  x8 SR path (resident trunks nb {X8_NB}, gc 32; K 13, hidden 64)")
+    hw = X8_LR_HW
+    _trunk_rows(torch, gen, rows, ((hw, 2), (2 * hw, 2), (4 * hw, 2)), "sr8")  # trunk0 + 1
+    _chain_rows(torch, gen, rows, 13, 128, [("L2 cond", True, 45, hw),
+                                            ("L1 cond", True, 12, 2 * hw),
+                                            ("L0 cond", True, 6, 4 * hw),
+                                            ("L2 main", False, 48, hw),
+                                            ("L1 main", False, 24, 2 * hw),
+                                            ("L0 main", False, 12, 4 * hw)], "sr8")
+    log("  conv3x3 (on no path): the x8 model's library 3x3 conv shapes")
+    _conv_rows(torch, gen, rows, ((4 * hw, 262, 64, False), (2 * hw, 140, 64, False),
+                                  (hw, 3, 64, False), (4 * hw, 64, 64, True)), "standalone")
     return rows
 
 
 def _counts():
-    from hcflow_tpu_torch.ops import chain, chain3s, rrdb
+    from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
-    return {"rrdb": rrdb.launches, "chain": chain.launches, "chain3s": chain3s.launches}
+    return {"rrdb": rrdb.launches, "rrdb_trunk": rrdb.trunk_launches, "chain": chain.launches,
+            "chain3s": chain3s.launches, "conv3x3": conv.launches}
 
 
 def _reset_counts():
-    from hcflow_tpu_torch.ops import chain, chain3s, rrdb
+    from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
-    rrdb.launches = chain.launches = chain3s.launches = 0
+    rrdb.launches = rrdb.trunk_launches = chain.launches = chain3s.launches = conv.launches = 0
 
 
 def _check_counts(path, launches, per_unit, n):
@@ -322,24 +420,29 @@ def _median_ms(fn, n=7):
     return statistics.median(times), times
 
 
-def phase_model(torch, gen):
+def phase_sr(torch, gen, scale, lr_hw, heat, per_request, resident=False):
+    """An SR model at full width in the bf16 serving recipe, batch 16: requests with
+    launch counts (per_request: launches of each kernel per request), outputs, heat 0,
+    the kernel path against the plain path (and, with resident trunks, against the
+    per-RRDB kernel path) under the same explicit latents, and the time per pass."""
     from hcflow_tpu_torch.models import HCFlowSRSpec
     from hcflow_tpu_torch.ops import nets
 
-    log("phase 3: flagship x4 SR model, full width, bf16 serving recipe")
-    model = HCFlowSRSpec.for_scale(SCALE, compute_dtype="bfloat16")
+    model = HCFlowSRSpec.for_scale(scale, compute_dtype="bfloat16")
+    L = model.flow.L
     t0 = time.perf_counter()
     params = perturb(model.init(0, device=DEV), gen)
-    fused = model.flow.precompute_inference(params, fused=True)
+    fused = model.flow.precompute_inference(params, fused=True, resident_trunk=resident)
     plain = model.flow.precompute_inference(params, fused=False)
+    per_rrdb = model.flow.precompute_inference(params, fused=True) if resident else None
     torch.cuda.synchronize()
     log(f"  init + perturb + pack: {time.perf_counter() - t0:.1f} s")
 
     # the prior head and the invertible tail are float32 without TF32
     with nets.exact_f32():
         assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
-    head = params["level1"]["cond"]["f"]
-    cond = torch.randn(2, LR_HW, LR_HW, head["w"].shape[1], device=DEV, generator=gen)
+    head = params[f"level{L - 1}"]["cond"]["f"]
+    cond = torch.randn(2, lr_hw, lr_hw, head["w"].shape[1], device=DEV, generator=gen)
     got = nets.apply_conv_zeros(head, cond)
     h64 = {k: v.double().cpu() for k, v in head.items()}
     ref = torch.nn.functional.conv2d(cond.double().cpu().permute(0, 3, 1, 2), h64["w"], h64["b"],
@@ -350,10 +453,10 @@ def phase_model(torch, gen):
     if not head_err < 1e-5:
         raise AssertionError("the float32 prior head conv ran with reduced precision")
 
-    lr = torch.rand(BATCH, LR_HW, LR_HW, 3, device=DEV, generator=gen)
-    hr_shape = (BATCH, LR_HW * SCALE, LR_HW * SCALE, 3)
+    lr = torch.rand(BATCH, lr_hw, lr_hw, 3, device=DEV, generator=gen)
+    hr_shape = (BATCH, lr_hw * scale, lr_hw * scale, 3)
 
-    def request(seed, heat=HEAT, p=fused):
+    def request(seed, heat=heat, p=fused):
         g = torch.Generator(device=DEV).manual_seed(seed)
         return model.reverse(p, lr, heat, generator=g)
 
@@ -366,7 +469,7 @@ def phase_model(torch, gen):
     outs = [request(s) for s in seeds]
     torch.cuda.synchronize()
     launches = _counts()
-    _check_counts("SR", launches, {"rrdb": 28 * 16, "chain": 4 * 13, "chain3s": 0}, len(seeds))
+    _check_counts(f"x{scale} SR", launches, per_request, len(seeds))
     for s, out in zip(seeds, outs):
         if tuple(out.shape) != hr_shape or not torch.isfinite(out).all():
             raise AssertionError(f"request {s}: bad output {tuple(out.shape)}")
@@ -375,29 +478,47 @@ def phase_model(torch, gen):
     inside = ((outs[0] > 0) & (outs[0] < 1)).float().mean().item()
     log(f"  outputs {hr_shape}, finite, in [0, 1]; {inside:.3f} of values inside (0, 1)")
     if torch.equal(outs[0], outs[1]):
-        raise AssertionError("heat 0.9: two seeds gave the same image")
+        raise AssertionError(f"heat {heat}: two seeds gave the same image")
     if not torch.equal(request(1, 0.0), request(2, 0.0)):
         raise AssertionError("heat 0 is not deterministic across seeds")
-    log("  heat 0 deterministic across seeds; heat 0.9 differs by seed")
+    log(f"  heat 0 deterministic across seeds; heat {heat} differs by seed")
 
-    # kernel path vs plain path under the same explicit latents
-    eps = [torch.randn(BATCH, 2 * LR_HW, 2 * LR_HW, 6, device=DEV, generator=gen),
-           torch.randn(BATCH, LR_HW, LR_HW, 21, device=DEV, generator=gen)]
+    # kernel path vs plain path under the same explicit latents, one whitened latent a
+    # level: (B, lr_hw 2^(L-1-i), ..., a_channels) at level i
+    eps = [torch.randn(BATCH, lr_hw * 2 ** (L - 1 - lv.level), lr_hw * 2 ** (L - 1 - lv.level),
+                       lv.cond_spec.a_channels, device=DEV, generator=gen)
+           for lv in model.flow.levels]
+    out = dict(launches=launches, head_rel_err=head_err)
     with torch.no_grad():
-        max_abs, mean_abs = _compare_paths(
-            "SR reverse (same eps_list)", model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps),
-            model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps))
+        got = model.flow.reverse_flow(fused, lr, heat, eps_list=eps)
+        out["path_max_abs"], out["path_mean_abs"] = _compare_paths(
+            f"x{scale} SR reverse (same eps_list)", got,
+            model.flow.reverse_flow(plain, lr, heat, eps_list=eps))
+        if resident:
+            ref = model.flow.reverse_flow(per_rrdb, lr, heat, eps_list=eps)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            err = 0.0 if same else check_rel("resident-trunk path vs per-RRDB kernel path", got,
+                                             ref, KERNEL_RTOL)
+            log(f"  resident-trunk path vs per-RRDB kernel path (same eps_list): "
+                f"{'bit-identical' if same else f'max abs {err:.3e}'}")
+            out.update(per_rrdb_identical=same, per_rrdb_max_abs=err)
 
     # time per pass, CUDA events, after warm-up
+    hr_mp = BATCH * (lr_hw * scale) ** 2 / 1e6
     ms, times = _median_ms(lambda: request(100))
     plain_ms = cuda_time(lambda: request(200, p=plain), reps=2, warmup=1)
-    mps = BATCH * (LR_HW * SCALE) ** 2 / 1e6 / (ms / 1e3)
+    out.update(pass_ms=ms, pass_times_ms=times, mp_per_s=hr_mp / ms * 1e3, plain_pass_ms=plain_ms)
     log(f"  reverse pass: median {ms:.3f} ms over {len(times)} passes "
-        f"({', '.join(f'{t:.3f}' for t in times)}) = {mps:.3f} MP/s; plain path "
+        f"({', '.join(f'{t:.3f}' for t in times)}) = {out['mp_per_s']:.3f} HR MP/s; plain path "
         f"{plain_ms:.3f} ms/pass")
-    return dict(launches=launches, pass_ms=ms, pass_times_ms=times, mp_per_s=mps,
-                plain_pass_ms=plain_ms, path_max_abs=max_abs, path_mean_abs=mean_abs,
-                head_rel_err=head_err, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if resident:
+        per_ms, per_times = _median_ms(lambda: request(300, p=per_rrdb))
+        out.update(per_rrdb_pass_ms=per_ms, per_rrdb_pass_times_ms=per_times)
+        log(f"  per-RRDB kernel path: median {per_ms:.3f} ms over {len(per_times)} passes "
+            f"({', '.join(f'{t:.3f}' for t in per_times)}) = {hr_mp / per_ms * 1e3:.3f} HR MP/s")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def phase_rescaling(torch, gen):
@@ -427,8 +548,8 @@ def phase_rescaling(torch, gen):
     launches = _counts()
     # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
     # steps; 2 main chains of 1 + 5 x 8 launches
-    _check_counts("rescaling", launches, {"rrdb": 2 * 6 * 16, "chain": 2 * 6, "chain3s": 2 * 41},
-                  len(seeds))
+    _check_counts("rescaling", launches, {"rrdb": 2 * 6 * 16, "rrdb_trunk": 0, "chain": 2 * 6,
+                                          "chain3s": 2 * 41, "conv3x3": 0}, len(seeds))
     for s, (lr, out) in zip(seeds, outs):
         if tuple(lr.shape) != lr_shape or tuple(out.shape) != tuple(hr.shape):
             raise AssertionError(f"request {s}: bad shapes {tuple(lr.shape)} {tuple(out.shape)}")
@@ -493,29 +614,38 @@ def phase_rescaling(torch, gen):
     return out
 
 
+KERNELS = {  # name: (source, the Pallas call it replaces, what one unit of ms is)
+    "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547",
+             "x4 SR reverse pass + rescaling request (downscale + upscale)"),
+    "rrdb_trunk": ("hcflow_tpu_torch/csrc/rrdb_trunk.cu", "hcflow_tpu/ops/pallas_rdb.py:476",
+                   "x8 SR reverse pass"),
+    "chain": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
+              "x4 SR reverse pass + rescaling request + x8 SR reverse pass"),
+    "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
+                "rescaling request"),
+    "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",
+                "one call at each of the x8 model's library 3x3 conv shapes (on no path)"),
+}
+
+
 def kernel_lines(rows, launches):
-    """One entry a kernel; ms, plain_ms and bound_ms summed over one SR reverse pass
-    and one rescaling request."""
+    """One entry a kernel; ms, plain_ms, bound_ms and library_ms summed over the unit
+    its "per" names."""
     out = []
-    meta = {
-        "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547"),
-        "chain": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360"),
-        "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305"),
-    }
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, per) in KERNELS.items():
         rs = rows[name]
         tot = {k: sum(r[k] * r["calls_per_pass"] for r in rs)
                for k in ("ms", "plain_ms", "bound_ms")}
         share = {b: sum(r["bound_ms"] * r["calls_per_pass"] for r in rs if r["bound_by"] == b)
                  for b in ("bytes", "operations")}
         by = max(share, key=share.get)  # what bounds most of the least time
+        library = [r["library_ms"] * r["calls_per_pass"] for r in rs if r["library_ms"] is not None]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(n[name] for n in launches.values()),
             "max_abs_err": max(r["err"] for r in rs),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": by, "library_ms": None,
-            "per": "SR reverse pass + rescaling request (downscale + upscale)",
+            "bound_by": by, "library_ms": sum(library) if library else None, "per": per,
             "launches_by_path": {p: n[name] for p, n in launches.items()}, "shapes": rs,
         })
     return out
@@ -550,13 +680,22 @@ def main(argv=None):
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(torch, gen)
-    sr = phase_model(torch, gen)
+    log("phase 3: flagship x4 SR model, full width, bf16 serving recipe")
+    sr = phase_sr(torch, gen, SCALE, LR_HW, HEAT,
+                  {"rrdb": 28 * 16, "rrdb_trunk": 0, "chain": 4 * 13, "chain3s": 0, "conv3x3": 0})
     rs = phase_rescaling(torch, gen)
-    kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"]})
+    log("phase 5: x8 SR model (CelebA-8X topology), full width, bf16 serving recipe, "
+        "resident trunks")
+    # per request: 2 trunks a level, one launch each; 2 chains of 13 steps a level
+    sr8 = phase_sr(torch, gen, X8_SCALE, X8_LR_HW, X8_HEAT,
+                   {"rrdb": 0, "rrdb_trunk": 6, "chain": 6 * 13, "chain3s": 0, "conv3x3": 0},
+                   resident=True)
+    kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
+                                  "sr8": sr8["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
-                       "rescaling": rs}, f, indent=1)
+                       "rescaling": rs, "sr8": sr8}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

@@ -22,7 +22,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("rrdb", "chain", "chain3s")
+KERNELS = ("rrdb", "rrdb_trunk", "chain", "chain3s", "conv")
 
 _loaded: dict = {}
 

@@ -48,7 +48,9 @@ coupling_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict
                 const float* __restrict__ an_s, const float* __restrict__ an_b,
                 bf16* __restrict__ next, int next_ctot, int H, int W) {
   __shared__ __align__(128) unsigned char smem[conv3x3::SMEM_BYTES];
-  const float* s_acc = conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W);
+  const float* s_acc = conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W,
+                                                blockIdx.x * conv3x3::TW,
+                                                blockIdx.y * conv3x3::TH, blockIdx.z);
   const int lane = threadIdx.x % 32, gy = blockIdx.y * conv3x3::TH + threadIdx.x / 32;
   if (gy >= H) return;
   const size_t row = size_t(blockIdx.z) * H * W + size_t(gy) * W;

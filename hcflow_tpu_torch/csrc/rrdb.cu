@@ -20,7 +20,8 @@
 // into the next block's buffer (a second buffer, since neighbouring tiles still
 // read this one).  Staging is not yet pipelined and the products are WMMA, not
 // wgmma, which holds this first version far below the bound (PERF.md);
-// cp.async/TMA rings, wgmma and a resident trunk are later work.
+// cp.async/TMA rings and wgmma are later work.  rrdb_trunk.cu runs a whole trunk of
+// these RRDBs in one launch.
 
 #include "conv3x3.cuh"
 
@@ -29,28 +30,19 @@ namespace {
 using conv3x3::bf16;
 using conv3x3::NTHREADS;
 
-// conv5: x = 0.2 * (conv + b) + xres; then, if xrrdb, x = 0.2 * x + xrrdb; xout = x
-// and, if next, next[..., o] = bf16(x).  xres, xout and xrrdb are (B,H,W,COUT)
-// float; xres may be xout (each element is read and written by the same thread).
+// conv5 of a dense block (conv3x3.cuh's residual_store): x = 0.2 * (conv + b) + xres;
+// then, if xrrdb, x = 0.2 * x + xrrdb; xout = x and, if next, next[..., o] = bf16(x).
 template <int COUT>
 __global__ void __launch_bounds__(NTHREADS)
 residual_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict__ w,
                 const float* __restrict__ bias, const float* xres, float* xout,
-                const float* __restrict__ xrrdb, bf16* __restrict__ next, int H, int W) {
+                const float* xrrdb, bf16* __restrict__ next, int H, int W) {
   __shared__ __align__(128) unsigned char smem[conv3x3::SMEM_BYTES];
-  const float* s_acc = conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W);
-  const int lane = threadIdx.x % 32, gy = blockIdx.y * conv3x3::TH + threadIdx.x / 32;
-  if (gy >= H) return;
-  const size_t row = size_t(blockIdx.z) * H * W + size_t(gy) * W;
-  for (int e = lane; e < 16 * COUT; e += 32) {
-    const int px = e / COUT, o = e % COUT, gx = blockIdx.x * conv3x3::TW + px;
-    if (gx >= W) continue;
-    const size_t pix = row + gx;
-    float x = fmaf(s_acc[e] + bias[o], 0.2f, xres[pix * COUT + o]);
-    if (xrrdb != nullptr) x = fmaf(x, 0.2f, xrrdb[pix * COUT + o]);
-    xout[pix * COUT + o] = x;
-    if (next != nullptr) next[pix * ctot + o] = __float2bfloat16(x);
-  }
+  const int x0 = blockIdx.x * conv3x3::TW, y0 = blockIdx.y * conv3x3::TH;
+  const float* s_acc =
+      conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
+  conv3x3::residual_store<COUT>(s_acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0,
+                                blockIdx.z);
 }
 
 template <int COUT>
@@ -80,14 +72,6 @@ cudaError_t launch_residual(int nf, const bf16* dense, int ctot, const bf16* w,
   }
 }
 
-// dense[..., c] = bf16(x[..., c]) for c < nf
-__global__ void to_dense_kernel(const float* __restrict__ x, bf16* __restrict__ dense, int ctot,
-                                int nf, size_t n) {
-  for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += size_t(gridDim.x) * blockDim.x)
-    dense[(i / nf) * ctot + i % nf] = __float2bfloat16(x[i]);
-}
-
 bool width_ok(int c) { return c == 16 || c == 32 || c == 64; }
 
 }  // namespace
@@ -107,11 +91,7 @@ int hcflow_rrdb_apply(const float* x, float* out, bf16* dense0, bf16* dense1,
   if (B < 1 || H < 1 || W < 1 || !width_ok(nf) || !width_ok(gc))
     return int(cudaErrorInvalidValue);
   const int ctot = nf + 4 * gc;
-  const size_t n = size_t(B) * H * W * nf;
-  const size_t blocks = (n + 255) / 256;
-  to_dense_kernel<<<unsigned(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(x, dense0, ctot,
-                                                                                 nf, n);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = conv3x3::launch_to_dense(x, dense0, ctot, nf, size_t(B) * H * W * nf, stream);
   if (err != cudaSuccess) return int(err);
   bf16* dense[2] = {dense0, dense1};
   for (int r = 0; r < 3; ++r) {

@@ -17,8 +17,9 @@ Forward (rescaling only): the steps, then the whitened ``fake_z = (z - mean) *
 exp(-logs)``; the SR forward (the NLL) is not ported.
 
 With packed weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the
-trunks run the RRDB kernel (ops/rrdb.py) and the inverse steps the inverse-chain
-kernel (ops/chain.py); otherwise the plain step-by-step path runs.
+trunks run an RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch
+when packed with ``resident_trunk``) and the inverse steps the inverse-chain kernel
+(ops/chain.py); otherwise the plain step-by-step path runs.
 """
 
 from __future__ import annotations

@@ -199,11 +199,14 @@ class FlowNetSpec:
         return z
 
     # --------------------------------------------------------------- inference prep
-    def precompute_inference(self, params: dict, fused: bool = False) -> dict:
+    def precompute_inference(self, params: dict, fused: bool = False,
+                             resident_trunk: bool = False) -> dict:
         """Attach the invconv inverses for serving; with ``fused`` also pack every
         chain for its chain kernel (ops/chain.py, or ops/chain3s.py for the
-        alternating rescaling chains) and every RRDB trunk for the RRDB kernel
-        (the serving path on the card)."""
+        alternating rescaling chains) and every RRDB trunk for the RRDB kernels
+        (the serving path on the card): per RRDB, or with ``resident_trunk`` one
+        stacked pack a trunk for the resident-trunk kernel, the counterpart of the
+        JAX package's ``HCFLOW_RDB_TRUNK=1``."""
         new = {}
         for lv in self.levels:
             lp = dict(params[f"level{lv.level}"])
@@ -221,7 +224,8 @@ class FlowNetSpec:
                 if so.n_flow_step > 0:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype)
                 for trunk in ("trunk0", "trunk1"):
-                    cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(cond[trunk], so.compute_dtype)
+                    cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(cond[trunk], so.compute_dtype,
+                                                                  resident=resident_trunk)
             lp["cond"] = cond
             new[f"level{lv.level}"] = lp
         return new

@@ -36,11 +36,16 @@ class HCFlowSRSpec:
 
     @classmethod
     def for_scale(cls, scale: int, **flow_kwargs) -> "HCFlowSRSpec":
-        """The shipped x4 topology: L=2, K=26 with 13 split-off steps, RRDB nb 7.
-        (x8 comes with its own slice and parity test.)"""
-        if scale != 4:
-            raise NotImplementedError(f"scale {scale} is not ported")
-        defaults = dict(L=2, K=(26, 26), after_splitoff=(13, 13), rrdb_nb=(7, 7))
+        """The shipped topologies, as hcflow_tpu/models/hcflow_sr.py builds them: x4 =>
+        L=2, K=26 with 13 split-off steps, RRDB nb 7; x8 (the CelebA-8X face model) =>
+        L=3, K=26 with 13 split-off steps at every level, RRDB nb 5.  Both nf 64, gc
+        32, coupling width 64 unless overridden."""
+        if scale == 4:
+            defaults = dict(L=2, K=(26, 26), after_splitoff=(13, 13), rrdb_nb=(7, 7))
+        elif scale == 8:
+            defaults = dict(L=3, K=(26, 26, 26), after_splitoff=(13, 13, 13), rrdb_nb=(5, 5))
+        else:
+            raise NotImplementedError(f"scale {scale} is not implemented")
         defaults.update(flow_kwargs)
         return cls(flow=FlowNetSpec(**defaults))
 

@@ -1,8 +1,12 @@
-"""RRDB encoder block: the CUDA kernel ``csrc/rrdb.cu``, its plain version and packing.
+"""RRDB encoder blocks: the CUDA kernels ``csrc/rrdb.cu`` (one RRDB) and
+``csrc/rrdb_trunk.cu`` (a whole trunk), their plain versions and packing.
 
-Replaces ``hcflow_tpu/ops/pallas_rdb.py`` (``rrdb_apply`` / ``_make_kernel``, driven
-by ``trunk_apply``).  One RRDB is three residual dense blocks; a dense block with
-input x runs five 3x3 convs over growing concats,
+Replaces ``hcflow_tpu/ops/pallas_rdb.py``: ``rrdb_apply`` / ``_make_kernel`` (one
+RRDB a call) and ``_build_call_trunk`` / ``_make_kernel_trunk`` (one call a trunk,
+the carries resident), both driven by ``trunk_apply``, which takes the per-RRDB
+kernel for a list of packed RRDBs and the resident-trunk kernel for one stacked
+dict, as the JAX package's does.  One RRDB is three residual dense blocks; a dense
+block with input x runs five 3x3 convs over growing concats,
 ``x_i = lrelu_0.2(conv_i(cat(x, x_1..x_{i-1})) + b_i)`` for i = 1..4 and
 ``x <- 0.2 * (conv_5(cat(x, x_1..x_4)) + b_5) + x``; the RRDB returns
 ``0.2 * x + x_in``.  Operands are bf16, every sum and the residual carries float32.
@@ -17,6 +21,12 @@ concats free: each dense block writes its features into channel slices of one
 NHWC bf16 buffer and each conv reads a channel prefix of it.  The TPU kernel's
 grouping of the convs by source feature existed for the TPU's 128-lane layout and
 is not carried over; unlike it, the RRDB input and the carries stay float32.
+
+The resident-trunk kernel runs the same convs for all nb RRDBs of a trunk in one
+cooperative launch (a persistent grid with a grid-wide barrier between conv stages,
+``csrc/rrdb_trunk.cu``): the carries and dense buffers are allocated once per trunk
+and no conversion pass runs between RRDBs; its output is bit-identical to the
+per-RRDB kernel's.
 """
 
 from __future__ import annotations
@@ -30,9 +40,13 @@ from . import nets
 
 launches = 0  # CUDA kernel launches made by rrdb_apply (16 per RRDB)
 LAUNCHES_PER_RRDB = 16  # one bf16 conversion of the input, then 15 convs
+trunk_launches = 0  # cooperative launches of the resident-trunk kernel (1 per trunk)
+WIDTHS = (16, 32, 64)  # the nf and gc both kernels take
 
 _FN = "hcflow_rrdb_apply"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TRUNK_FN = "hcflow_rrdb_trunk_apply"
+_TRUNK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
@@ -52,8 +66,24 @@ def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
     return {"w": ws, "b": bs}
 
 
-def pack_rrdb_trunk(trunk: list, compute_dtype=None) -> list:
-    return [pack_rrdb(p, compute_dtype) for p in trunk]
+def pack_rrdb_trunk(trunk: list, compute_dtype=None, resident: bool = False):
+    """Pack a trunk (a list of RRDB params): a list of :func:`pack_rrdb` dicts for the
+    per-RRDB kernel, or with ``resident`` one stacked dict for the resident-trunk
+    kernel (the JAX package's packing under ``HCFLOW_RDB_TRUNK=1``): ``w[i]`` (3 nb,
+    9, nf + i gc, cout_i) and ``b[i]`` (3 nb, cout_i) hold conv i+1 of dense block j =
+    3 * rrdb + r at row j."""
+    packs = [pack_rrdb(p, compute_dtype) for p in trunk]
+    if not resident:
+        return packs
+    return {k: [torch.stack([p[k][5 * r + i] for p in packs for r in range(3)])
+                for i in range(5)] for k in ("w", "b")}
+
+
+def rrdb_slices(packed: dict) -> list:
+    """A resident-trunk pack as the per-RRDB packs it stacks."""
+    nb = packed["b"][0].shape[0] // 3
+    return [{k: [packed[k][i][3 * n + r] for r in range(3) for i in range(5)]
+             for k in ("w", "b")} for n in range(nb)]
 
 
 def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +117,7 @@ def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     gc = packed["w"][0].shape[2]
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32, got {x.dtype}")
-    if nf not in (16, 32, 64) or gc not in (16, 32, 64):
+    if nf not in WIDTHS or gc not in WIDTHS:
         raise ValueError(f"the RRDB kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
     tensors = packed["w"] + packed["b"]
     if any(w.dtype != torch.bfloat16 for w in packed["w"]):
@@ -115,9 +145,61 @@ def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def trunk_apply(packed: list, x: torch.Tensor) -> torch.Tensor:
-    """A trunk of RRDBs (packed by :func:`pack_rrdb_trunk`) on NHWC x; float32 out."""
+def trunk_apply_resident_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
+    """The resident-trunk kernel's arithmetic in plain PyTorch: the per-RRDB plain
+    version over the stacked pack's slices."""
+    x = x.float()
+    for p in rrdb_slices(packed):
+        x = rrdb_apply_plain(p, x)
+    return x
+
+
+def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
+    """A whole trunk, packed by ``pack_rrdb_trunk(..., resident=True)``, on NHWC float32
+    x.  A CPU tensor takes the plain version; a CUDA tensor the resident-trunk kernel
+    (one cooperative launch), or it raises."""
+    if not x.is_cuda:
+        return trunk_apply_resident_plain(packed, x)
+    global trunk_launches
+    B, H, W, nf = x.shape
+    gc = packed["w"][0].shape[3]
+    nb = packed["b"][0].shape[0] // 3
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32, got {x.dtype}")
+    if nf not in WIDTHS or gc not in WIDTHS:
+        raise ValueError(f"the RRDB trunk kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
+    for i in range(5):
+        cout = gc if i < 4 else nf
+        w, b = packed["w"][i], packed["b"][i]
+        if tuple(w.shape) != (3 * nb, 9, nf + i * gc, cout) or tuple(b.shape) != (3 * nb, cout):
+            raise ValueError(f"packed conv {i + 1} has shape {tuple(w.shape)}, {tuple(b.shape)}")
+        if w.dtype != torch.bfloat16 or b.dtype != torch.float32:
+            raise ValueError("the RRDB trunk kernel takes the bf16 recipe's packed weights")
+        if not (w.is_cuda and b.is_cuda and w.is_contiguous() and b.is_contiguous()):
+            raise ValueError("RRDB trunk kernel weights must be contiguous CUDA tensors")
+    out, carry = torch.empty_like(x), torch.empty_like(x)
+    dense = [torch.empty((B, H, W, nf + 4 * gc), dtype=torch.bfloat16, device=x.device)
+             for _ in range(2)]
+    lib = _build.load("rrdb_trunk", _TRUNK_FN, _TRUNK_ARGTYPES)
+    w_ptrs = (ctypes.c_void_p * 5)(*(w.data_ptr() for w in packed["w"]))
+    b_ptrs = (ctypes.c_void_p * 5)(*(b.data_ptr() for b in packed["b"]))
+    err = lib.hcflow_rrdb_trunk_apply(
+        x.data_ptr(), out.data_ptr(), carry.data_ptr(), dense[0].data_ptr(),
+        dense[1].data_ptr(), ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), B, H, W, nf,
+        gc, nb, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, _TRUNK_FN, err)
+    trunk_launches += 1
+    return out
+
+
+def trunk_apply(packed, x: torch.Tensor) -> torch.Tensor:
+    """A trunk of RRDBs on NHWC x; float32 out.  ``packed`` from
+    :func:`pack_rrdb_trunk`: a list runs the per-RRDB kernel once per RRDB, a stacked
+    dict (``resident=True``) the resident-trunk kernel once."""
     x = x.float().contiguous()
+    if isinstance(packed, dict):
+        return trunk_apply_resident(packed, x)
     for p in packed:
         x = rrdb_apply(p, x)
     return x

@@ -16,7 +16,7 @@ import torch
 
 from hcflow_tpu_torch.flow import stack
 from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
-from hcflow_tpu_torch.ops import chain, chain3s, nets, rrdb
+from hcflow_tpu_torch.ops import chain, chain3s, conv, nets, rrdb
 
 RTOL = 1e-3
 
@@ -56,6 +56,40 @@ def test_rrdb_kernel_matches_plain(gen, B, H, W, gc):
     torch.cuda.synchronize()
     assert rrdb.launches == before + rrdb.LAUNCHES_PER_RRDB
     _close(got, rrdb.rrdb_apply_plain(packed, x))
+
+
+@pytest.mark.parametrize("gc", [32, 16])
+@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21)])
+def test_rrdb_trunk_kernel_equals_per_rrdb_kernel(gen, B, H, W, gc):
+    """The resident-trunk kernel (one cooperative launch for nb 2) is bit-identical to
+    the per-RRDB kernel run twice: the same tile conv, chunks and epilogue order."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, 64, gc), gen)
+    res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
+    x = torch.randn(B, H, W, 64, device="cuda", generator=gen)
+    x0 = x.clone()
+    before = rrdb.trunk_launches
+    got = rrdb.trunk_apply(res, x)
+    torch.cuda.synchronize()
+    assert rrdb.trunk_launches == before + 1
+    assert torch.equal(x, x0)  # the input is not written
+    assert torch.equal(got, rrdb.trunk_apply(rrdb.pack_rrdb_trunk(trunk, "bfloat16"), x))
+    _close(got, rrdb.trunk_apply_resident_plain(res, x))
+
+
+@pytest.mark.parametrize("C,N,bias,relu", [(20, 100, True, True), (3, 64, False, False),
+                                           (64, 24, True, False), (140, 48, False, True)])
+def test_conv3x3_kernel_matches_plain(gen, C, N, bias, relu):
+    """Ragged C and N (padded to multiples of 16, N in chunks of at most 64) and
+    ragged tiles."""
+    x = torch.randn(2, 13, 21, C, device="cuda", generator=gen)
+    w = 0.1 * torch.randn(3, 3, C, N, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(N, device="cuda", generator=gen) if bias else None
+    before = conv.launches
+    got = conv.conv3x3(x, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert conv.launches == before + 1 + (N + 63) // 64
+    assert got.shape == (2, 13, 21, N) and got.dtype == torch.float32
+    _close(got, conv.conv3x3_plain(x, w, b, relu=relu))
 
 
 @pytest.mark.parametrize("cond,c,H,W", [(True, 21, 10, 12), (True, 6, 9, 17),

@@ -1,10 +1,12 @@
 """Profile a serving path of the PyTorch port on one NVIDIA GPU with torch.profiler.
 
-    python3 tools/profile_port.py [--path sr|upscale|downscale] [--passes 3]
+    python3 tools/profile_port.py [--path sr|sr8|upscale|downscale] [--passes 3]
                                   [--trace port_trace.json]
 
 ``sr``: the x4 SR reverse pass of chip_smoke.py phase 3 (full width, bf16 serving
-recipe, batch 16, 40x40 -> 160x160, heat 0.9, kernel path).  ``upscale`` and
+recipe, batch 16, 40x40 -> 160x160, heat 0.9, kernel path).  ``sr8``: the x8 SR
+reverse pass of phase 5 (the CelebA-8X topology at full width, bf16, resident
+trunks, batch 16, 20x20 -> 160x160, heat 0.8).  ``upscale`` and
 ``downscale``: the x4 rescaling model of phase 4 (full width, bf16, kernel path), its
 reverse at heat 1.0 from a quantized 40x40 LR, or its forward from a 160x160 HR.
 After two warm-up passes it profiles ``--passes`` passes and prints the device time
@@ -26,7 +28,7 @@ import chip_smoke  # noqa: E402
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sr", "upscale", "downscale"), default="sr")
+    ap.add_argument("--path", choices=("sr", "sr8", "upscale", "downscale"), default="sr")
     ap.add_argument("--passes", type=int, default=3)
     ap.add_argument("--trace", help="also export the Chrome trace to this file")
     args = ap.parse_args(argv)
@@ -46,11 +48,15 @@ def main(argv=None):
     if args.path == "sr":
         model = HCFlowSRSpec.for_scale(chip_smoke.SCALE, compute_dtype="bfloat16")
         heat = chip_smoke.HEAT
+    elif args.path == "sr8":
+        model = HCFlowSRSpec.for_scale(chip_smoke.X8_SCALE, compute_dtype="bfloat16")
+        heat, hw = chip_smoke.X8_HEAT, chip_smoke.X8_LR_HW
     else:
         model = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
         heat = chip_smoke.RS_HEAT
     params = chip_smoke.perturb(model.init(0), gen)
-    params = model.flow.precompute_inference(params, fused=True)
+    params = model.flow.precompute_inference(params, fused=True,
+                                             resident_trunk=args.path == "sr8")
     if args.path == "downscale":
         hr = torch.rand(B, hw * chip_smoke.SCALE, hw * chip_smoke.SCALE, 3, device="cuda",
                         generator=gen)
