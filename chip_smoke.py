@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
 
 1. print the card's name and power limit; build the five CUDA kernels from
    hcflow_tpu_torch/csrc with nvcc (sm_90a, in parallel) and print their ptxas
-   register and shared-memory lines and the build time;
+   register, spill and wgmma lines and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at every shape of
    the main paths, with bf16 weights perturbed from a seed, and time both: the x4 SR
    path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
@@ -15,7 +15,10 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    gc 32) at 20x20, 40x40 and 80x80, also against the per-RRDB kernel (bit-identical
    expected) and timed beside it, and its six 13-step chains; the standalone conv3x3
    (on no path, as in the JAX package) at the model's library 3x3 shapes, timed
-   beside cuDNN's bf16 conv (its library time, never called by the port);
+   beside cuDNN's bf16 conv (its library time, never called by the port); the RRDB
+   and trunk rows are timed beside the same RRDB or trunk as a sequence of library
+   calls (nets.apply_rrdb / apply_rrdb_trunk in the bf16 recipe: cuDNN bf16 convs
+   and concats), since no single call computes one;
 3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
@@ -228,18 +231,33 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
     return got
 
 
+def _library_trunk(torch, trunk):
+    """A trunk's params on the card with bf16 conv weights, for the library yardstick:
+    nets.apply_rrdb(_trunk) in the bf16 recipe (cuDNN bf16 convs, float32 bias,
+    leaky ReLU, concats and residuals), a sequence of library calls, since no single
+    call computes an RRDB; the port never runs it on the kernel path."""
+    def cast(t):
+        return t.to(DEV, torch.bfloat16) if t.ndim == 4 else t.to(DEV)
+
+    return [{r: {c: {k: cast(v) for k, v in conv.items()} for c, conv in rdb.items()}
+             for r, rdb in p.items()} for p in trunk]
+
+
 def _rrdb_rows(torch, gen, rows, gc, shapes, path):
     from hcflow_tpu_torch.ops import nets, rrdb
 
     nf = 64
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(11), 1, nf, gc), gen)
     packed = _to(rrdb.pack_rrdb(trunk[0], "bfloat16"), DEV)
+    lib = _library_trunk(torch, trunk)[0]
     for hw, calls in shapes:
         x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
         flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc)
         _row(rows, "rrdb", f"rrdb gc {gc} {BATCH}x{hw}x{hw}x{nf}",
              lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
-             (flops, 0, nbytes), 10, path, calls, shape=[BATCH, hw, hw, nf], gc=gc)
+             (flops, 0, nbytes), 10, path, calls,
+             library_fn=lambda: nets.apply_rrdb(lib, x, "bfloat16"), shape=[BATCH, hw, hw, nf],
+             gc=gc)
 
 
 def _trunk_rows(torch, gen, rows, shapes, path):
@@ -249,6 +267,7 @@ def _trunk_rows(torch, gen, rows, shapes, path):
 
     nf, gc = 64, 32
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(14), X8_NB, nf, gc), gen)
+    lib = _library_trunk(torch, trunk)
     trunk = _to(trunk, DEV)
     res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
     per = rrdb.pack_rrdb_trunk(trunk, "bfloat16")
@@ -258,7 +277,8 @@ def _trunk_rows(torch, gen, rows, shapes, path):
         flops, nbytes = trunk_work(BATCH, hw, hw, nf, gc, X8_NB)
         got = _row(rows, "rrdb_trunk", label, lambda: rrdb.trunk_apply(res, x),
                    lambda: rrdb.trunk_apply_resident_plain(res, x), (flops, 0, nbytes), 10, path,
-                   calls, shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
+                   calls, library_fn=lambda: nets.apply_rrdb_trunk(lib, x, "bfloat16"),
+                   shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
         ref = rrdb.trunk_apply(per, x)
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
@@ -614,17 +634,24 @@ def phase_rescaling(torch, gen):
     return out
 
 
-KERNELS = {  # name: (source, the Pallas call it replaces, what one unit of ms is)
+# name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
+# (__global__ functions) its launches run, by the names the profiler shows).  The
+# wgmma tile conv's kernels (conv3x3.cuh: to_dense_kernel, feature_kernel) are shared
+# by rrdb, chain3s and conv3x3; tools/profile_port.py groups device time by these.
+KERNELS = {
     "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547",
-             "x4 SR reverse pass + rescaling request (downscale + upscale)"),
+             "x4 SR reverse pass + rescaling request (downscale + upscale)",
+             ("to_dense_kernel", "feature_kernel", "residual_kernel")),
     "rrdb_trunk": ("hcflow_tpu_torch/csrc/rrdb_trunk.cu", "hcflow_tpu/ops/pallas_rdb.py:476",
-                   "x8 SR reverse pass"),
+                   "x8 SR reverse pass", ("trunk_kernel",)),
     "chain": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
-              "x4 SR reverse pass + rescaling request + x8 SR reverse pass"),
+              "x4 SR reverse pass + rescaling request + x8 SR reverse pass",
+              ("chain_step_kernel",)),
     "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
-                "rescaling request"),
+                "rescaling request", ("prologue_kernel", "feature_kernel", "coupling_kernel")),
     "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",
-                "one call at each of the x8 model's library 3x3 conv shapes (on no path)"),
+                "one call at each of the x8 model's library 3x3 conv shapes (on no path)",
+                ("to_dense_kernel", "conv_kernel")),
 }
 
 
@@ -632,7 +659,7 @@ def kernel_lines(rows, launches):
     """One entry a kernel; ms, plain_ms, bound_ms and library_ms summed over the unit
     its "per" names."""
     out = []
-    for name, (source, replaces, per) in KERNELS.items():
+    for name, (source, replaces, per, _) in KERNELS.items():
         rs = rows[name]
         tot = {k: sum(r[k] * r["calls_per_pass"] for r in rs)
                for k in ("ms", "plain_ms", "bound_ms")}
@@ -674,8 +701,16 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+        # ptxas's wgmma notes: C7519 (a fence it added before a wgmma) and any warning
+        # that it serialised the wgmma pipeline
+        notes = [ln.strip() for ln in text.splitlines() if "C75" in ln or "erformance" in ln]
+        log(f"  {name}: {sum('C7519' in ln for ln in notes)} ptxas C7519 notes (a fence it "
+            "added before a wgmma)")
+        for ln in notes:
+            if "C7519" not in ln:
+                log(f"  {name}: {ln}")
     log(f"  kernels built in {build_s:.1f} s: {', '.join(_build.KERNELS)}")
 
     gen = torch.Generator(device=DEV).manual_seed(0)

@@ -16,15 +16,17 @@
 // must move (z in and out), far above the card's ~295 FLOP/byte ridge.  The TPU
 // kernel kept a whole image
 // resident for all K steps; on the card that exceeds shared memory and a fused halo
-// would grow 5 pixels a step, so each conv is one launch of the shared tile conv
-// (conv3x3.cuh), which recomputes nothing.  Every step owns one NHWC bf16 buffer
+// would grow 5 pixels a step, so each conv is one launch of the shared wgmma tile
+// conv (conv3x3.cuh), which recomputes nothing.  Every step owns one NHWC bf16 buffer
 // [net input, zero-padded to 16 channels | x1 | x2 | x3 | x4] (the even and the odd
 // steps alternate between two buffers, since their inputs differ in width), and
 // conv i reads a channel prefix of it.  conv5's epilogue applies the coupling and
 // the ActNorm inverse to z in float32 in place (one thread per pixel and channel;
 // expf/atanf, no fast math) and writes the next step's net input, in bf16, into the
-// other buffer.  The features go through device memory between launches; fusing a
-// step's five convs is later work.
+// other buffer; it needs shift j and scale c2+j together, which wgmma's accumulator
+// fragment holds in different threads, so it stages the sums through shared memory
+// once (conv3x3.cuh's stage_acc) and keeps the pack as it is.  The features go
+// through device memory between launches; fusing a step's five convs is later work.
 //
 // Layouts: per step k, w[5k + i] is conv i+1's weight (9, cin_i, cout_i) bf16
 // [tap][ci][co], with cin_i = cin_pad + i * gc (zero rows for the padding) and conv5's
@@ -41,25 +43,27 @@ using conv3x3::NTHREADS;
 // conv5 of a step and its invertible tail, float32, z updated in place; if next, the
 // next step's net input (z2 after an even step, z1 after an odd one) goes to
 // next[..., j] in bf16.
-template <int COUT>
-__global__ void __launch_bounds__(NTHREADS)
+template <int COUT, int MT>
+__global__ void __launch_bounds__(NTHREADS, 2)
 coupling_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ z, int c, int even,
                 const float* __restrict__ an_s, const float* __restrict__ an_b,
                 bf16* __restrict__ next, int next_ctot, int H, int W) {
-  __shared__ __align__(128) unsigned char smem[conv3x3::SMEM_BYTES];
-  const float* s_acc = conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W,
-                                                blockIdx.x * conv3x3::TW,
-                                                blockIdx.y * conv3x3::TH, blockIdx.z);
-  const int lane = threadIdx.x % 32, gy = blockIdx.y * conv3x3::TH + threadIdx.x / 32;
-  if (gy >= H) return;
-  const size_t row = size_t(blockIdx.z) * H * W + size_t(gy) * W;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TW = 8 * MT;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * conv3x3::TH;
+  conv3x3::Acc<COUT, MT> acc;
+  conv3x3::conv_tile(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
+  float* s_acc = reinterpret_cast<float*>(smem);
+  __syncthreads();  // both warpgroups' products are done with the ring
+  conv3x3::stage_acc(acc, s_acc, H, W, x0, y0, blockIdx.z);
+  __syncthreads();
   const int c2 = c - 3;
-  for (int e = lane; e < 16 * c; e += 32) {
-    const int px = e / c, ch = e % c, gx = blockIdx.x * conv3x3::TW + px;
-    if (gx >= W) continue;
-    const float* p = s_acc + px * COUT;
-    const size_t pix = row + gx;
+  for (int e = threadIdx.x; e < conv3x3::TH * TW * c; e += NTHREADS) {
+    const int local = e / c, ch = e % c, gy = y0 + local / TW, gx = x0 + local % TW;
+    if (gy >= H || gx >= W) continue;
+    const float* p = s_acc + local * COUT;
+    const size_t pix = (size_t(blockIdx.z) * H + gy) * W + gx;
     float v = z[pix * c + ch];
     if (ch < 3) {
       if (!even) v -= p[ch] + bias[ch];
@@ -75,14 +79,29 @@ coupling_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict
   }
 }
 
+template <int COUT, int MT>
+cudaError_t launch_coupling(const bf16* dense, int ctot, const bf16* w, const float* bias,
+                            float* z, int c, int even, const float* an_s, const float* an_b,
+                            bf16* next, int next_ctot, int B, int H, int W,
+                            cudaStream_t stream) {
+  constexpr int smem = conv3x3::smem_bytes<COUT>();
+  cudaError_t err = conv3x3::allow_smem(coupling_kernel<COUT, MT>, smem);
+  if (err != cudaSuccess) return err;
+  coupling_kernel<COUT, MT><<<conv3x3::grid(B, H, W, MT), NTHREADS, smem, stream>>>(
+      dense, ctot, w, bias, z, c, even, an_s, an_b, next, next_ctot, H, W);
+  return cudaGetLastError();
+}
+
 template <int COUT>
 cudaError_t launch_coupling(const bf16* dense, int ctot, const bf16* w, const float* bias,
                             float* z, int c, int even, const float* an_s, const float* an_b,
                             bf16* next, int next_ctot, int B, int H, int W,
                             cudaStream_t stream) {
-  coupling_kernel<COUT><<<conv3x3::grid(B, H, W), NTHREADS, 0, stream>>>(
-      dense, ctot, w, bias, z, c, even, an_s, an_b, next, next_ctot, H, W);
-  return cudaGetLastError();
+  return conv3x3::pick_mt(W) == 2
+             ? launch_coupling<COUT, 2>(dense, ctot, w, bias, z, c, even, an_s, an_b, next,
+                                        next_ctot, B, H, W, stream)
+             : launch_coupling<COUT, 1>(dense, ctot, w, bias, z, c, even, an_s, an_b, next,
+                                        next_ctot, B, H, W, stream);
 }
 
 cudaError_t launch_coupling(int cout, const bf16* dense, int ctot, const bf16* w,

@@ -1,5 +1,5 @@
 // One RRDB (3 residual dense blocks) for Hopper (sm_90a), as 3x3 convolutions on
-// bf16 tensor cores (WMMA 16x16x16, float32 accumulation).
+// the warpgroup tensor cores (wgmma bf16, float32 accumulation).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel, called by
 // rrdb_apply).  Per dense block, with x the block input:
@@ -11,17 +11,15 @@
 // against a few hundred bytes of activations, far above the card's ~295 FLOP/byte
 // ridge, so the design's job is to feed the tensor cores.  The concats cost
 // nothing: every dense block owns one NHWC bf16 buffer (B,H,W,nf+4gc) and each conv
-// reads a channel prefix of it and writes its output into the next channel slice
-// (conv3x3.cuh: 8x16-pixel tiles, input channels staged 32 at a time with a
-// 16-channel tail, so gc 16 works too).  Each conv is one launch (5 per block: a
-// conv needs all of its predecessor's output, halos included).  The residual
-// carries stay float32 in device memory; conv5's epilogue updates the carry in
-// place (each element is read and written by one thread) and writes its bf16 copy
-// into the next block's buffer (a second buffer, since neighbouring tiles still
-// read this one).  Staging is not yet pipelined and the products are WMMA, not
-// wgmma, which holds this first version far below the bound (PERF.md);
-// cp.async/TMA rings and wgmma are later work.  rrdb_trunk.cu runs a whole trunk of
-// these RRDBs in one launch.
+// reads a channel prefix of it and writes its output into the next channel slice.
+// Each conv is one launch of conv3x3.cuh's tile conv (5 per block: a conv needs all
+// of its predecessor's output, halos included): wgmma products fed by a 3-stage
+// cp.async ring of 16-channel chunks (so gc 16 works too), 16x16 or 8x16-pixel tiles
+// of two warpgroups, epilogues from the accumulator registers.  The residual carries
+// stay float32 in device memory; conv5's epilogue updates the carry in place (each
+// element is read and written by one thread) and writes its bf16 copy into the next
+// block's buffer (a second buffer, since neighbouring tiles still read this one).
+// rrdb_trunk.cu runs a whole trunk of these RRDBs in one launch.
 
 #include "conv3x3.cuh"
 
@@ -32,26 +30,39 @@ using conv3x3::NTHREADS;
 
 // conv5 of a dense block (conv3x3.cuh's residual_store): x = 0.2 * (conv + b) + xres;
 // then, if xrrdb, x = 0.2 * x + xrrdb; xout = x and, if next, next[..., o] = bf16(x).
-template <int COUT>
-__global__ void __launch_bounds__(NTHREADS)
+template <int COUT, int MT>
+__global__ void __launch_bounds__(NTHREADS, 2)
 residual_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict__ w,
                 const float* __restrict__ bias, const float* xres, float* xout,
                 const float* xrrdb, bf16* __restrict__ next, int H, int W) {
-  __shared__ __align__(128) unsigned char smem[conv3x3::SMEM_BYTES];
-  const int x0 = blockIdx.x * conv3x3::TW, y0 = blockIdx.y * conv3x3::TH;
-  const float* s_acc =
-      conv3x3::conv_tile<COUT>(smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
-  conv3x3::residual_store<COUT>(s_acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0,
-                                blockIdx.z);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * conv3x3::TH;
+  conv3x3::Acc<COUT, MT> acc;
+  conv3x3::conv_tile(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
+  conv3x3::residual_store(acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, blockIdx.z);
+}
+
+template <int COUT, int MT>
+cudaError_t launch_residual(const bf16* dense, int ctot, const bf16* w, const float* bias,
+                            const float* xres, float* xout, const float* xrrdb, bf16* next,
+                            int B, int H, int W, cudaStream_t stream) {
+  constexpr int smem = conv3x3::smem_bytes<COUT>();
+  cudaError_t err = conv3x3::allow_smem(residual_kernel<COUT, MT>, smem);
+  if (err != cudaSuccess) return err;
+  residual_kernel<COUT, MT><<<conv3x3::grid(B, H, W, MT), NTHREADS, smem, stream>>>(
+      dense, ctot, w, bias, xres, xout, xrrdb, next, H, W);
+  return cudaGetLastError();
 }
 
 template <int COUT>
 cudaError_t launch_residual(const bf16* dense, int ctot, const bf16* w, const float* bias,
                             const float* xres, float* xout, const float* xrrdb, bf16* next,
                             int B, int H, int W, cudaStream_t stream) {
-  residual_kernel<COUT><<<conv3x3::grid(B, H, W), NTHREADS, 0, stream>>>(
-      dense, ctot, w, bias, xres, xout, xrrdb, next, H, W);
-  return cudaGetLastError();
+  return conv3x3::pick_mt(W) == 2
+             ? launch_residual<COUT, 2>(dense, ctot, w, bias, xres, xout, xrrdb, next, B, H, W,
+                                        stream)
+             : launch_residual<COUT, 1>(dense, ctot, w, bias, xres, xout, xrrdb, next, B, H, W,
+                                        stream);
 }
 
 cudaError_t launch_residual(int nf, const bf16* dense, int ctot, const bf16* w,

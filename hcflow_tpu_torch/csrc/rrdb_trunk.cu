@@ -1,5 +1,5 @@
 // A whole RRDB trunk (nb RRDBs of 3 residual dense blocks) in one cooperative launch
-// for Hopper (sm_90a), on bf16 tensor cores (WMMA 16x16x16, float32 accumulation).
+// for Hopper (sm_90a), on the warpgroup tensor cores (wgmma bf16, float32 accumulation).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel_trunk, called
 // through _build_call_trunk by trunk_apply when the JAX package packs the trunk as one
@@ -13,17 +13,22 @@
 // an SM's 227 KB of shared memory at 80x80, and a halo fused over a trunk's 15 nb
 // convs would be far too wide.  So this is a persistent kernel: a grid of at most as
 // many blocks as can be co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
-// SMs; no more than a stage has tiles), each looping over the 8x16-pixel output
-// tiles of one conv stage (conv3x3.cuh's tile conv and epilogues, as rrdb.cu runs
-// them), then waiting at a grid-wide barrier before the next stage: one stage
-// converts the input to bf16, then 15 per RRDB.  The state stays in device memory,
-// allocated once per call: the float32 carry, the float32 RRDB base (the output
-// buffer: each RRDB's third conv5 writes 0.2 x + base there, the next RRDB's input)
-// and two bf16 dense buffers; each RRDB's last conv5 writes the next RRDB's bf16
-// input directly, so no conversion pass runs between RRDBs.  The epilogues' fmaf
-// order is rrdb.cu's, so the output is bit-identical to the per-RRDB kernel's.  The
-// tile conv reads the dense buffers through L2 (ld.global.cg): other blocks wrote
-// them earlier in the same launch.  Not carried over from the TPU kernel: its
+// SMs; no more than a stage has tiles), each looping over the output tiles of one
+// conv stage (conv3x3.cuh's wgmma tile conv with its cp.async ring and its
+// epilogues, with the same tiles as rrdb.cu), then waiting at a grid-wide barrier
+// before the next stage: one stage converts the input to bf16, then 15 per RRDB.
+// At 2 blocks/SM (86.4 KB of shared memory and 128 registers each) ptxas spills
+// 40-332 bytes here, which the per-conv kernels do not (332 at nf 64, gc 32 on
+// 16-wide tiles, which leaves it 12% behind the per-RRDB kernel at 80x80).  The
+// state stays in device memory, allocated once per call: the float32 carry, the
+// float32 RRDB base (the output buffer: each RRDB's third conv5 writes 0.2 x + base
+// there, the next RRDB's input) and two bf16 dense buffers; each RRDB's last conv5
+// writes the next RRDB's bf16 input directly, so no conversion pass runs between
+// RRDBs.  The epilogues' fmaf order is rrdb.cu's, so the output is bit-identical to
+// the per-RRDB kernel's.  The tile conv's cp.async.cg copies read the dense buffers
+// through L2 only: other blocks wrote them earlier in the same launch (the writes are
+// ordinary stores and the copies are not in the async proxy, so grid.sync() orders
+// them without a proxy fence).  Not carried over from the TPU kernel: its
 // scatter-by-source layout and its bf16 RRDB base (_FIT16), VMEM workarounds.
 //
 // Layouts: x, out, carry (B,H,W,nf) float32; dense0, dense1 (B,H,W,nf+4gc) bf16;
@@ -41,7 +46,6 @@ namespace {
 using conv3x3::bf16;
 using conv3x3::NTHREADS;
 using conv3x3::TH;
-using conv3x3::TW;
 
 struct TrunkArgs {
   const float* x;    // the trunk's input, not written
@@ -54,9 +58,16 @@ struct TrunkArgs {
 };
 
 template <int NF, int GC>
+constexpr int trunk_smem() {
+  return conv3x3::smem_bytes<GC>() > conv3x3::smem_bytes<NF>() ? conv3x3::smem_bytes<GC>()
+                                                               : conv3x3::smem_bytes<NF>();
+}
+
+// MT: 8x8 sub-tiles per warpgroup (conv3x3::pick_mt)
+template <int NF, int GC, int MT>
 __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
-  __shared__ __align__(128) unsigned char smem[conv3x3::SMEM_BYTES];
-  constexpr int CTOT = NF + 4 * GC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CTOT = NF + 4 * GC, TW = 8 * MT;
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, W = a.W;
   const int tx = (W + TW - 1) / TW, ty = (H + TH - 1) / TH, tiles = tx * ty * a.B;
@@ -74,9 +85,9 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
       const float* bias = a.b[i] + size_t(j) * GC;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
-        const float* s_acc =
-            conv3x3::conv_tile<GC, true>(smem, d, CTOT, cin, w, H, W, x0, y0, image);
-        conv3x3::feature_store<GC>(s_acc, d, CTOT, bias, cin, H, W, x0, y0, image);
+        conv3x3::Acc<GC, MT> acc;
+        conv3x3::conv_tile(acc, smem, d, CTOT, cin, w, H, W, x0, y0, image);
+        conv3x3::feature_store(acc, d, CTOT, bias, cin, H, W, x0, y0, image);
       }
     }
     grid.sync();
@@ -93,32 +104,40 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
     const float* bias = a.b[4] + size_t(j) * NF;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
-      const float* s_acc =
-          conv3x3::conv_tile<NF, true>(smem, d, CTOT, CTOT, w, H, W, x0, y0, image);
-      conv3x3::residual_store<NF>(s_acc, CTOT, bias, xres, xout, xrrdb, next, H, W, x0, y0,
-                                  image);
+      conv3x3::Acc<NF, MT> acc;
+      conv3x3::conv_tile(acc, smem, d, CTOT, CTOT, w, H, W, x0, y0, image);
+      conv3x3::residual_store(acc, CTOT, bias, xres, xout, xrrdb, next, H, W, x0, y0, image);
     }
   }
 }
 
-template <int NF, int GC>
+template <int NF, int GC, int MT>
 cudaError_t launch_trunk(TrunkArgs a, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC>);
+  const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC, MT>);
+  constexpr int smem = trunk_smem<NF, GC>();
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = conv3x3::allow_smem(trunk_kernel<NF, GC, MT>, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH) * a.B;
+  const dim3 g = conv3x3::grid(a.B, a.H, a.W, MT);
+  const int tiles = int(g.x * g.y * g.z);
   const int blocks = per_sm * sms < tiles ? per_sm * sms : tiles;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NTHREADS), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NTHREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int NF, int GC>
+cudaError_t launch_trunk(const TrunkArgs& a, cudaStream_t stream) {
+  return conv3x3::pick_mt(a.W) == 2 ? launch_trunk<NF, GC, 2>(a, stream)
+                                    : launch_trunk<NF, GC, 1>(a, stream);
 }
 
 template <int NF>

@@ -9,10 +9,11 @@ lane-limited roofline); so does the port, whose library convs run in ``nets.py``
 
 Bound on the card: bytes at the model's shapes, narrowly (float32 in and out, 144-231
 FLOP per byte at C 64-262 and N 64, under the ~295 FLOP/byte ridge).  The kernel
-stages a bf16 copy of x with C padded to a multiple of 16 and runs the tile conv
-the dense-block kernels share (``csrc/conv3x3.cuh``) in chunks of at most 64 output
-channels, N padded to a multiple of 16 in the packed weights; the epilogue adds the
-bias and the leaky ReLU in float32.
+stages, in one launch, a bf16 copy of x with C zero-padded to a multiple of 16 and
+the weights in bf16 chunks of at most 64 output channels (N padded to a multiple of
+16), then runs the wgmma tile conv the dense-block kernels share
+(``csrc/conv3x3.cuh``) once per chunk; the epilogue adds the bias and the leaky ReLU
+in float32.
 """
 
 from __future__ import annotations
@@ -26,9 +27,14 @@ from . import nets
 
 launches = 0  # CUDA kernel launches made by conv3x3 (1 staging + 1 per 64 outputs)
 CHUNK = 64  # output channels per conv launch (the tile conv's widest)
+# copies of the packed bf16 weights: the tiles in flight read different copies, which
+# spreads their weight reads over more of L2 than one copy, read by every block at
+# once, would be
+WEIGHT_COPIES = 8
 
 _FN = "hcflow_conv3x3"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _round16(n: int) -> int:
@@ -62,22 +68,19 @@ def conv3x3(x, w, b=None, relu: bool = False, alpha: float = 0.2) -> torch.Tenso
     if not w.is_cuda or (b is not None and not b.is_cuda):
         raise ValueError("conv3x3 weights must be CUDA tensors, as x is")
     cp, np_ = _round16(C), _round16(N)
-    x = x.float().contiguous()
-    wp = torch.zeros((9, cp, np_), dtype=torch.bfloat16, device=x.device)
-    wp[:, :C, :N] = w.reshape(9, C, N).to(torch.bfloat16)
-    chunks = [wp[..., n0:n0 + CHUNK].contiguous() for n0 in range(0, np_, CHUNK)]
+    x, w = x.float().contiguous(), w.float().contiguous()
     bias = None if b is None else b.float().contiguous()
-    # the staging copy's padding channels are read by the conv and never written
-    staged = (torch.empty if cp == C else torch.zeros)((B, H, W, cp), dtype=torch.bfloat16,
-                                                        device=x.device)
+    # scratch: the bf16 copy of x (cp channels) and copies of the bf16 weights in
+    # chunks of at most 64 outputs, all written by the kernel's staging launch
+    staged = torch.empty((B, H, W, cp), dtype=torch.bfloat16, device=x.device)
+    wpack = torch.empty(WEIGHT_COPIES * 9 * cp * np_, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, H, W, N), dtype=torch.float32, device=x.device)
     lib = _build.load("conv", _FN, _ARGTYPES)
-    w_ptrs = (ctypes.c_void_p * len(chunks))(*(c.data_ptr() for c in chunks))
     err = lib.hcflow_conv3x3(
-        x.data_ptr(), staged.data_ptr(), ctypes.addressof(w_ptrs),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), B, H, W, C, cp, N,
-        int(relu), alpha, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), staged.data_ptr(), wpack.data_ptr(), WEIGHT_COPIES,
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, H, W, C, N, int(relu),
+        alpha, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, _FN, err)
-    launches += 1 + len(chunks)
+    launches += 1 + -(-np_ // CHUNK)
     return out

@@ -14,11 +14,12 @@ block with input x runs five 3x3 convs over growing concats,
 Bound on the card: operations.  At nf 64 / gc 32 a dense block is 239,616 MAC per
 pixel, so the four trunks of the x4 reverse pass are about 2.58 TFLOP at batch 16
 (2.6 ms at the card's 989 TFLOP/s bf16 peak) against a few hundred MB of
-activations.  The kernel therefore runs every conv on the tensor cores (WMMA bf16,
-float32 accumulation) as one launch per conv over 8x16-pixel tiles (input channels
-staged 32 at a time with a 16-channel tail: nf and gc of 16, 32 or 64), with the
-concats free: each dense block writes its features into channel slices of one
-NHWC bf16 buffer and each conv reads a channel prefix of it.  The TPU kernel's
+activations.  The kernel therefore runs every conv on the warpgroup tensor cores
+(wgmma bf16, float32 accumulation) as one launch per conv of the shared tile conv
+``csrc/conv3x3.cuh`` (16x16 or 8x16-pixel tiles, input channels staged 16 at a time
+through a 3-stage cp.async ring: nf and gc of 16, 32 or 64), with the concats free:
+each dense block writes its features into channel slices of one NHWC bf16 buffer
+and each conv reads a channel prefix of it.  The TPU kernel's
 grouping of the convs by source feature existed for the TPU's 128-lane layout and
 is not carried over; unlike it, the RRDB input and the carries stay float32.
 

@@ -45,12 +45,20 @@ def _close(got, ref):
     assert (got - ref).abs().max().item() <= RTOL * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("gc", [32, 16])  # SR encoders; rescaling encoders (16-channel tails)
-@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21)])  # exact tiles, ragged edges
-def test_rrdb_kernel_matches_plain(gen, B, H, W, gc):
-    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, 64, gc), gen)
+# SR encoders (64/32); rescaling encoders (64/16); a narrower trunk (32/16)
+WIDTHS = [(64, 32), (64, 16), (32, 16)]
+# The tile is 16 rows by 16 columns where W rounds up to 16 no further than to 8, else
+# by 8: exact 16x16 tiles; 8-wide tiles ragged in H and W; 16-wide tiles ragged in H
+# and W; 20x20 (the x8 model's smallest level), whose 12 tiles leave most SMs idle.
+SHAPES = [(2, 8, 16), (3, 13, 21), (3, 21, 13), (2, 20, 20)]
+
+
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+@pytest.mark.parametrize("B,H,W", SHAPES)
+def test_rrdb_kernel_matches_plain(gen, B, H, W, nf, gc):
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, nf, gc), gen)
     packed = rrdb.pack_rrdb(trunk[0], "bfloat16")
-    x = torch.randn(B, H, W, 64, device="cuda", generator=gen)
+    x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
     before = rrdb.launches
     got = rrdb.rrdb_apply(packed, x)
     torch.cuda.synchronize()
@@ -58,14 +66,14 @@ def test_rrdb_kernel_matches_plain(gen, B, H, W, gc):
     _close(got, rrdb.rrdb_apply_plain(packed, x))
 
 
-@pytest.mark.parametrize("gc", [32, 16])
-@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21)])
-def test_rrdb_trunk_kernel_equals_per_rrdb_kernel(gen, B, H, W, gc):
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+@pytest.mark.parametrize("B,H,W", SHAPES)
+def test_rrdb_trunk_kernel_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
     """The resident-trunk kernel (one cooperative launch for nb 2) is bit-identical to
-    the per-RRDB kernel run twice: the same tile conv, chunks and epilogue order."""
-    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, 64, gc), gen)
+    the per-RRDB kernel run twice: the same tile conv, tiles, chunks and epilogue order."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, nf, gc), gen)
     res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
-    x = torch.randn(B, H, W, 64, device="cuda", generator=gen)
+    x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
     x0 = x.clone()
     before = rrdb.trunk_launches
     got = rrdb.trunk_apply(res, x)

@@ -227,6 +227,15 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == []
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_port.py",
+                                    "tools/ab_kernels.py"])
+def test_chip_scripts_import_no_jax(script):
+    """The scripts that run the port on the card import neither jax nor hcflow_tpu."""
+    path = pathlib.Path(__file__).resolve().parents[1] / script
+    assert [m for m in _imported_modules(path)
+            if m.split(".")[0] in ("jax", "jaxlib", "hcflow_tpu")] == []
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")
