@@ -18,7 +18,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    beside cuDNN's bf16 conv (its library time, never called by the port); the RRDB
    and trunk rows are timed beside the same RRDB or trunk as a sequence of library
    calls (nets.apply_rrdb / apply_rrdb_trunk in the bf16 recipe: cuDNN bf16 convs
-   and concats), since no single call computes one;
+   and concats), since no single call computes one, timed on the device as one CUDA
+   graph (the host takes longer to issue the sequence than the card to run it);
 3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
@@ -125,6 +126,23 @@ def cuda_time(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def graph_time(fn, reps):
+    """Mean ms per replay of fn's calls captured as one CUDA graph: the device's time
+    for a sequence of library calls, without the host's time to issue them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: cuDNN plans, allocations
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_time(graph.replay, reps)
+
+
 def check_rel(name, got, ref, rtol):
     import torch
 
@@ -205,9 +223,12 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=None, **extra):
+def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=None,
+         library_seq=False, **extra):
     """Check one kernel call against its plain version and time both (and the one
-    library call computing the same function, where there is one).  work = (bf16
+    library call computing the same function, where there is one).  library_seq: the
+    library_fn is a sequence of library calls, timed on the device as one CUDA graph
+    (library_ms) and also as the host issues it (library_eager_ms).  work = (bf16
     FLOP, float32 FLOP, bytes) of the function.  Returns the kernel's output."""
     import torch
 
@@ -220,9 +241,13 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
     ms = cuda_time(fn, reps=reps)
     plain_ms = cuda_time(plain_fn, reps=max(2, reps // 4))
     library_ms = None if library_fn is None else cuda_time(library_fn, reps=reps)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    if library_seq:
+        extra["library_eager_ms"] = library_ms
+        library_ms = graph_time(library_fn, reps=reps)
+        lib = f", library {library_ms:.4f} ms as a graph ({extra['library_eager_ms']:.4f} eager)"
     bf, f32, nbytes = work
     b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
-    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}, "
         f"{(bf + f32) / ms / 1e9:.1f} TFLOP/s), {calls} calls per {path} unit")
     rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
@@ -256,8 +281,8 @@ def _rrdb_rows(torch, gen, rows, gc, shapes, path):
         _row(rows, "rrdb", f"rrdb gc {gc} {BATCH}x{hw}x{hw}x{nf}",
              lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
              (flops, 0, nbytes), 10, path, calls,
-             library_fn=lambda: nets.apply_rrdb(lib, x, "bfloat16"), shape=[BATCH, hw, hw, nf],
-             gc=gc)
+             library_fn=lambda: nets.apply_rrdb(lib, x, "bfloat16"), library_seq=True,
+             shape=[BATCH, hw, hw, nf], gc=gc)
 
 
 def _trunk_rows(torch, gen, rows, shapes, path):
@@ -278,7 +303,7 @@ def _trunk_rows(torch, gen, rows, shapes, path):
         got = _row(rows, "rrdb_trunk", label, lambda: rrdb.trunk_apply(res, x),
                    lambda: rrdb.trunk_apply_resident_plain(res, x), (flops, 0, nbytes), 10, path,
                    calls, library_fn=lambda: nets.apply_rrdb_trunk(lib, x, "bfloat16"),
-                   shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
+                   library_seq=True, shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
         ref = rrdb.trunk_apply(per, x)
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
@@ -636,8 +661,8 @@ def phase_rescaling(torch, gen):
 
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
-# wgmma tile conv's kernels (conv3x3.cuh: to_dense_kernel, feature_kernel) are shared
-# by rrdb, chain3s and conv3x3; tools/profile_port.py groups device time by these.
+# wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
+# tools/profile_port.py groups device time by these.
 KERNELS = {
     "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547",
              "x4 SR reverse pass + rescaling request (downscale + upscale)",
@@ -651,7 +676,7 @@ KERNELS = {
                 "rescaling request", ("prologue_kernel", "feature_kernel", "coupling_kernel")),
     "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",
                 "one call at each of the x8 model's library 3x3 conv shapes (on no path)",
-                ("to_dense_kernel", "conv_kernel")),
+                ("pack_kernel", "conv_kernel")),
 }
 
 

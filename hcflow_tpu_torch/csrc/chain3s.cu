@@ -79,29 +79,17 @@ coupling_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict
   }
 }
 
-template <int COUT, int MT>
-cudaError_t launch_coupling(const bf16* dense, int ctot, const bf16* w, const float* bias,
-                            float* z, int c, int even, const float* an_s, const float* an_b,
-                            bf16* next, int next_ctot, int B, int H, int W,
-                            cudaStream_t stream) {
-  constexpr int smem = conv3x3::smem_bytes<COUT>();
-  cudaError_t err = conv3x3::allow_smem(coupling_kernel<COUT, MT>, smem);
-  if (err != cudaSuccess) return err;
-  coupling_kernel<COUT, MT><<<conv3x3::grid(B, H, W, MT), NTHREADS, smem, stream>>>(
-      dense, ctot, w, bias, z, c, even, an_s, an_b, next, next_ctot, H, W);
-  return cudaGetLastError();
-}
-
 template <int COUT>
 cudaError_t launch_coupling(const bf16* dense, int ctot, const bf16* w, const float* bias,
                             float* z, int c, int even, const float* an_s, const float* an_b,
                             bf16* next, int next_ctot, int B, int H, int W,
                             cudaStream_t stream) {
-  return conv3x3::pick_mt(W) == 2
-             ? launch_coupling<COUT, 2>(dense, ctot, w, bias, z, c, even, an_s, an_b, next,
-                                        next_ctot, B, H, W, stream)
-             : launch_coupling<COUT, 1>(dense, ctot, w, bias, z, c, even, an_s, an_b, next,
-                                        next_ctot, B, H, W, stream);
+  return conv3x3::with_mt(W, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
+    return conv3x3::launch<coupling_kernel<COUT, MT>>(
+        conv3x3::grid(B, H, W, MT), conv3x3::smem_bytes<COUT>(), stream, dense, ctot, w, bias, z,
+        c, even, an_s, an_b, next, next_ctot, H, W);
+  });
 }
 
 cudaError_t launch_coupling(int cout, const bf16* dense, int ctot, const bf16* w,

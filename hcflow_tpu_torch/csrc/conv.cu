@@ -10,17 +10,15 @@
 // writes float32 out, 4 (C + N) bytes per pixel, for 18 C N FLOP: 144 FLOP per byte
 // at C 64, N 64 and 231 at C 262, under the card's ~295 FLOP/byte ridge, and 13 at
 // C 3.  The conv is conv3x3.cuh's wgmma tile conv, as the dense-block kernels run
-// it: 16x16 or 8x16-pixel output tiles of two warpgroups, a 3-stage cp.async ring of
-// 16-channel chunks, up to 64 output channels per launch.  So one staging launch
-// first writes a bf16 copy of x with its channels zero-padded to a multiple of 16
-// (about 4 C more bytes per pixel, written and read back, which this version pays)
-// and packs the float32 HWIO weights into bf16 chunks of at most 64 outputs, N
-// zero-padded to a multiple of 16, in 8 copies that the tiles read in turn (every
-// block in flight reading one copy made a few lines of L2 the bottleneck); the
-// caller's work per call is then a few allocations (at the model's shapes the host,
-// not the card, bounded the first version's calls); the epilogue adds the bias and
-// applies the leaky ReLU in float32, from the accumulator registers, and writes only
-// the real output channels, once.
+// it: 16x16 or 8x16-pixel output tiles of two warpgroups, a 3-stage ring of
+// 16-channel chunks, up to 64 output channels per launch.  It reads x itself, in
+// float32, rounding each chunk to bf16 as it stages it (channels from C on are zero),
+// so x is read once and no bf16 copy of it is written and read back.  One small
+// launch first packs the float32 HWIO weights into bf16 chunks of at most 64
+// outputs, N zero-padded to a multiple of 16; the caller's work per call is then a
+// few allocations (at the model's shapes the host, not the card, bounded the first
+// version's calls); the epilogue adds the bias and applies the leaky ReLU in float32,
+// from the accumulator registers, and writes only the real output channels, once.
 
 #include "conv3x3.cuh"
 
@@ -29,20 +27,17 @@ namespace {
 using conv3x3::bf16;
 using conv3x3::NTHREADS;
 
-// out[..., n0 + o] = act(conv + bias) for the chunk's o < COUT with n0 + o < N.  w holds
-// `copies` copies of the chunk's weights, wstride elements apart; tile t reads copy
-// t % copies, so that the blocks in flight spread their weight reads over more of L2.
+// out[..., n0 + o] = act(conv + bias) for the chunk's o < COUT with n0 + o < N; w holds
+// the chunk's weights.
 template <int COUT, int MT>
 __global__ void __launch_bounds__(NTHREADS, 2)
-conv_kernel(const bf16* __restrict__ staged, int cp, const bf16* __restrict__ w, int copies,
-            size_t wstride, const float* __restrict__ bias, float* __restrict__ out, int N,
-            int n0, int relu, float alpha, int H, int W) {
+conv_kernel(const float* __restrict__ x, int C, int cp, const bf16* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ out, int N, int n0, int relu,
+            float alpha, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * conv3x3::TH;
-  const int t = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   conv3x3::Acc<COUT, MT> acc;
-  conv3x3::conv_tile(acc, smem, staged, cp, cp, w + t % copies * wstride, H, W, x0, y0,
-                     blockIdx.z);
+  conv3x3::conv_tile(acc, smem, x, C, cp, w, H, W, x0, y0, blockIdx.z);
   conv3x3::for_each_pair(acc, H, W, x0, y0, blockIdx.z,
                                [&](size_t pix, int, int o, float v0, float v1) {
                                  const float v2[2] = {v0, v1};
@@ -59,11 +54,9 @@ conv_kernel(const bf16* __restrict__ staged, int cp, const bf16* __restrict__ w,
 }
 
 struct ConvArgs {
-  const bf16* staged;
-  int cp;
-  const bf16* w;  // the chunk's weights, copy 0
-  int copies;
-  size_t wstride;
+  const float* x;
+  int C, cp;
+  const bf16* w;  // the chunk's weights
   const float* bias;
   float* out;
   int N, n0, relu;
@@ -71,52 +64,28 @@ struct ConvArgs {
   int B, H, W;
 };
 
-template <int COUT, int MT>
-cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
-  constexpr int smem = conv3x3::smem_bytes<COUT>();
-  cudaError_t err = conv3x3::allow_smem(conv_kernel<COUT, MT>, smem);
-  if (err != cudaSuccess) return err;
-  conv_kernel<COUT, MT><<<conv3x3::grid(a.B, a.H, a.W, MT), NTHREADS, smem, stream>>>(
-      a.staged, a.cp, a.w, a.copies, a.wstride, a.bias, a.out, a.N, a.n0, a.relu, a.alpha, a.H,
-      a.W);
-  return cudaGetLastError();
-}
-
 template <int COUT>
 cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
-  return conv3x3::pick_mt(a.W) == 2 ? launch_conv<COUT, 2>(a, stream)
-                                    : launch_conv<COUT, 1>(a, stream);
+  return conv3x3::with_mt(a.W, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
+    return conv3x3::launch<conv_kernel<COUT, MT>>(
+        conv3x3::grid(a.B, a.H, a.W, MT), conv3x3::smem_bytes<COUT>(), stream, a.x, a.C, a.cp,
+        a.w, a.bias, a.out, a.N, a.n0, a.relu, a.alpha, a.H, a.W);
+  });
 }
 
-// staged[p, c] = bf16(x[p, c]) for c < C, else 0 (cp channels; nx elements, in runs
-// of `run` = 4 where cp == C allows 16-byte loads, else 2); wpack = `copies` copies,
-// 9 cp np elements each, of the weights in bf16 chunks: chunk q (9, cp, cq)
+// wpack = the weights in bf16 chunks, 9 cp np elements: chunk q (9, cp, cq)
 // [tap][ci][co] at 9 cp 64 q for outputs 64 q .. 64 q + cq, cq = min(64, np - 64 q),
 // zero outside C x N.
-__global__ void stage_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                             bf16* __restrict__ staged, bf16* __restrict__ wpack, int C, int cp,
-                             int N, int np, int copies, size_t nx, int run) {
-  const size_t nw = size_t(9) * cp * np, nr = nx / run;
-  for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < nr + copies * nw;
-       i += size_t(gridDim.x) * blockDim.x) {
-    if (i < nr && run == 4) {  // no padding: the same layout
-      const float4 v = reinterpret_cast<const float4*>(x)[i];
-      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(staged) + 2 * i;
-      d[0] = __floats2bfloat162_rn(v.x, v.y);
-      d[1] = __floats2bfloat162_rn(v.z, v.w);
-    } else if (i < nr) {
-      const size_t p = 2 * i / cp;
-      const int c = int(2 * i % cp);
-      const float* xp = x + p * C;
-      reinterpret_cast<__nv_bfloat162*>(staged)[i] =
-          __floats2bfloat162_rn(c < C ? xp[c] : 0.f, c + 1 < C ? xp[c + 1] : 0.f);
-    } else {
-      const size_t j = (i - nr) % nw, chunk = size_t(9) * cp * 64;
-      const int q = int(j / chunk), r = int(j % chunk);
-      const int cq = np - 64 * q < 64 ? np - 64 * q : 64;
-      const int tap = r / (cp * cq), ci = r % (cp * cq) / cq, n = 64 * q + r % cq;
-      wpack[i - nr] = __float2bfloat16(ci < C && n < N ? w[(size_t(tap) * C + ci) * N + n] : 0.f);
-    }
+__global__ void pack_kernel(const float* __restrict__ w, bf16* __restrict__ wpack, int C, int cp,
+                            int N, int np) {
+  const size_t nw = size_t(9) * cp * np, chunk = size_t(9) * cp * 64;
+  for (size_t j = size_t(blockIdx.x) * blockDim.x + threadIdx.x; j < nw;
+       j += size_t(gridDim.x) * blockDim.x) {
+    const int q = int(j / chunk), r = int(j % chunk);
+    const int cq = np - 64 * q < 64 ? np - 64 * q : 64;
+    const int tap = r / (cp * cq), ci = r % (cp * cq) / cq, n = 64 * q + r % cq;
+    wpack[j] = __float2bfloat16(ci < C && n < N ? w[(size_t(tap) * C + ci) * N + n] : 0.f);
   }
 }
 
@@ -126,27 +95,25 @@ extern "C" {
 
 const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
-// x (B,H,W,C) float32; w (3,3,C,N) float32 HWIO; staged (B,H,W,cp) bf16 and wpack
-// (copies x 9 cp np) bf16 scratch, cp and np = C and N rounded up to multiples of 16;
-// bias (N) float32 or null; out (B,H,W,N) float32.  relu: apply v >= 0 ? v : alpha * v
-// after the bias.  Makes 1 + ceil(N / 64) launches (staging, then one per chunk of 64
+// x (B,H,W,C) float32, 16-byte aligned; w (3,3,C,N) float32 HWIO; wpack (9 cp np)
+// bf16 scratch, cp and np = C and N rounded up to multiples of 16; bias (N) float32
+// or null; out (B,H,W,N) float32.  relu: apply v >= 0 ? v : alpha * v after the
+// bias.  Makes 1 + ceil(N / 64) launches (the weight pack, then one per chunk of 64
 // outputs); returns the first CUDA error.
-int hcflow_conv3x3(const float* x, const float* w, bf16* staged, bf16* wpack, int copies,
-                   const float* bias, float* out, int B, int H, int W, int C, int N, int relu,
-                   float alpha, cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || N < 1 || copies < 1) return int(cudaErrorInvalidValue);
+int hcflow_conv3x3(const float* x, const float* w, bf16* wpack, const float* bias, float* out,
+                   int B, int H, int W, int C, int N, int relu, float alpha,
+                   cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || N < 1) return int(cudaErrorInvalidValue);
   const int cp = (C + 15) / 16 * 16, np = (N + 15) / 16 * 16;
-  const size_t nx = size_t(B) * H * W * cp, nw = size_t(9) * cp * np;
-  const int run = cp == C && C % 4 == 0 ? 4 : 2;
-  const size_t blocks = (nx / run + copies * nw + 255) / 256;
-  stage_kernel<<<unsigned(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(
-      x, w, staged, wpack, C, cp, N, np, copies, nx, run);
+  const size_t blocks = (size_t(9) * cp * np + 255) / 256;
+  pack_kernel<<<unsigned(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(w, wpack, C, cp, N,
+                                                                            np);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   for (int q = 0; 64 * q < np; ++q) {
     const int n0 = 64 * q, cout = np - n0 < 64 ? np - n0 : 64;
-    const ConvArgs a{staged, cp, wpack + size_t(9) * cp * n0, copies, nw, bias, out, N, n0, relu,
-                     alpha, B, H, W};
+    const ConvArgs a{x, C, cp, wpack + size_t(9) * cp * n0, bias, out, N, n0, relu, alpha,
+                     B, H, W};
     switch (cout) {
       case 16: err = launch_conv<16>(a, stream); break;
       case 32: err = launch_conv<32>(a, stream); break;

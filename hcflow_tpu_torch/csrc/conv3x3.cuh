@@ -9,7 +9,7 @@
 // reads a channel prefix of it.
 //
 // Tiles.  A block of two warpgroups computes a tile 16 pixels tall and 8 MT wide
-// (MT = 1 or 2, a template parameter chosen per image width by pick_mt so that the
+// (MT = 1 or 2, a template parameter chosen per image width by with_mt so that the
 // tiles waste no more columns than 8-wide ones: 16x16 at 80x80, 8x16 at 40x40 and
 // 20x20, where 16-wide tiles would also leave the card underfilled: 48 blocks at
 // 16x20x20).  Warpgroup g owns rows 8g..8g+7 and, in them, MT sub-tiles of 8x8 = 64
@@ -26,8 +26,11 @@
 // and the chunk's 9 x 16 x COUT weights: 28.8 KB at COUT 64, 3 stages, 2 blocks/SM.
 // All 256 threads copy with cp.async (16 bytes each, L2 only: .cg, so the persistent
 // trunk kernel reads what other blocks wrote in the same launch), zero-filling the
-// halo outside the image (src-size 0); chunk c+2 is in flight while the products of
-// chunk c run.  cp.async over TMA because the halo's zero fill and both operand
+// halo outside the image (src-size 0); the refill of chunk c+2 is issued just after
+// the products of chunk c, and runs beside them.  (conv.cu's float32 input is the
+// exception: its threads load it and store it rounded to bf16, which then waits
+// behind the products, not in front of them; no bf16 copy of x is written and read
+// back.)  cp.async over TMA because the halo's zero fill and both operand
 // layouts below are a per-16-byte scatter that needs no tensor map (the dense
 // buffers are allocated per call, and the cooperative trunk would need an
 // async-proxy fence between one stage's stores and the next stage's TMA loads).  No
@@ -66,6 +69,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace conv3x3 {
 namespace {  // internal linkage: each kernel library has its own copy
 
@@ -84,8 +90,14 @@ __host__ __device__ constexpr int stage_bytes() { return IN_BYTES + 9 * CK * COU
 template <int COUT>
 __host__ __device__ constexpr int smem_bytes() { return STAGES * stage_bytes<COUT>(); }
 
-// 16-pixel-wide tiles where they waste no more columns than 8-pixel-wide ones
-int pick_mt(int W) { return (W + 15) / 16 * 16 == (W + 7) / 8 * 8 ? 2 : 1; }
+// fn(std::integral_constant<int, MT>()) with the sub-tile count every launcher takes
+// for image width W: 16-pixel-wide tiles where they waste no more columns than
+// 8-pixel-wide ones.
+template <class Fn>
+cudaError_t with_mt(int W, Fn fn) {
+  if ((W + 15) / 16 * 16 == (W + 7) / 8 * 8) return fn(std::integral_constant<int, 2>());
+  return fn(std::integral_constant<int, 1>());
+}
 
 dim3 grid(int B, int H, int W, int mt) {
   return dim3((W + 8 * mt - 1) / (8 * mt), (H + TH - 1) / TH, B);
@@ -239,11 +251,36 @@ struct Acc {
   float v[MT][COUT / 2];
 };
 
+// Eight float32 channels x[c .. c+7] of one pixel (C channels; zero from C on) as
+// eight bf16, round to nearest even; 16-byte loads where C is a multiple of 8.
+__device__ __forceinline__ uint4 bf16x8(const float* __restrict__ x, int c, int C) {
+  float f[8];
+  if (C % 8 == 0 && c < C) {
+    const float4 lo = *reinterpret_cast<const float4*>(x + c);
+    const float4 hi = *reinterpret_cast<const float4*>(x + c + 4);
+    f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+    f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = c + k < C ? x[c + k] : 0.f;
+  }
+  uint32_t u[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    u[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
 // Stage chunk c0 .. c0+15 of the tile at (x0, y0) and its weights into one ring stage.
-template <int COUT>
-__device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* dense, int ctot,
-                                           int c0, const bf16* w, int cin, int H, int W, int IW,
-                                           int x0, int y0, size_t img) {
+// The input `src` is a bf16 buffer of ctot channels (copied with cp.async) or, for
+// conv.cu, float32 x of ctot = C channels, which the threads load and round to bf16
+// themselves (channels from C on are zero).
+template <int COUT, class In>
+__device__ __forceinline__ void load_chunk(unsigned char* stage, const In* src, int ctot, int c0,
+                                           const bf16* w, int cin, int H, int W, int IW, int x0,
+                                           int y0, size_t img) {
   constexpr int NG = COUT / 8;
   const uint32_t s_in = smem_addr(stage), s_w = s_in + IN_BYTES;
   const int npx = IH * IW;
@@ -252,8 +289,13 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* den
     const int part = i & 1, q = i >> 1;
     const int gy = y0 - 1 + q / IW, gx = x0 - 1 + q % IW;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const bf16* src = in ? dense + (img + size_t(gy) * W + gx) * ctot + c0 + part * 8 : dense;
-    cp_async16(s_in + (part * npx + q) * 16, src, in);
+    const size_t pix = img + size_t(gy) * W + gx;
+    if constexpr (std::is_same<In, float>::value) {
+      *reinterpret_cast<uint4*>(stage + (part * npx + q) * 16) =
+          in ? bf16x8(src + pix * ctot, c0 + part * 8, ctot) : make_uint4(0, 0, 0, 0);
+    } else {
+      cp_async16(s_in + (part * npx + q) * 16, in ? src + pix * ctot + c0 + part * 8 : src, in);
+    }
   }
   // weights (9, cin, COUT) [tap][ci][co] -> [tap][k group][n group][8 k][8 n]
   for (int e = threadIdx.x; e < 9 * CK * NG; e += NTHREADS) {
@@ -263,14 +305,15 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* den
   }
 }
 
-// The conv of the tile at (x0, y0) of image `image` (width 8 MT, height TH): dense
-// (B,H,W,ctot) bf16, channels [0, cin) read (cin a multiple of 16); w (9, cin, COUT)
-// bf16 [tap][ci][co].  smem holds smem_bytes<COUT>() (dynamic shared memory); the
-// sums are left in acc.  Chunks, taps and k steps run in one fixed order, so every
-// kernel that calls this gives bit-identical sums for the same inputs.
-template <int COUT, int MT>
+// The conv of the tile at (x0, y0) of image `image` (width 8 MT, height TH): src
+// (B,H,W,ctot) bf16 (or float32: see load_chunk), channels [0, cin) read (cin a
+// multiple of 16); w (9, cin, COUT) bf16 [tap][ci][co].  smem holds
+// smem_bytes<COUT>() (dynamic shared memory); the sums are left in acc.  Chunks, taps
+// and k steps run in one fixed order, so every kernel that calls this gives
+// bit-identical sums for the same inputs.
+template <int COUT, int MT, class In>
 __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* smem,
-                                          const bf16* __restrict__ dense, int ctot, int cin,
+                                          const In* __restrict__ src, int ctot, int cin,
                                           const bf16* __restrict__ w, int H, int W, int x0,
                                           int y0, int image) {
   static_assert(COUT % 16 == 0 && COUT <= 64, "COUT must be 16, 32, 48 or 64");
@@ -294,20 +337,14 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
     if (c < nchunks)
-      load_chunk<COUT>(smem + c * SB, dense, ctot, c0(c), w, cin, H, W, IW, x0, y0, img);
+      load_chunk<COUT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, IW, x0, y0, img);
     cp_async_commit();
   }
 #pragma unroll 1
   for (int c = 0; c < nchunks; ++c) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
-    fence_proxy_async();
+    fence_proxy_async();          // (as have its own stores of a float32 input)
     __syncthreads();  // everyone's have; every warpgroup is done with chunk c-1's stage
-    const int next = c + STAGES - 1;
-    if (next < nchunks)
-      load_chunk<COUT>(smem + next % STAGES * SB, dense, ctot, c0(next), w, cin, H, W, IW, x0,
-                       y0, img);
-    cp_async_commit();
-
     const uint32_t s_in = smem_addr(smem + c % STAGES * SB), s_w = s_in + IN_BYTES;
     wgmma_fence();
 #pragma unroll
@@ -320,6 +357,13 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
                          desc(s_in + ((8 * wg + dy) * IW + 8 * s + dx) * 16, lbo_a, sbo_a), b);
     }
     wgmma_commit();
+    // refill chunk c-1's stage while the products of chunk c run (a float32 input's
+    // loads then wait behind the products, not in front of them)
+    const int next = c + STAGES - 1;
+    if (next < nchunks)
+      load_chunk<COUT>(smem + next % STAGES * SB, src, ctot, c0(next), w, cin, H, W, IW, x0, y0,
+                       img);
+    cp_async_commit();
     wgmma_wait0();
 #pragma unroll
     for (int s = 0; s < MT; ++s)
@@ -410,11 +454,28 @@ __device__ __forceinline__ void residual_store(const Acc<COUT, MT>& acc, int cto
                       });
 }
 
-// Allow a kernel the dynamic shared memory it launches with (above 48 KB).
-template <class Kernel>
-cudaError_t allow_smem(Kernel* kernel, int bytes) {
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Allow Kernel the dynamic shared memory it launches with (above 48 KB), once per
+// card: the attribute then holds for the process.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<unsigned> allowed{0};  // bit d: done on card d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (err != cudaSuccess || (allowed.load() & bit)) return err;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(Kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed.fetch_or(bit);
+  return err;
+}
+
+// Kernel<<<g, NTHREADS, bytes, stream>>>(args...) with `bytes` of dynamic shared memory.
+template <auto Kernel, class... Args>
+cudaError_t launch(dim3 g, int bytes, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem<Kernel>(bytes);
+  if (err != cudaSuccess) return err;
+  Kernel<<<g, NTHREADS, bytes, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // A dense-block feature conv: dense[..., out_off + o] = bf16(lrelu_0.2(conv + bias)).
@@ -429,22 +490,14 @@ feature_kernel(bf16* __restrict__ dense, int ctot, int cin, const bf16* __restri
   feature_store(acc, dense, ctot, bias, out_off, H, W, x0, y0, blockIdx.z);
 }
 
-template <int COUT, int MT>
-cudaError_t launch_feature(bf16* dense, int ctot, int cin, const bf16* w, const float* bias,
-                           int out_off, int B, int H, int W, cudaStream_t stream) {
-  cudaError_t err = allow_smem(feature_kernel<COUT, MT>, smem_bytes<COUT>());
-  if (err != cudaSuccess) return err;
-  feature_kernel<COUT, MT><<<grid(B, H, W, MT), NTHREADS, smem_bytes<COUT>(), stream>>>(
-      dense, ctot, cin, w, bias, out_off, H, W);
-  return cudaGetLastError();
-}
-
 template <int COUT>
 cudaError_t launch_feature(bf16* dense, int ctot, int cin, const bf16* w, const float* bias,
                            int out_off, int B, int H, int W, cudaStream_t stream) {
-  return pick_mt(W) == 2
-             ? launch_feature<COUT, 2>(dense, ctot, cin, w, bias, out_off, B, H, W, stream)
-             : launch_feature<COUT, 1>(dense, ctot, cin, w, bias, out_off, B, H, W, stream);
+  return with_mt(W, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
+    return launch<feature_kernel<COUT, MT>>(grid(B, H, W, MT), smem_bytes<COUT>(), stream, dense,
+                                            ctot, cin, w, bias, out_off, H, W);
+  });
 }
 
 cudaError_t launch_feature(int cout, bf16* dense, int ctot, int cin, const bf16* w,

@@ -42,27 +42,16 @@ residual_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict
   conv3x3::residual_store(acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, blockIdx.z);
 }
 
-template <int COUT, int MT>
-cudaError_t launch_residual(const bf16* dense, int ctot, const bf16* w, const float* bias,
-                            const float* xres, float* xout, const float* xrrdb, bf16* next,
-                            int B, int H, int W, cudaStream_t stream) {
-  constexpr int smem = conv3x3::smem_bytes<COUT>();
-  cudaError_t err = conv3x3::allow_smem(residual_kernel<COUT, MT>, smem);
-  if (err != cudaSuccess) return err;
-  residual_kernel<COUT, MT><<<conv3x3::grid(B, H, W, MT), NTHREADS, smem, stream>>>(
-      dense, ctot, w, bias, xres, xout, xrrdb, next, H, W);
-  return cudaGetLastError();
-}
-
 template <int COUT>
 cudaError_t launch_residual(const bf16* dense, int ctot, const bf16* w, const float* bias,
                             const float* xres, float* xout, const float* xrrdb, bf16* next,
                             int B, int H, int W, cudaStream_t stream) {
-  return conv3x3::pick_mt(W) == 2
-             ? launch_residual<COUT, 2>(dense, ctot, w, bias, xres, xout, xrrdb, next, B, H, W,
-                                        stream)
-             : launch_residual<COUT, 1>(dense, ctot, w, bias, xres, xout, xrrdb, next, B, H, W,
-                                        stream);
+  return conv3x3::with_mt(W, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
+    return conv3x3::launch<residual_kernel<COUT, MT>>(conv3x3::grid(B, H, W, MT),
+                                                      conv3x3::smem_bytes<COUT>(), stream, dense,
+                                                      ctot, w, bias, xres, xout, xrrdb, next, H, W);
+  });
 }
 
 cudaError_t launch_residual(int nf, const bf16* dense, int ctot, const bf16* w,

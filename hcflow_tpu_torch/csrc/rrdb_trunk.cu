@@ -19,7 +19,8 @@
 // before the next stage: one stage converts the input to bf16, then 15 per RRDB.
 // At 2 blocks/SM (86.4 KB of shared memory and 128 registers each) ptxas spills
 // 40-332 bytes here, which the per-conv kernels do not (332 at nf 64, gc 32 on
-// 16-wide tiles, which leaves it 12% behind the per-RRDB kernel at 80x80).  The
+// 16-wide tiles, which leaves it 12% behind the per-RRDB kernel at 80x80; 8-wide
+// tiles there spill 104 bytes and took 30% longer, PERF.md, PR 4).  The
 // state stays in device memory, allocated once per call: the float32 carry, the
 // float32 RRDB base (the output buffer: each RRDB's third conv5 writes 0.2 x + base
 // there, the next RRDB's input) and two bf16 dense buffers; each RRDB's last conv5
@@ -63,7 +64,7 @@ constexpr int trunk_smem() {
                                                                : conv3x3::smem_bytes<NF>();
 }
 
-// MT: 8x8 sub-tiles per warpgroup (conv3x3::pick_mt)
+// MT: 8x8 sub-tiles per warpgroup (conv3x3::with_mt)
 template <int NF, int GC, int MT>
 __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -116,7 +117,7 @@ cudaError_t launch_trunk(TrunkArgs a, cudaStream_t stream) {
   const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC, MT>);
   constexpr int smem = trunk_smem<NF, GC>();
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = conv3x3::allow_smem(trunk_kernel<NF, GC, MT>, smem);
+  cudaError_t err = conv3x3::allow_smem<trunk_kernel<NF, GC, MT>>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -136,8 +137,9 @@ cudaError_t launch_trunk(TrunkArgs a, cudaStream_t stream) {
 
 template <int NF, int GC>
 cudaError_t launch_trunk(const TrunkArgs& a, cudaStream_t stream) {
-  return conv3x3::pick_mt(a.W) == 2 ? launch_trunk<NF, GC, 2>(a, stream)
-                                    : launch_trunk<NF, GC, 1>(a, stream);
+  return conv3x3::with_mt(a.W, [&](auto mt) {
+    return launch_trunk<NF, GC, decltype(mt)::value>(a, stream);
+  });
 }
 
 template <int NF>

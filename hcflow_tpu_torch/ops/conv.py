@@ -9,11 +9,10 @@ lane-limited roofline); so does the port, whose library convs run in ``nets.py``
 
 Bound on the card: bytes at the model's shapes, narrowly (float32 in and out, 144-231
 FLOP per byte at C 64-262 and N 64, under the ~295 FLOP/byte ridge).  The kernel
-stages, in one launch, a bf16 copy of x with C zero-padded to a multiple of 16 and
-the weights in bf16 chunks of at most 64 output channels (N padded to a multiple of
-16), then runs the wgmma tile conv the dense-block kernels share
-(``csrc/conv3x3.cuh``) once per chunk; the epilogue adds the bias and the leaky ReLU
-in float32.
+packs, in one launch, the weights in bf16 chunks of at most 64 output channels (N
+padded to a multiple of 16), then runs the wgmma tile conv the dense-block kernels
+share (``csrc/conv3x3.cuh``) once per chunk, reading float32 x and rounding it to
+bf16 as it stages it; the epilogue adds the bias and the leaky ReLU in float32.
 """
 
 from __future__ import annotations
@@ -25,16 +24,11 @@ import torch
 from .. import _build
 from . import nets
 
-launches = 0  # CUDA kernel launches made by conv3x3 (1 staging + 1 per 64 outputs)
+launches = 0  # CUDA kernel launches made by conv3x3 (1 weight pack + 1 per 64 outputs)
 CHUNK = 64  # output channels per conv launch (the tile conv's widest)
-# copies of the packed bf16 weights: the tiles in flight read different copies, which
-# spreads their weight reads over more of L2 than one copy, read by every block at
-# once, would be
-WEIGHT_COPIES = 8
 
 _FN = "hcflow_conv3x3"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _round16(n: int) -> int:
@@ -69,15 +63,15 @@ def conv3x3(x, w, b=None, relu: bool = False, alpha: float = 0.2) -> torch.Tenso
         raise ValueError("conv3x3 weights must be CUDA tensors, as x is")
     cp, np_ = _round16(C), _round16(N)
     x, w = x.float().contiguous(), w.float().contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     bias = None if b is None else b.float().contiguous()
-    # scratch: the bf16 copy of x (cp channels) and copies of the bf16 weights in
-    # chunks of at most 64 outputs, all written by the kernel's staging launch
-    staged = torch.empty((B, H, W, cp), dtype=torch.bfloat16, device=x.device)
-    wpack = torch.empty(WEIGHT_COPIES * 9 * cp * np_, dtype=torch.bfloat16, device=x.device)
+    # scratch: the bf16 weights in chunks of at most 64 outputs, packed by the kernel
+    wpack = torch.empty(9 * cp * np_, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, H, W, N), dtype=torch.float32, device=x.device)
     lib = _build.load("conv", _FN, _ARGTYPES)
     err = lib.hcflow_conv3x3(
-        x.data_ptr(), w.data_ptr(), staged.data_ptr(), wpack.data_ptr(), WEIGHT_COPIES,
+        x.data_ptr(), w.data_ptr(), wpack.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), B, H, W, C, N, int(relu),
         alpha, torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -85,10 +85,11 @@ def test_rrdb_trunk_kernel_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
 
 
 @pytest.mark.parametrize("C,N,bias,relu", [(20, 100, True, True), (3, 64, False, False),
-                                           (64, 24, True, False), (140, 48, False, True)])
+                                           (64, 24, True, False), (140, 48, False, True),
+                                           (24, 16, True, True)])
 def test_conv3x3_kernel_matches_plain(gen, C, N, bias, relu):
-    """Ragged C and N (padded to multiples of 16, N in chunks of at most 64) and
-    ragged tiles."""
+    """Ragged C and N (padded to multiples of 16, N in chunks of at most 64; C 24 a
+    multiple of 8 whose last chunk is half padding) and ragged tiles."""
     x = torch.randn(2, 13, 21, C, device="cuda", generator=gen)
     w = 0.1 * torch.randn(3, 3, C, N, device="cuda", generator=gen)
     b = 0.1 * torch.randn(N, device="cuda", generator=gen) if bias else None

@@ -11,7 +11,8 @@ the per-RRDB kernel (gc 32 and 16 at 16x40x40 and 16x80x80), the resident trunk
 (nb 5 at 20x20, 40x40, 80x80), chain3s (K 8 at 40x40 and 80x80) and conv3x3 (262,
 140, 3 and 64 channels in).  Each row is checked against its plain version, as
 chip_smoke.py checks it.  Prints one line of ms/call per ROOT, then the library
-yardsticks' ms in the same order.  ``--unchecked`` times only the per-RRDB kernel
+yardsticks' ms in the same order, then whether each trunk was bit-identical to the
+per-RRDB kernel and the latter's ms.  ``--unchecked`` times only the per-RRDB kernel
 (gc 32 at 16x40x40 and 16x80x80) and checks nothing: for probes, variants that skip
 part of the work on purpose to show where the time goes.
 """
@@ -70,6 +71,9 @@ def run_one(root: str) -> None:
     print(root, " ".join(f"{r['ms']:.4f}" for r in flat), flush=True)
     print(root, "library", " ".join(f"{r['library_ms']:.4f}" for r in flat
                                     if r["library_ms"] is not None), flush=True)
+    print(root, "trunk bit-identical to the per-RRDB kernel, per-RRDB ms",
+          " ".join(f"{r['identical_to_per_rrdb']} {r['per_rrdb_ms']:.4f}"
+                   for r in rows["rrdb_trunk"]), flush=True)
 
 
 def main(argv=None) -> int:
