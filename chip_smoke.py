@@ -15,11 +15,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    gc 32) at 20x20, 40x40 and 80x80, also against the per-RRDB kernel (bit-identical
    expected) and timed beside it, and its six 13-step chains; the standalone conv3x3
    (on no path, as in the JAX package) at the model's library 3x3 shapes, timed
-   beside cuDNN's bf16 conv (its library time, never called by the port); the RRDB
-   and trunk rows are timed beside the same RRDB or trunk as a sequence of library
-   calls (nets.apply_rrdb / apply_rrdb_trunk in the bf16 recipe: cuDNN bf16 convs
-   and concats), since no single call computes one, timed on the device as one CUDA
-   graph (the host takes longer to issue the sequence than the card to run it);
+   beside cuDNN's bf16 conv (its library time, never called by the port); the RRDB,
+   trunk and chain rows are timed beside the same function as a sequence of library
+   calls in the bf16 recipe (nets.apply_rrdb / apply_rrdb_trunk: cuDNN bf16 convs and
+   concats; the chain's step loop, FlowStepSpec.inverse_hoisted / inverse), since no
+   single call computes one, timed on the device as one CUDA graph (the host takes
+   longer to issue the sequence than the card to run it); each chain row prints the
+   kernel's tile plan;
 3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
@@ -340,6 +342,10 @@ def _conv_rows(torch, gen, rows, shapes, path):
 
 
 def _chain_rows(torch, gen, rows, K, cond_ch, chains, path):
+    """The chain kernel against its plain version, each row with the kernel's tile plan
+    and the bf16 recipe's step loop (FlowStepSpec.inverse_hoisted / inverse over the K
+    steps: cuDNN bf16 conv1 and conv2, float32 conv3 and tail) as the library
+    sequence, timed as one CUDA graph and eagerly; the port never runs it."""
     from hcflow_tpu_torch.flow import stack
     from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
     from hcflow_tpu_torch.ops import chain
@@ -350,16 +356,27 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path):
                             hidden_channels=hid, compute_dtype="bfloat16")
         steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
         steps = _to(stack.precompute_invconv(perturb(steps, gen)), DEV)
-        pk = chain.pack_inverse_chain(steps, "bfloat16")
+        pk = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
         z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
-        uc = None
+        uc = ucf = None
         if cond:
             u = torch.randn(BATCH, hw, hw, cond_ch, device=DEV, generator=gen)
-            uc = stack.compute_u_contribs(spec, steps, u).to(torch.bfloat16).contiguous()
+            ucf = stack.compute_u_contribs(spec, steps, u)
+            uc = ucf.to(torch.bfloat16).contiguous()
+
+        def library(z=z, ucf=ucf, steps=steps, spec=spec):
+            for k in reversed(range(K)):
+                z = (spec.inverse_hoisted(steps[k], z, ucf[..., k * hid:(k + 1) * hid])
+                     if ucf is not None else spec.inverse(steps[k], z))[0]
+            return z
+
+        plan = chain.plan(BATCH, hw, hw, c)
+        log(f"  chain {name}: {plan['th']}x{plan['tw']} tiles, {plan['blocks']} blocks, "
+            f"{plan['blocks_per_sm']} per SM, {plan['smem']} bytes of shared memory a block")
         _row(rows, "chain", f"chain {name} {BATCH}x{hw}x{hw}x{c} K={K}",
              lambda: chain.inverse_chain(pk, z, uc), lambda: chain.inverse_chain_plain(pk, z, uc),
-             chain_work(BATCH, hw, hw, c, hid, K, cond), 20, path, 1,
-             shape=[BATCH, hw, hw, c], chain=name, K=K)
+             chain_work(BATCH, hw, hw, c, hid, K, cond), 20, path, 1, library_fn=library,
+             library_seq=True, shape=[BATCH, hw, hw, c], chain=name, K=K, plan=plan)
 
 
 def _chain3s_rows(torch, gen, rows, K, chains, path):
@@ -671,7 +688,7 @@ KERNELS = {
                    "x8 SR reverse pass", ("trunk_kernel",)),
     "chain": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
               "x4 SR reverse pass + rescaling request + x8 SR reverse pass",
-              ("chain_step_kernel",)),
+              ("chain_step_mma_kernel",)),
     "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
                 "rescaling request", ("prologue_kernel", "feature_kernel", "coupling_kernel")),
     "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",

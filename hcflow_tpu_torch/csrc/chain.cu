@@ -9,191 +9,464 @@
 //   z  = Wt @ [z1; z2] - ab                        (float32 tail)
 // z1, h1, h2 and the net weights are bf16 values; every sum is float32.
 //
-// Bound: bytes and operations about even.  A step reads z (f32) and its cond term
-// (hid bf16 channels) and writes z, ~300 bytes per pixel, for ~45 kFLOP per pixel of
-// bf16 convs: ~150 FLOP/byte against the card's ~295 FLOP/byte ridge.  The design
-// keeps everything but z and the cond term out of device memory: a block owns an
-// 8x8 output tile, loads z1 with a 2-pixel halo into shared memory, builds h1 and h2
-// on the tile plus a 1-pixel halo in shared memory, and writes only the new z.  The
-// step's weights are staged once per block in shared memory.  This first version
-// runs the convs as CUDA-core FMAs out of shared memory, which is what bounds it
-// now; tensor-core tiles are later work.
+// Bound: operations, barely.  A step reads z (f32) and its cond term (64 bf16
+// channels) and writes z, 50-450 bytes per pixel, for 19-91 kFLOP per pixel of bf16
+// convs; the least time of a 13-step chain at the main path's shapes is 0.01-0.05 ms.
+// What the work needs is little; what costs is latency: each block stages 35-95 KB
+// of the step's weights from L2 and runs three dependent convs on a small tile.
 //
-// Layouts: z is NHWC float32 (B,H,W,c); uc is NHWC bf16 (B,H,W,K*hid), step k's
-// term at channels k*hid..; per step: w1 [9][c1][hid], w2 [hid_in][hid_out],
-// w3 [9][hid][2*c2] with outputs ordered [shift | scale], vec = b1,e1,b2,e2 (hid
-// each) then g3,bg3 (2*c2 each), wt [c][c], ab [c].
+// Design.  A block of 8 warps owns a TH x TW output tile.  It rounds z1 with a
+// 2-pixel halo to bf16 in shared memory, runs conv1 and conv2 over the tile plus a
+// 1-pixel halo (the h region), keeps h2 in shared memory, runs conv3 over the tile
+// and the float32 tail, and writes only the new z: h1 and h2 never reach device
+// memory; only z (f32) and the cond term (bf16) do.
+// - Products on tensor cores: mma.sync m16n8k16 (bf16 in, float32 sums), all three
+//   convs as implicit GEMMs with A gathered by ldmatrix (each lane gives one row's
+//   address, so a row of M is any pixel of the region and a tap is an address
+//   offset).  mma.sync rather than wgmma: the h region (e.g. 18x18 or 6x12 pixels) does
+//   not fill 64-row tiles, N is as narrow as 8 per product (conv3 at c 6), and conv1's
+//   accumulator fragment is, pair for pair, conv2's A fragment, so conv1's epilogue
+//   (cond term + b1, x e1, ReLU, bf16) feeds conv2 in registers, which wgmma's
+//   register-A form did not do safely on this card (PERF.md).  The products
+//   wait on their ldmatrix loads, not on the tensor cores' rate (PERF.md), so
+//   mma.sync's lower peak costs little.
+//   conv1: M = the h region, N = 64, K = 9 taps x c1 padded to 8 (C1P), in k steps
+//          of two 8-channel chunks (a last odd chunk meets zero weights).
+//   conv2: M = the h region, N = 64, K = 64, A from conv1's registers.
+//   conv3: M = the tile, N = [shift | scale], each half padded to 8 (S), K = 9 x 64.
+//   The padded pack (ops/chain.py, padded=True) puts scale j at column S + j, so
+//   shift j and scale j land in the same thread's fragment and the coupling runs
+//   from registers.
+// - Shared memory is one region reused across phases: z1, w1 and w2 during conv1/2,
+//   then w3 and the tile's float32 z; h2, the per-channel vectors and Wt beside it.
+//   So 67-95 KB a block and 2 blocks per SM at the main path's shapes.
+// - Asynchronous copies: w1, w2, the vectors and Wt by cp.async before z1 is staged
+//   (z1 is loaded by the threads, which round it to bf16 on the way, and zero outside
+//   the image and in the padding channels); after conv2, the tile's z and w3.  The
+//   other block on the SM runs its products during this block's copies.  Streaming w3
+//   one tap a group under conv3's products (tap t waiting for its group only) was
+//   slower than one wait for all of it, in a probe on an H100.
+// - Programmatic dependent launch: every step after the first is launched with
+//   programmatic stream serialization; a step lets the next one's grid launch once
+//   all its blocks run, and waits (griddepcontrol.wait) for the previous step only
+//   before it reads z or uc, so the next step's launch and weight copies overlap this
+//   step's last blocks (PERF.md).  The launch count stays one a step.
+// - Tiles sized per shape by pick_tile: the candidate that does the least padded work
+//   among those whose grid covers the 132 SMs and of which two blocks fit an SM.
+//   At batch 16 (grid, blocks per SM, shared memory):
+//     80x80, c 6 / 12        16x16 tiles, 400 blocks, 2, 79.9 / 86.3 KB
+//     40x40, c 12 / 21 / 24  8x20 tiles,  160 blocks, 2, 67.2 / 92.4 / 94.5 KB
+//     20x20, c 45 / 48       4x10 tiles,  160 blocks, 2, 90.2 / 91.2 KB
+//   (The candidates: 16x16, 8x20, 10x10, 8x16, 8x8, 4x10, 4x8.  16x16 tiles at 40x40
+//   would compute a 48x48 region.)
+// Where trouble was likely:
+// - Odd and narrow widths: c1 is padded to 8 per tap, the products' K to 16 (c 6: c1
+//   3 in 5 k steps; padding c1 to 16 took 9; folding the taps into K, 2, would need an
+//   im2col copy) and shift and scale to 8 each (c 45: c2 23 -> S 24), with zero
+//   weights, gains and biases; the tail runs over the c real channels.
+// - Zero padding for conv3: conv2's epilogue stores 0 for h-region pixels outside
+//   the image, not relu((b2 + ...) * e2).
+// - Ragged tiles: A rows past the region read its last pixel and are dropped; the
+//   tail and the coupling skip pixels outside the image, so no z is written there.
+// - uc's stride: step k's term is at channels k*64 of a (B,H,W,K*64) tensor.
+// - Bank conflicts: every bf16 row that ldmatrix reads has an odd number of 16-byte
+//   units (h2, w1, w2: 72 elements; z1: C1P or C1P + 8; w3: 2S + 8).
+// - Registers: conv1 and conv2 hold 16 pixels x 64 sums a warp (32 float32 and the
+//   16 bf16 pairs of h1), conv3 16 pixels x one shift/scale pair of n8 tiles (8); the
+//   tail, four outputs a thread, reads its operands from shared memory.  At
+//   __launch_bounds__(256, 2) ptxas gives every instance 126-128 registers, and the
+//   C1P 24 and 32 ones 4-12 bytes of spill (`-Xptxas -v`; chip_smoke.py prints it).
+//
+// Layouts: z is NHWC float32 (B,H,W,c); uc is NHWC bf16 (B,H,W,K*64), step k's term
+// at channels k*64..; the padded pack per step: w1 [9][C1P][64], w2 [64 in][64 out],
+// w3 [9][64][2S] as [shift (S) | scale (S)], vec = b1,e1,b2,e2 (64 each) then g3,bg3
+// (2S each), wt [c][c], ab [c].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv3x3.cuh"
 
 namespace {
 
-constexpr int TH = 8, TW = 8;            // output tile
-constexpr int HH = TH + 2, HWD = TW + 2; // h1/h2 region (1-pixel halo for conv3)
-constexpr int ZH = TH + 4, ZW = TW + 4;  // z1 region (2-pixel halo)
-constexpr int NTHREADS = 256;
+using conv3x3::bf16;
+using conv3x3::smem_addr;
 
-__device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ __nv_bfloat16 f2bf(float v) { return __float2bfloat16(v); }
+constexpr int HID = 64;
+constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
+constexpr int HP = HID + 8;  // row pitch (elements) of h2, w1 and w2: 9 16-byte units
+constexpr int MAX_SMEM = 232448;
+constexpr int SM_BYTES = 233472;  // shared memory of an SM, 1 KB of it reserved a block
 
+__host__ __device__ constexpr int up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared-memory layout (byte offsets) of a th x tw tile at c channels.
+template <int C1P, int N3P>
 struct Layout {
-  int c, c1, c2, fout, hid;
-  // float region, then bf16 region (element offsets within each)
-  int f_z1, f_p, f_zz, f_vec, f_wt, f_ab, n_f;
-  int b_h1, b_h2, b_w1, b_w2, b_w3, n_b;
+  // z1 and w3 row pitches (elements), odd numbers of 16-byte units
+  static constexpr int ZP = C1P / 8 % 2 ? C1P : C1P + 8, W3P = N3P + 8;
+  static constexpr int KS1 = (9 * C1P + 15) / 16;  // conv1's k steps: 9 taps x C1P
+  int c, c1, c2, cq, th, tw, zw, hw2, hr, mt12, mt3, items3;
+  int o_z1, o_w1, o_w2, o_w3, o_zz, o_h2, o_vec, o_wt, o_ab, bytes;
 
-  __host__ __device__ Layout(int c_, int hid_) : c(c_), hid(hid_) {
+  __host__ __device__ Layout(int c_, int th_, int tw_) : c(c_), th(th_), tw(tw_) {
     c1 = c / 2;
     c2 = c - c1;
-    fout = 2 * c2;
-    f_z1 = 0;
-    f_p = f_z1 + ZH * ZW * c1;
-    f_zz = f_p + TH * TW * fout;
-    f_vec = f_zz + TH * TW * c;
-    f_wt = f_vec + 4 * hid + 2 * fout;
-    f_ab = f_wt + c * c;
-    n_f = f_ab + c;
-    b_h1 = 0;
-    b_h2 = b_h1 + HH * HWD * hid;
-    b_w1 = b_h2 + HH * HWD * hid;
-    b_w2 = b_w1 + 9 * c1 * hid;
-    b_w3 = b_w2 + hid * hid;
-    n_b = b_w3 + 9 * hid * fout;
+    cq = up(c, 4);  // the tail's row pitch of Wt
+    zw = tw + 4;
+    hw2 = tw + 2;
+    hr = (th + 2) * hw2;
+    mt12 = (hr + 15) / 16;
+    mt3 = (th * tw + 15) / 16;
+    items3 = mt3 * (N3P / 16);
+    // region 1: z1, w1, w2 while conv1/2 run; then w3 and the tile's float32 z
+    o_z1 = 0;
+    o_w1 = (th + 4) * zw * ZP * 2;
+    o_w2 = o_w1 + KS1 * 16 * HP * 2;
+    const int r1a = o_w2 + HID * HP * 2;
+    o_w3 = 0;
+    o_zz = 9 * HID * W3P * 2;
+    const int r1b = o_zz + th * tw * c * 4;
+    o_h2 = up(r1a > r1b ? r1a : r1b, 16);
+    o_vec = o_h2 + hr * HP * 2;
+    o_wt = o_vec + (4 * HID + 2 * N3P) * 4;
+    o_ab = o_wt + c * cq * 4;
+    bytes = up(o_ab + c * 4, 16);
   }
-  __host__ __device__ size_t bytes() const { return size_t(n_f) * 4 + size_t(n_b) * 2; }
 };
 
-__global__ void __launch_bounds__(NTHREADS)
-chain_step_kernel(const float* __restrict__ zin, float* __restrict__ zout,
-                  const __nv_bfloat16* __restrict__ uc, int uc_stride,
-                  const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ w2,
-                  const __nv_bfloat16* __restrict__ w3, const float* __restrict__ vec,
-                  const float* __restrict__ wt, const float* __restrict__ ab,
-                  int H, int W, int c, int hid) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(c, hid);
-  float* s_f = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(smem + size_t(L.n_f) * 4);
-  float* s_z1 = s_f + L.f_z1;
-  float* s_p = s_f + L.f_p;
-  float* s_zz = s_f + L.f_zz;
-  float* s_vec = s_f + L.f_vec;
-  float* s_wt = s_f + L.f_wt;
-  float* s_ab = s_f + L.f_ab;
-  __nv_bfloat16* s_h1 = s_b + L.b_h1;
-  __nv_bfloat16* s_h2 = s_b + L.b_h2;
-  __nv_bfloat16* s_w1 = s_b + L.b_w1;
-  __nv_bfloat16* s_w2 = s_b + L.b_w2;
-  __nv_bfloat16* s_w3 = s_b + L.b_w3;
+// ------------------------------------------------------------------------------ PTX
+// 4 bytes global -> shared (any 4-byte aligned address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// d += a (16 x 16, row) * b (16 x 8, col); bf16 operands, float32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
 
-  const int c1 = L.c1, c2 = L.c2, fout = L.fout;
-  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  const size_t img = size_t(b) * H * W;
+// ---------------------------------------------------------------------- the step
+// In mma's fragments lane l holds rows g = l/4 and g + 8 and columns 2q, 2q + 1
+// (q = l%4) of each n8 tile; A (16 x 16) and B (16 x 8) come from ldmatrix.x4 with
+// lane l giving row l%16 at column (l/16)*8.
+template <int C1P, int N3P>
+__global__ void __launch_bounds__(NTHREADS, 2)
+chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
+                      const bf16* __restrict__ uc, int uc_stride, const bf16* __restrict__ w1,
+                      const bf16* __restrict__ w2, const bf16* __restrict__ w3,
+                      const float* __restrict__ vec, const float* __restrict__ wt,
+                      const float* __restrict__ ab, int H, int W, int c, int th, int tw) {
+  using Lay = Layout<C1P, N3P>;
+  constexpr int ZP = Lay::ZP, W3P = Lay::W3P, S = N3P / 2, NG = S / 8, NVEC = 4 * HID + 2 * N3P;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CPT = C1P / 8;  // 8-channel chunks of z1 a tap
+  const Lay L(c, th, tw);
+  const uint32_t s0 = smem_addr(smem);
+  float* s_zz = reinterpret_cast<float*>(smem + L.o_zz);
+  const float* s_vec = reinterpret_cast<const float*>(smem + L.o_vec);
+  const float* s_wt = reinterpret_cast<const float*>(smem + L.o_wt);
+  const float* s_ab = reinterpret_cast<const float*>(smem + L.o_ab);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int c1 = L.c1, c2 = L.c2, x0 = blockIdx.x * tw, y0 = blockIdx.y * th;
+  const size_t img = size_t(blockIdx.z) * H * W;
 
-  // ---- stage the step's weights and the z1 tile (+2 halo, zero outside the image)
-  for (int i = tid; i < 9 * c1 * hid; i += NTHREADS) s_w1[i] = w1[i];
-  for (int i = tid; i < hid * hid; i += NTHREADS) s_w2[i] = w2[i];
-  for (int i = tid; i < 9 * hid * fout; i += NTHREADS) s_w3[i] = w3[i];
-  for (int i = tid; i < 4 * hid + 2 * fout; i += NTHREADS) s_vec[i] = vec[i];
-  for (int i = tid; i < c * c; i += NTHREADS) s_wt[i] = wt[i];
-  for (int i = tid; i < c; i += NTHREADS) s_ab[i] = ab[i];
-  for (int i = tid; i < ZH * ZW * c1; i += NTHREADS) {
-    const int ch = i % c1, q = i / c1;
-    const int gy = y0 - 2 + q / ZW, gx = x0 - 2 + q % ZW;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = zin[(img + size_t(gy) * W + gx) * c + ch];
-    s_z1[i] = bf2f(f2bf(v));  // conv1 takes bf16 operands
+  // ---- w1, w2, the vectors, Wt (transposed to [k][o]) and ab by cp.async
+  for (int i = tid; i < 9 * C1P * 8; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w1 + (i / 8) * HP * 2 + i % 8 * 16, w1 + (i / 8) * HID + i % 8 * 8,
+                        true);
+  for (int i = tid; i < (Lay::KS1 * 16 - 9 * C1P) * HID / 2; i += NTHREADS) {  // past 9 C1P
+    uint32_t* row = reinterpret_cast<uint32_t*>(smem + L.o_w1 + (9 * C1P + i / (HID / 2)) * HP * 2);
+    row[i % (HID / 2)] = 0;
   }
+  for (int i = tid; i < HID * 8; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w2 + (i / 8) * HP * 2 + i % 8 * 16, w2 + (i / 8) * HID + i % 8 * 8,
+                        true);
+  for (int i = tid; i < NVEC / 4; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_vec + i * 16, vec + 4 * i, true);
+  for (int i = tid; i < c * c; i += NTHREADS)
+    cp_async4(s0 + L.o_wt + ((i % c) * L.cq + i / c) * 4, wt + i);
+  for (int i = tid; i < c; i += NTHREADS) cp_async4(s0 + L.o_ab + i * 4, ab + i);
+  conv3x3::cp_async_commit();
+  // Programmatic dependent launch: the next step's blocks may start their weight
+  // copies while this grid runs; z and uc are read after the previous grid is done.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // ---- z1 with a 2-pixel halo as bf16, [pixel][ZP]; zero outside the image and
+  // from channel c1 on
+  for (int i = tid; i < (th + 4) * L.zw * CPT; i += NTHREADS) {
+    const int px = i / CPT, part = i % CPT;
+    const int gy = y0 - 2 + px / L.zw, gx = x0 - 2 + px % L.zw;
+    float f[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const float* src = zin + (img + size_t(gy) * W + gx) * c + part * 8;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (part * 8 + k < c1) f[k] = src[k];
+    }
+    *reinterpret_cast<uint4*>(smem + L.o_z1 + (px * ZP + part * 8) * 2) =
+        make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                   pack_bf16(f[6], f[7]));
+  }
+  conv3x3::cp_async_wait<0>();
   __syncthreads();
 
   const float* b1 = s_vec;
-  const float* e1 = s_vec + hid;
-  const float* b2 = s_vec + 2 * hid;
-  const float* e2 = s_vec + 3 * hid;
-  const float* g3 = s_vec + 4 * hid;
-  const float* bg3 = g3 + fout;
+  const float* e1 = s_vec + HID;
+  const float* b2 = s_vec + 2 * HID;
+  const float* e2 = s_vec + 3 * HID;
+  const float* g3 = s_vec + 4 * HID;
+  const float* bg3 = g3 + N3P;
 
-  // ---- conv1 (+ cond term) + actnorm + relu over the tile and its 1-pixel halo
-  for (int i = tid; i < HH * HWD * hid; i += NTHREADS) {
-    const int j = i % hid, q = i / hid;
-    const int hy = q / HWD, hx = q % HWD;
-    const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      float acc = 0.f;
-      for (int t = 0; t < 9; ++t) {
-        const float* zr = s_z1 + ((hy + t / 3) * ZW + hx + t % 3) * c1;
-        const __nv_bfloat16* wr = s_w1 + t * c1 * hid + j;
-        for (int ch = 0; ch < c1; ++ch) acc = fmaf(zr[ch], bf2f(wr[ch * hid]), acc);
-      }
-      if (uc != nullptr) acc += bf2f(uc[(img + size_t(gy) * W + gx) * uc_stride + j]);
-      v = fmaxf((acc + b1[j]) * e1[j], 0.f);
+  // ---- conv1 (+ cond term) and conv2 over the h region, 16 pixels a warp at a time
+  for (int mt = warp; mt < L.mt12; mt += NWARPS) {
+    const int ra = min(mt * 16 + lane % 16, L.hr - 1);  // this lane's A row (pixel)
+    const uint32_t a1 = s0 + L.o_z1 + (ra / L.hw2 * L.zw + ra % L.hw2) * ZP * 2;
+    const uint32_t bw1 = s0 + L.o_w1 + ((lane % 16) * HP + lane / 16 * 8) * 2;
+    // the rows this thread's sums belong to: pixels r[h] = mt*16 + g + 8h
+    bool in[2];
+    size_t pix[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      const int gy = y0 - 1 + r / L.hw2, gx = x0 - 1 + r % L.hw2;
+      in[h] = r < L.hr && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      pix[h] = in[h] ? img + size_t(gy) * W + gx : 0;
     }
-    s_h1[i] = f2bf(v);
-  }
-  __syncthreads();
+    uint32_t u[8][2];  // cond term, loaded ahead of the products
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        u[nt][h] = uc != nullptr && in[h] ? *reinterpret_cast<const uint32_t*>(
+                                                uc + pix[h] * uc_stride + 8 * nt + 2 * q)
+                                          : 0u;
 
-  // ---- conv2 (1x1) + actnorm + relu; zero outside the image = conv3's padding
-  for (int i = tid; i < HH * HWD * hid; i += NTHREADS) {
-    const int j = i % hid, q = i / hid;
-    const int gy = y0 - 1 + q / HWD, gx = x0 - 1 + q % HWD;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const __nv_bfloat16* hr = s_h1 + q * hid;
-      float acc = 0.f;
-      for (int k = 0; k < hid; ++k) acc = fmaf(bf2f(hr[k]), bf2f(s_w2[k * hid + j]), acc);
-      v = fmaxf((acc + b2[j]) * e2[j], 0.f);
-    }
-    s_h2[i] = f2bf(v);
-  }
-  __syncthreads();
-
-  // ---- conv3 (Conv2dZeros, gain folded) over the tile: [shift | scale]
-  for (int i = tid; i < TH * TW * fout; i += NTHREADS) {
-    const int o = i % fout, q = i / fout;
-    const int ty = q / TW, tx = q % TW;
-    float acc = 0.f;
-    for (int t = 0; t < 9; ++t) {
-      const __nv_bfloat16* hr = s_h2 + ((ty + t / 3) * HWD + tx + t % 3) * hid;
-      const __nv_bfloat16* wr = s_w3 + t * hid * fout + o;
-      for (int k = 0; k < hid; ++k) acc = fmaf(bf2f(hr[k]), bf2f(wr[k * fout]), acc);
-    }
-    s_p[i] = fmaf(acc, g3[o], bg3[o]);
-  }
-  __syncthreads();
-
-  // ---- affine inverse: [z1; z2 * exp(-logscale) - shift], float32
-  for (int i = tid; i < TH * TW * c; i += NTHREADS) {
-    const int ch = i % c, q = i / c;
-    const int gy = y0 + q / TW, gx = x0 + q % TW;
-    float v = 0.f;
-    if (gy < H && gx < W) {
-      const float z = zin[(img + size_t(gy) * W + gx) * c + ch];
-      if (ch < c1) {
-        v = z;
-      } else {
-        const float* p = s_p + q * fout;
-        const float ls = 0.318f * atanf(2.f * p[c2 + ch - c1]);
-        v = z * expf(-ls) - p[ch - c1];
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    // k = tap * C1P + channel: k step ks takes 8-channel chunks 2 ks (lanes 0-15)
+    // and 2 ks + 1 (lanes 16-31) of the 9 CPT; a chunk past the last (9 CPT odd)
+    // reads chunk 0 against zero weights
+    auto chunk = [&](int j) -> uint32_t {
+      j = j < 9 * CPT ? j : 0;
+      return ((j / CPT / 3) * L.zw + j / CPT % 3) * ZP * 2 + j % CPT * 16;
+    };
+#pragma unroll
+    for (int ks = 0; ks < Lay::KS1; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, a1 + chunk(2 * ks + lane / 16));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bw1 + (ks * 16 * HP + np * 16) * 2);
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
-    s_zz[i] = v;
+    // conv1's epilogue straight into conv2's A fragments: n8 tiles 2ks and 2ks+1 of
+    // conv1's sums are k step ks of conv2
+    uint32_t ha[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int j = 8 * nt + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 uf = unpack_bf16(u[nt][h]);
+        const float v0 = fmaxf((acc[nt][2 * h] + uf.x + b1[j]) * e1[j], 0.f);
+        const float v1 = fmaxf((acc[nt][2 * h + 1] + uf.y + b1[j + 1]) * e1[j + 1], 0.f);
+        ha[nt / 2][nt % 2 * 2 + h] = pack_bf16(v0, v1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    const uint32_t bw2 = s0 + L.o_w2 + ((lane % 16) * HP + lane / 16 * 8) * 2;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bw2 + (ks * 16 * HP + np * 16) * 2);
+        mma(acc[2 * np], ha[ks], b[0], b[1]);
+        mma(acc[2 * np + 1], ha[ks], b[2], b[3]);
+      }
+    // conv2's epilogue; zero outside the image (conv3's padding)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (r >= L.hr) continue;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(smem + L.o_h2 + (r * HP + 2 * q) * 2);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int j = 8 * nt + 2 * q;
+        const float v0 = in[h] ? fmaxf((acc[nt][2 * h] + b2[j]) * e2[j], 0.f) : 0.f;
+        const float v1 = in[h] ? fmaxf((acc[nt][2 * h + 1] + b2[j + 1]) * e2[j + 1], 0.f) : 0.f;
+        dst[4 * nt] = pack_bf16(v0, v1);
+      }
+    }
+  }
+  __syncthreads();  // h2 is complete; z1, w1 and w2 are no longer read
+
+  // ---- the tile's float32 z (rows of the tile are runs of z) and w3
+  const int wv = min(tw, W - x0);
+  for (int ty = 0; ty < th && y0 + ty < H; ++ty) {
+    const float* src = zin + (img + size_t(y0 + ty) * W + x0) * c;
+    for (int i = tid; i < wv * c; i += NTHREADS)
+      cp_async4(s0 + L.o_zz + (ty * tw * c + i) * 4, src + i);
+  }
+  for (int i = tid; i < 9 * HID * (N3P / 8); i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w3 + (i / (N3P / 8) * W3P + i % (N3P / 8) * 8) * 2,
+                        w3 + i * 8, true);
+  conv3x3::cp_async_commit();
+  conv3x3::cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- conv3 over the tile and the affine inverse on the staged z, float32:
+  // z2 = z2 * exp(-logscale) - shift.  An item is 16 pixels (M tile it / NG) x the
+  // shift and the scale n8 tiles of pair it % NG.
+  for (int it = warp; it < L.items3; it += NWARPS) {
+    const int mi = it / NG, pr = it % NG;
+    const int ra = min(mi * 16 + lane % 16, th * tw - 1);
+    const uint32_t a3 = s0 + L.o_h2 + ((ra / tw * L.hw2 + ra % tw) * HP + lane / 16 * 8) * 2;
+    const uint32_t b3 = s0 + L.o_w3 + ((lane % 16) * W3P + (lane < 16 ? 8 * pr : S + 8 * pr)) * 2;
+    float acc[2][4] = {};
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, a3 + ((tap / 3) * L.hw2 + tap % 3) * HP * 2 + ks * 32);
+        ldsm_x4_t(b, b3 + (tap * HID + ks * 16) * W3P * 2);
+        mma(acc[0], a, b[0], b[1]);
+        mma(acc[1], a, b[2], b[3]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mi * 16 + g + 8 * h;
+      if (p >= th * tw || y0 + p / tw >= H || x0 + p % tw >= W) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * pr + 2 * q + e;
+        if (j >= c2) continue;
+        const float shift = fmaf(acc[0][2 * h + e], g3[j], bg3[j]);
+        const float scale = fmaf(acc[1][2 * h + e], g3[S + j], bg3[S + j]);
+        const float ls = 0.318f * atanf(2.f * scale);
+        float* zz = s_zz + p * c + c1 + j;
+        *zz = *zz * expf(-ls) - shift;
+      }
+    }
   }
   __syncthreads();
 
   // ---- fused invconv^-1 + actnorm^-1: z = Wt @ zz - ab, float32
-  for (int i = tid; i < TH * TW * c; i += NTHREADS) {
-    const int o = i % c, q = i / c;
-    const int gy = y0 + q / TW, gx = x0 + q % TW;
+  // (four outputs a thread; Wt's rows padded to cq, a multiple of 4)
+  const int nq = L.cq / 4;
+  for (int i = tid; i < th * tw * nq; i += NTHREADS) {
+    const int p = i / nq, o = (i - p * nq) * 4;
+    const int gy = y0 + p / tw, gx = x0 + p % tw;
     if (gy >= H || gx >= W) continue;
-    const float* zz = s_zz + q * c;
-    const float* wr = s_wt + o * c;
-    float acc = 0.f;
-    for (int k = 0; k < c; ++k) acc = fmaf(wr[k], zz[k], acc);
-    zout[(img + size_t(gy) * W + gx) * c + o] = acc - s_ab[o];
+    const float* zz = s_zz + p * c;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < c; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(s_wt + k * L.cq + o);
+      const float z = zz[k];
+      sum[0] = fmaf(w.x, z, sum[0]);
+      sum[1] = fmaf(w.y, z, sum[1]);
+      sum[2] = fmaf(w.z, z, sum[2]);
+      sum[3] = fmaf(w.w, z, sum[3]);
+    }
+    float* dst = zout + (img + size_t(gy) * W + gx) * c + o;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (o + e < c) dst[e] = sum[e] - s_ab[o + e];
   }
+}
+
+// ------------------------------------------------------------------------ launch
+struct Plan {
+  int th, tw, blocks, smem;
+};
+
+// The tile for a (B,H,W,c) step: of the candidates whose shared memory fits a block,
+// the one that does the least padded work (M-tile rows x products of conv1/2 and
+// conv3, over the grid) among those whose grid covers every SM with two blocks fitting
+// an SM; else among those that cover every SM; else the one with the most blocks.
+template <int C1P, int N3P>
+Plan pick_tile(int B, int H, int W, int c, int nsm) {
+  static constexpr int TILES[][2] = {{16, 16}, {8, 20}, {10, 10}, {8, 16}, {8, 8}, {4, 10}, {4, 8}};
+  Plan best{0, 0, 0, 0};
+  long best_key[3] = {0, 0, 0};
+  for (const auto& t : TILES) {
+    const Layout<C1P, N3P> L(c, t[0], t[1]);
+    if (L.bytes > MAX_SMEM) continue;
+    const int blocks = B * ((H + t[0] - 1) / t[0]) * ((W + t[1] - 1) / t[1]);
+    const long work = long(blocks) * (L.mt12 * (Layout<C1P, N3P>::KS1 * 8 + 32) + L.items3 * 72);
+    const bool covers = blocks >= nsm, two = 2 * (L.bytes + 1024) <= SM_BYTES;
+    const long key[3] = {covers ? 0 : 1, covers && two ? 0 : 1, covers ? work : -blocks};
+    if (best.blocks == 0 || key[0] < best_key[0] ||
+        (key[0] == best_key[0] &&
+         (key[1] < best_key[1] || (key[1] == best_key[1] && key[2] < best_key[2])))) {
+      best = {t[0], t[1], blocks, L.bytes};
+      for (int k = 0; k < 3; ++k) best_key[k] = key[k];
+    }
+  }
+  return best;
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// fn(C1P, N3P) as std::integral_constants for c channels (C1P = c/2 padded to 8; N3P =
+// 2S, twice c - c/2 padded to 8), c from 2 to 64
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+template <class Fn>
+cudaError_t with_widths(int c, Fn fn) {
+  const int c1p = up(c / 2, 8), n3p = 2 * up(c - c / 2, 8);
+  if (c1p == 8 && n3p == 16) return fn(Int<8>(), Int<16>());
+  if (c1p == 8 && n3p == 32) return fn(Int<8>(), Int<32>());
+  if (c1p == 16 && n3p == 32) return fn(Int<16>(), Int<32>());
+  if (c1p == 16 && n3p == 48) return fn(Int<16>(), Int<48>());
+  if (c1p == 24 && n3p == 48) return fn(Int<24>(), Int<48>());
+  if (c1p == 24 && n3p == 64) return fn(Int<24>(), Int<64>());
+  if (c1p == 32 && n3p == 64) return fn(Int<32>(), Int<64>());
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -202,36 +475,67 @@ extern "C" {
 
 const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
-// Runs the K steps of one chain, k = K-1 .. 0.  zin is not written; the n-th
-// step (n = 0 .. K-1) writes buf[n % 2], so the result is in buf[(K-1) % 2].
-// uc may be null (a chain without cond terms).  Returns the first CUDA error.
-int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const __nv_bfloat16* uc,
-                         const __nv_bfloat16* w1, const __nv_bfloat16* w2,
-                         const __nv_bfloat16* w3, const float* vec, const float* wt,
-                         const float* ab, int B, int H, int W, int c, int hid, int K,
-                         cudaStream_t stream) {
-  if (c < 2 || hid < 1 || K < 1 || B < 1 || H < 1 || W < 1) return int(cudaErrorInvalidValue);
-  const Layout L(c, hid);
-  const size_t smem = L.bytes();
-  cudaError_t err = cudaFuncSetAttribute(chain_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  const size_t sw1 = size_t(9) * L.c1 * hid, sw2 = size_t(hid) * hid,
-               sw3 = size_t(9) * hid * L.fout, svec = size_t(4) * hid + 2 * L.fout;
-  float* bufs[2] = {buf0, buf1};
-  const float* src = zin;
-  for (int n = 0; n < K; ++n) {
-    const int k = K - 1 - n;
-    chain_step_kernel<<<grid, NTHREADS, smem, stream>>>(
-        src, bufs[n % 2], uc ? uc + size_t(k) * hid : nullptr, K * hid, w1 + k * sw1,
-        w2 + k * sw2, w3 + k * sw3, vec + k * svec, wt + size_t(k) * c * c, ab + size_t(k) * c,
-        H, W, c, hid);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    src = bufs[n % 2];
-  }
-  return int(cudaSuccess);
+// The tile plan of one step at (B,H,W,c): out = {th, tw, blocks, shared-memory bytes,
+// blocks per SM}.  Returns a CUDA error.
+int hcflow_chain_plan(int B, int H, int W, int c, int* out) {
+  return int(with_widths(c, [&](auto c1p, auto n3p) {
+    constexpr int C1P = decltype(c1p)::value, N3P = decltype(n3p)::value;
+    const Plan p = pick_tile<C1P, N3P>(B, H, W, c, num_sms());
+    if (p.blocks == 0) return cudaErrorInvalidValue;
+    cudaError_t err = conv3x3::allow_smem<chain_step_mma_kernel<C1P, N3P>>(MAX_SMEM);
+    int per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_step_mma_kernel<C1P, N3P>,
+                                                          NTHREADS, p.smem);
+    out[0] = p.th, out[1] = p.tw, out[2] = p.blocks, out[3] = p.smem, out[4] = per_sm;
+    return err;
+  }));
+}
+
+// Runs the K steps of one chain, k = K-1 .. 0, on the padded pack.  zin is not
+// written; the n-th step (n = 0 .. K-1) writes buf[n % 2], so the result is in
+// buf[(K-1) % 2].  uc may be null (a chain without cond terms).  hid must be 64 and
+// c 2 .. 64.  Returns the first CUDA error.
+int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const bf16* uc,
+                         const bf16* w1, const bf16* w2, const bf16* w3, const float* vec,
+                         const float* wt, const float* ab, int B, int H, int W, int c, int hid,
+                         int K, cudaStream_t stream) {
+  if (c < 2 || c > 64 || hid != HID || K < 1 || B < 1 || H < 1 || W < 1)
+    return int(cudaErrorInvalidValue);
+  return int(with_widths(c, [&](auto c1p, auto n3p) {
+    constexpr int C1P = decltype(c1p)::value, N3P = decltype(n3p)::value;
+    const Plan p = pick_tile<C1P, N3P>(B, H, W, c, num_sms());
+    if (p.blocks == 0) return cudaErrorInvalidValue;
+    cudaError_t err = conv3x3::allow_smem<chain_step_mma_kernel<C1P, N3P>>(MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    const size_t sw1 = size_t(9) * C1P * HID, sw2 = size_t(HID) * HID,
+                 sw3 = size_t(9) * HID * N3P, svec = size_t(4) * HID + 2 * N3P;
+    // Each step after the first may launch while the one before it runs (the kernel
+    // waits for it before it reads z or uc).  The first launches in stream order, so
+    // that no step copies weights that work queued before the chain is still writing.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((W + p.tw - 1) / p.tw, (H + p.th - 1) / p.th, B);
+    cfg.blockDim = dim3(NTHREADS);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    float* bufs[2] = {buf0, buf1};
+    const float* src = zin;
+    for (int n = 0; n < K; ++n) {
+      const int k = K - 1 - n;
+      cfg.numAttrs = n > 0 ? 1 : 0;
+      err = cudaLaunchKernelEx(&cfg, chain_step_mma_kernel<C1P, N3P>, src, bufs[n % 2],
+                               uc ? uc + size_t(k) * HID : nullptr, K * HID, w1 + k * sw1,
+                               w2 + k * sw2, w3 + k * sw3, vec + k * svec, wt + size_t(k) * c * c,
+                               ab + size_t(k) * c, H, W, c, p.th, p.tw);
+      if (err != cudaSuccess) return err;
+      src = bufs[n % 2];
+    }
+    return cudaSuccess;
+  }));
 }
 
 }  // extern "C"

@@ -220,9 +220,10 @@ class FlowNetSpec:
                 if lv.n_main > 0 and lv.alternate_lrvsothers:
                     lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
                 elif lv.n_main > 0:
-                    lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd)
+                    lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd, padded=True)
                 if so.n_flow_step > 0:
-                    cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype)
+                    cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
+                                                                   padded=True)
                 for trunk in ("trunk0", "trunk1"):
                     cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(cond[trunk], so.compute_dtype,
                                                                   resident=resident_trunk)

@@ -13,18 +13,18 @@ chain is K Affine+FCN+invconv steps run from k = K-1 down to 0.  Step k:
 In the bf16 recipe z1, h1, h2 and the net weights are rounded to bf16 and every sum
 is float32; the invertible tail (steps 4-5) stays float32 throughout.
 
-Bound on the card: bytes and operations about even.  A step reads z (f32) and its
-cond term (64 bf16 channels) and writes z, ~300 bytes per pixel, for ~45 kFLOP per
-pixel of bf16 convs: ~150 FLOP/byte against the ~295 FLOP/byte ridge, so the least
-time is 0.02-0.05 ms per 13-step chain at the main path's shapes.  The TPU kernel
-kept a whole image resident in VMEM for all K steps; on the card a whole 80x80
-image's state exceeds the 227 KB of shared memory, and a halo fused over 13 steps
-would be 26 pixels.  So the kernel runs one launch per step, tiled 8x8 over space
-with a 2-pixel halo (1 for conv1, 1 for conv3): h1 and h2 live only in shared
-memory and never reach device memory, and z ping-pongs between two buffers.  This
-first version computes the convs with CUDA-core FMAs out of shared memory, which
-is what bounds it now (5-11 ms per chain, PERF.md); tensor-core tiles and a CUDA
-graph over the 52 launches are later work.
+On the card (``csrc/chain.cu``): one launch per step, with z ping-ponging between
+two buffers.  A block of 8 warps owns an output tile sized per shape (16x16 at 80x80,
+8x20 at 40x40, 4x10 at 20x20 for batch 16; ``plan`` reports it).  It runs the three
+convs on tensor cores (``mma.sync`` m16n8k16, bf16 in, float32 sums) with h1 in
+registers and h2 in shared memory, and the tail in float32 on CUDA cores, so only z
+and the cond term touch device memory.  Bound: operations, barely (19-91 kFLOP per
+pixel of bf16 convs against 50-450 bytes); the least time is 0.01-0.05 ms per 13-step
+chain at the main path's shapes, and the kernel is bound by latency: the step's
+weights staged per block and three dependent convs on a small tile.  The kernel takes
+the padded pack (``pack_inverse_chain(..., padded=True)``): c1 padded to 8 and shift
+and scale to 8 each, with zeros, so that shift j and scale j sit in one thread's
+fragment; the plain version reads either pack.
 """
 
 from __future__ import annotations
@@ -40,9 +40,14 @@ launches = 0  # chain-step kernel launches (one per flow step)
 
 _FN = "hcflow_chain_inverse"
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+HID = 64  # the kernel's coupling width
 
 
-def pack_inverse_chain(steps: list, compute_dtype=None) -> dict:
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_inverse_chain(steps: list, compute_dtype=None, padded: bool = False) -> dict:
     """Pack a chain's per-step params (invconv inverses attached) for the kernel.
 
     The conv weights go to the net dtype; the tail ``Wt``/``ab`` and the per-channel
@@ -51,6 +56,11 @@ def pack_inverse_chain(steps: list, compute_dtype=None) -> dict:
     the even/odd "cross" split to [shift | scale], ``vec`` = b1, e1, b2, e2, g3, bg3
     (``e = exp(logs)``, ``g3 = exp(3 logs3)`` folded into conv3's gain and bias),
     ``wt`` = diag(exp(-logs)) W^-1 and ``ab`` the ActNorm bias.
+
+    ``padded``: the CUDA kernel's layout, with zeros added: ``w1`` (9, C1P, hid), C1P
+    = c1 rounded up to a multiple of 8; shift and scale each padded to S = c2 rounded
+    up to a multiple of 8, so ``w3`` is (9, hid, 2 S) as [shift (S) | scale (S)] and
+    g3, bg3 have 2 S entries each.
     """
     nd = nets.net_dtype(compute_dtype)
     f = [p["coupling"]["f"] for p in steps]
@@ -81,33 +91,45 @@ def pack_inverse_chain(steps: list, compute_dtype=None) -> dict:
         "wt": wt,
         "ab": torch.stack([p["actnorm"]["bias"] for p in steps]),
     }
+    if padded:
+        pad = _up(c2, 8) - c2
+        F = torch.nn.functional
+
+        def halves(t):  # [shift | scale] on the last axis, each half padded to S
+            return torch.cat([F.pad(t[..., :c2], (0, pad)), F.pad(t[..., c2:], (0, pad))], -1)
+
+        packed["w1"] = F.pad(packed["w1"], (0, 0, 0, _up(c1, 8) - c1))
+        packed["w3"] = halves(packed["w3"])
+        b, g, bg = vec.split([4 * hid, 2 * c2, 2 * c2], 1)
+        packed["vec"] = torch.cat([b, halves(g), halves(bg)], 1)
     return {k: v.to(nd if k in ("w1", "w2", "w3") else torch.float32).contiguous()
             for k, v in packed.items()}
 
 
 def _dims(packed):
-    K, _, c1, hid = packed["w1"].shape
-    return K, c1, packed["wt"].shape[1], hid
+    """(K, c1, c, hid, S) of a pack, padded or not (S: the width of the shift half)."""
+    K, c = packed["wt"].shape[:2]
+    return K, c // 2, c, packed["w2"].shape[-1], packed["w3"].shape[-1] // 2
 
 
 def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (float32 convs, bf16 rounding where
-    the kernel rounds)."""
-    K, c1, c, hid = _dims(packed)
+    the kernel rounds), from either pack."""
+    K, c1, c, hid, S = _dims(packed)
     c2 = c - c1
     bf = packed["w1"].dtype == torch.bfloat16
     rnd = (lambda t: t.to(torch.bfloat16).float()) if bf else (lambda t: t)
     with nets.exact_f32():
         for k in reversed(range(K)):
-            b1, e1, b2, e2, g3, bg3 = packed["vec"][k].split([hid] * 4 + [2 * c2] * 2)
+            b1, e1, b2, e2, g3, bg3 = packed["vec"][k].split([hid] * 4 + [2 * S] * 2)
             z1, z2 = z[..., :c1], z[..., c1:]
-            h = nets.conv_taps(rnd(z1), packed["w1"][k])
+            h = nets.conv_taps(rnd(z1), packed["w1"][k][:, :c1])
             if uc is not None:
                 h = h + uc[..., k * hid : (k + 1) * hid].float()
             h = rnd(torch.relu((h + b1) * e1))
             h = rnd(torch.relu((h @ packed["w2"][k].float() + b2) * e2))
             p = nets.conv_taps(h, packed["w3"][k]) * g3 + bg3
-            shift, scale = p[..., :c2], p[..., c2:]
+            shift, scale = p[..., :c2], p[..., S : S + c2]
             z2 = z2 * torch.exp(-0.318 * torch.atan(2.0 * scale)) - shift
             z = torch.cat([z1, z2], -1) @ packed["wt"][k].T - packed["ab"][k]
     return z
@@ -118,7 +140,8 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
 
     ``uc`` (a conditional chain only): the hoisted cond terms of
     ``stack.compute_u_contribs``, (B, H, W, K*hid) in the packed weights' dtype.  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel."""
+    tensor takes the plain version; a CUDA tensor the kernel, which takes the bf16
+    padded pack at hid 64 and 2 to 64 channels."""
     if not z.is_cuda:
         return inverse_chain_plain(packed, z, uc)
     return _launch(packed, z, uc)
@@ -126,19 +149,22 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
 
 def _launch(packed, z, uc):
     global launches
-    K, c1, c, hid = _dims(packed)
+    K, c1, c, hid, _ = _dims(packed)
     B, H, W, cz = z.shape
     if cz != c or z.dtype != torch.float32:
         raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
+    if hid != HID or not 2 <= c <= 64:
+        raise ValueError(f"the chain kernel takes hid {HID} and 2 to 64 channels, not {hid}, {c}")
     for name in ("w1", "w2", "w3"):
         if packed[name].dtype != torch.bfloat16:
             raise ValueError("the chain kernel takes the bf16 recipe's packed weights")
-    c2 = c - c1
-    shapes = {"w2": (K, hid, hid), "w3": (K, 9, hid, 2 * c2), "vec": (K, 4 * hid + 4 * c2),
-              "wt": (K, c, c), "ab": (K, c)}
+    S = _up(c - c1, 8)
+    shapes = {"w1": (K, 9, _up(c1, 8), hid), "w2": (K, hid, hid), "w3": (K, 9, hid, 2 * S),
+              "vec": (K, 4 * hid + 4 * S), "wt": (K, c, c), "ab": (K, c)}
     for name, shape in shapes.items():
         if tuple(packed[name].shape) != shape:
-            raise ValueError(f"packed {name} has shape {tuple(packed[name].shape)}, not {shape}")
+            raise ValueError(f"packed {name} has shape {tuple(packed[name].shape)}, not {shape} "
+                             "(the kernel takes pack_inverse_chain(..., padded=True))")
     if uc is not None and (uc.dtype != torch.bfloat16 or tuple(uc.shape) != (B, H, W, K * hid)):
         raise ValueError(f"uc must be bf16 of shape {(B, H, W, K * hid)}")
     z = z.contiguous()
@@ -158,3 +184,12 @@ def _launch(packed, z, uc):
     _build.check(lib, _FN, err)
     launches += K
     return bufs[(K - 1) % 2]
+
+
+def plan(B: int, H: int, W: int, c: int) -> dict:
+    """The kernel's tile plan for one step at (B, H, W, c) on the current card: tile
+    height and width, blocks, shared-memory bytes a block, blocks per SM."""
+    lib = _build.load("chain", "hcflow_chain_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, "hcflow_chain_plan", lib.hcflow_chain_plan(B, H, W, c, out))
+    return dict(zip(("th", "tw", "blocks", "smem", "blocks_per_sm"), out))

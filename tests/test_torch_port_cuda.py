@@ -101,14 +101,18 @@ def test_conv3x3_kernel_matches_plain(gen, C, N, bias, relu):
     _close(got, conv.conv3x3_plain(x, w, b, relu=relu))
 
 
-@pytest.mark.parametrize("cond,c,H,W", [(True, 21, 10, 12), (True, 6, 9, 17),
-                                        (False, 24, 10, 12), (False, 12, 9, 17)])
-def test_chain_kernel_matches_plain(gen, cond, c, H, W):
+# the x4 level widths (c 21 and 6 ragged against the tiles), the x8 level-2 widths at
+# 20x20 (one cond, one plain) and one chain of the main paths' 13 steps
+@pytest.mark.parametrize("cond,c,K,H,W", [(True, 21, 3, 10, 12), (True, 6, 3, 9, 17),
+                                          (False, 24, 3, 10, 12), (False, 12, 3, 9, 17),
+                                          (True, 45, 3, 20, 20), (False, 48, 3, 20, 20),
+                                          (True, 6, 3, 21, 37), (True, 12, 13, 40, 40)])
+def test_chain_kernel_matches_plain(gen, cond, c, K, H, W):
     spec = FlowStepSpec(in_channels=c, cond_channels=128 if cond else None,
                         hidden_channels=64, compute_dtype="bfloat16")
-    steps = stack.init_stack(spec, torch.Generator().manual_seed(2), 3)
+    steps = stack.init_stack(spec, torch.Generator().manual_seed(2), K)
     steps = stack.precompute_invconv(_perturb(steps, gen))
-    packed = chain.pack_inverse_chain(steps, "bfloat16")
+    packed = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
     z = torch.randn(2, H, W, c, device="cuda", generator=gen)
     uc = None
     if cond:
@@ -117,8 +121,17 @@ def test_chain_kernel_matches_plain(gen, cond, c, H, W):
     before = chain.launches
     got = chain.inverse_chain(packed, z, uc)
     torch.cuda.synchronize()
-    assert chain.launches == before + 3
+    assert chain.launches == before + K
     _close(got, chain.inverse_chain_plain(packed, z, uc))
+
+
+@pytest.mark.parametrize("c,hw", [(21, 40), (6, 80), (24, 40), (12, 80), (45, 20), (12, 40),
+                                  (48, 20)])  # every chain shape of the main paths
+def test_chain_tiles_cover_the_card(gen, c, hw):
+    """At batch 16 each step's grid covers every SM with two blocks fitting an SM."""
+    p = chain.plan(16, hw, hw, c)
+    assert p["blocks"] >= torch.cuda.get_device_properties(0).multi_processor_count
+    assert p["blocks_per_sm"] >= 2
 
 
 @pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17)])  # both level widths

@@ -80,6 +80,26 @@ def test_chain_packing_folds():
     assert packed["w1"].shape == (2, 9, 3, 8) and packed["vec"].shape == (2, 4 * 8 + 2 * 6)
 
 
+@pytest.mark.parametrize("c", [6, 12, 21, 24, 45, 48])  # every chain width of the main paths
+def test_chain_plain_reads_padded_pack(c):
+    """The CUDA kernel's padded pack (c1, shift and scale each to 8, zeros) gives
+    the plain version the same chain as pack_inverse_chain's own layout."""
+    spec = FlowStepSpec(in_channels=c, cond_channels=16, hidden_channels=8,
+                        compute_dtype="bfloat16")
+    steps = stack.precompute_invconv(perturb(stack.init_stack(spec, torch.Generator(), 2)))
+    z = torch.from_numpy(randn(6, (2, 5, 7, c)))
+    uc = stack.compute_u_contribs(spec, steps, torch.from_numpy(randn(7, (2, 5, 7, 16))))
+    uc = uc.to(torch.bfloat16)
+    ref = chain.inverse_chain_plain(chain.pack_inverse_chain(steps, "bfloat16"), z, uc)
+    padded = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
+    c1, c2 = c // 2, c - c // 2
+    S = -(-c2 // 8) * 8
+    assert padded["w1"].shape == (2, 9, -(-c1 // 8) * 8, 8)
+    assert padded["w3"].shape == (2, 9, 8, 2 * S) and padded["vec"].shape == (2, 32 + 4 * S)
+    assert not padded["w3"][..., c2:S].any() and not padded["w3"][..., S + c2:].any()
+    assert_close(chain.inverse_chain_plain(padded, z, uc), ref.numpy(), 1e-6, 1e-6)
+
+
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 @pytest.mark.parametrize("nf,gc,H,W", [(8, 4, 6, 6), (8, 4, 5, 7), (16, 8, 4, 5)])
 def test_rrdb_plain_matches_jax_trunk(cd, nf, gc, H, W):

@@ -1,4 +1,4 @@
-"""Time the tile-conv kernels of several checkouts of the port, in turns, on one GPU.
+"""Time the CUDA kernels of several checkouts of the port, in turns, on one GPU.
 
     python3 tools/ab_kernels.py [--unchecked] ROOT [ROOT ...]
 
@@ -6,13 +6,15 @@ Each ROOT is the root of a checkout (``.`` for this one; another commit unpacked
 ``git archive`` into a git-ignored directory, or a copy whose ``csrc/`` differs).  For
 each ROOT, in the order given (list a pair as A B B A to cancel drift), a fresh
 process builds that checkout's kernels into its own ``hcflow_tpu_torch/build/`` and
-runs its own ``chip_smoke.py`` phase-2 rows of the kernels that share the tile conv:
-the per-RRDB kernel (gc 32 and 16 at 16x40x40 and 16x80x80), the resident trunk
-(nb 5 at 20x20, 40x40, 80x80), chain3s (K 8 at 40x40 and 80x80) and conv3x3 (262,
-140, 3 and 64 channels in).  Each row is checked against its plain version, as
-chip_smoke.py checks it.  Prints one line of ms/call per ROOT, then the library
-yardsticks' ms in the same order, then whether each trunk was bit-identical to the
-per-RRDB kernel and the latter's ms.  ``--unchecked`` times only the per-RRDB kernel
+runs its own ``chip_smoke.py`` phase-2 rows: the per-RRDB kernel (gc 32 and 16 at
+16x40x40 and 16x80x80), the resident trunk (nb 5 at 20x20, 40x40, 80x80), the inverse
+chain (K 13: the x4 SR chains, c 21 / 6 / 24 / 12, then the x8 ones, c 45 / 12 / 6 /
+48 / 24 / 12), chain3s (K 8 at 40x40 and 80x80) and conv3x3 (262, 140, 3 and 64
+channels in).  Each row is checked against its plain version, as chip_smoke.py
+checks it.  Prints one line of ms/call per ROOT in that order, then the library
+yardsticks' ms of the rows that have one (a checkout's own chip_smoke.py decides
+which), then whether each trunk was bit-identical to the per-RRDB kernel and the
+latter's ms.  ``--unchecked`` times only the per-RRDB kernel
 (gc 32 at 16x40x40 and 16x80x80) and checks nothing: for probes, variants that skip
 part of the work on purpose to show where the time goes.
 """
@@ -24,8 +26,9 @@ import io
 import subprocess
 import sys
 
-ROWS = ("rrdb gc32 40 80, rrdb gc16 40 80, trunk 20 40 80, chain3s 40 80, "
-        "conv3x3 262 140 3 64")
+ROWS = ("rrdb gc32 40 80, rrdb gc16 40 80, trunk 20 40 80, "
+        "chain x4 (L1 cond, L0 cond, L1 main, L0 main) x8 (L2 cond, L1 cond, L0 cond, L2 main, "
+        "L1 main, L0 main), chain3s 40 80, conv3x3 262 140 3 64")
 
 
 def run_unchecked(root: str) -> None:
@@ -62,6 +65,16 @@ def run_one(root: str) -> None:
         cs._rrdb_rows(torch, gen, rows, 32, ((hw, 14), (2 * hw, 14)), "sr")
         cs._rrdb_rows(torch, gen, rows, 16, ((hw, 6), (2 * hw, 6)), "rescaling")
         cs._trunk_rows(torch, gen, rows, ((hw // 2, 2), (hw, 2), (2 * hw, 2)), "sr8")
+        cs._chain_rows(torch, gen, rows, 13, 128, [("L1 cond", True, 21, hw),
+                                                   ("L0 cond", True, 6, 2 * hw),
+                                                   ("L1 main", False, 24, hw),
+                                                   ("L0 main", False, 12, 2 * hw)], "sr")
+        cs._chain_rows(torch, gen, rows, 13, 128, [("L2 cond", True, 45, hw // 2),
+                                                   ("L1 cond", True, 12, hw),
+                                                   ("L0 cond", True, 6, 2 * hw),
+                                                   ("L2 main", False, 48, hw // 2),
+                                                   ("L1 main", False, 24, hw),
+                                                   ("L0 main", False, 12, 2 * hw)], "sr8")
         cs._chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, hw), ("L0 main", 12, 2 * hw)],
                          "rescaling")
         cs._conv_rows(torch, gen, rows, ((2 * hw, 262, 64, False), (hw, 140, 64, False),
