@@ -18,7 +18,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    beside cuDNN's bf16 conv (its library time, never called by the port); the RRDB,
    trunk and chain rows are timed beside the same function as a sequence of library
    calls in the bf16 recipe (nets.apply_rrdb / apply_rrdb_trunk: cuDNN bf16 convs and
-   concats; the chain's step loop, FlowStepSpec.inverse_hoisted / inverse), since no
+   concats; the chain's and chain3s's step loops, FlowStepSpec.inverse_hoisted /
+   inverse), since no
    single call computes one, timed on the device as one CUDA graph (the host takes
    longer to issue the sequence than the card to run it); each chain row prints the
    kernel's tile plan;
@@ -39,12 +40,33 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    recipe with resident trunks, batch 16, 20x20 -> 160x160, heat 0.8, as phase 3
    checks x4, and also against the per-RRDB kernel path; time the pass on all three
    paths;
-6. print the kernels' JSON line, the card line, then the JSON status line last.
+6. x4 SR training at full width in the HCFlow+ recipe (for_scale(4,
+   encoder_dtype="bfloat16"): bf16 encoders, float32 couplings, quant 64) with the
+   hyperparameters of configs/train_SR_DF2K_4X_HCFlow+.yml (batch 16, GT 160, lr 5e-5,
+   beta 0.9 / 0.99, clip at value 5 and global norm 100, NLL weight 0.002, L1 pixel
+   weight 1) on synthetic images (smooth random HR, LR by 4x4 average pooling on the
+   card): calibrate on the first batch, then 3 iterations of the NLL step and the
+   pixel step; check the NLL and gradients finite, the params moved and TF32 off in
+   every backward conv of the first iteration; time each step kind (CUDA events, after
+   the first iteration) and record the peak memory.  Then serve the trained params
+   fused: the float32 chain kernel (hid 64) and the RRDB kernel, with exact launch
+   counts, the kernel path against the plain path under the same latents, encode ->
+   reverse on the kernel path giving HR back, and the NLL on the fused params (RRDB
+   kernel in the forward) against the plain params;
+7. the tiny trained checkpoint weights/ref_trained/tiny_x4_400_G.pth (hidden 32, RRDB
+   nf 32 / gc 16), loaded with params_from_state_dict at the explicit spec of
+   tiny_x4_parity.yml and served fused in the bf16 and the float32 recipe (the chain
+   kernel at hid 32 in bf16 and in float32, the RRDB kernel at nf 32 / gc 16), each held
+   against the plain path, with exact launch counts;
+8. print the kernels' JSON line, the card line, then the JSON status line last.
+
+Phase 2 also holds the new chain variants against their plain version: float32 at hid
+64 at the shapes of phase 6's serving, bf16 and float32 at hid 32 at phase 7's.
 
 Any failed check raises, and the script exits non-zero without the status line.
-Weights are random (no trained checkpoint of these topologies is in the repo),
-perturbed so that the zero-initialised layers (coupling conv3s and conv5s, the prior
-heads) do work.
+Weights are random, perturbed so that the zero-initialised layers (coupling conv3s
+and conv5s, the prior heads) do work, except phase 6's, which start from the model's
+init as training does, and phase 7's, which are trained.
 """
 
 from __future__ import annotations
@@ -85,6 +107,26 @@ MODEL_MAX_RTOL, MODEL_MEAN_RTOL = 5e-2, 1e-2  # of max |plain| and of mean |plai
 # on an H100: 3.6e-4 plain; 6.0e-4 max and 8.5e-5 mean on the kernel path.)
 RT_PLAIN_MAX = 2e-3
 RT_KERNEL_MAX, RT_KERNEL_MEAN = 5e-3, 5e-4
+# The float32 chain kernel against its plain version (both float32 with no TF32, summed
+# in another order): 1e-5 x max |plain|; a whole float32-recipe path, kernel against
+# plain, over its 16 or 52 steps: 1e-4 x max |plain|.
+F32_RTOL, F32_PATH_RTOL = 1e-5, 1e-4
+# The trained HCFlow+ model (phase 6): encode -> reverse on the kernel path, HR in
+# [0, 1], before the clamp.  Both directions see the same RRDB-kernel cond features, so
+# the float32 couplings set the error, as on phase 4's plain round trip: 2e-3 max abs,
+# 2e-4 mean abs.  The NLL on the fused params (RRDB kernel in the forward's encoders)
+# against the plain params: 1e-3 relative.
+RT_TRAIN_MAX, RT_TRAIN_MEAN, NLL_RTOL = 2e-3, 2e-4, 1e-3
+# configs/train_SR_DF2K_4X_HCFlow+.yml's train section (what the steps read of it)
+TRAIN_OPT = {"lr_G": 5e-5, "lr_scheme": "MultiStepLR", "lr_steps": [20000, 40000],
+             "lr_gamma": 0.5, "weight_decay_G": 0, "max_grad_clip": 5, "max_grad_norm": 100,
+             "beta1": 0.9, "beta2": 0.99, "nll_weight": 0.002, "pixel_weight_hr": 1.0,
+             "pixel_criterion_hr": "l1"}
+TRAIN_ITERS = 3
+# weights/ref_trained/tiny_x4_parity.yml: x4 SR, K 8 with 4 split-off steps a level,
+# coupling width 32, RRDB nb 2, nf 32, gc 16
+TINY_CKPT = dict(K=(8, 8), after_splitoff=(4, 4), rrdb_nb=(2, 2), rrdb_nf=32, rrdb_gc=16,
+                 hidden_channels=32, so_hidden_channels=32)
 
 
 def log(msg):
@@ -185,17 +227,20 @@ def conv_work(B, H, W, C, N):
     return 2 * px * 9 * C * N, px * (C + N) * 4 + (9 * C * N + N) * 4
 
 
-def chain_work(B, H, W, c, hid, K, cond):
+def chain_work(B, H, W, c, hid, K, cond, f32=False):
     """(bf16 FLOP, f32 FLOP, bytes) of one K-step inverse chain: z in and out once,
-    the cond terms once, the packed weights once."""
+    the cond terms once, the packed weights once.  The bf16 recipe's convs are bf16
+    products; the float32 recipe's (``f32``) are float32 ones, on weights and cond
+    terms of 4 bytes."""
     px = B * H * W
     c1, c2 = c // 2, c - c // 2
-    bf = 2 * px * K * (9 * c1 * hid + hid * hid + 9 * hid * 2 * c2)
-    f32 = 2 * px * K * c * c
-    weights = K * (2 * (9 * c1 * hid + hid * hid + 9 * hid * 2 * c2)
+    convs = 2 * px * K * (9 * c1 * hid + hid * hid + 9 * hid * 2 * c2)
+    tail = 2 * px * K * c * c
+    es = 4 if f32 else 2  # bytes of a net weight and of a cond term
+    weights = K * (es * (9 * c1 * hid + hid * hid + 9 * hid * 2 * c2)
                    + 4 * (4 * hid + 4 * c2 + c * c + c))
-    nbytes = 2 * px * c * 4 + (px * K * hid * 2 if cond else 0) + weights
-    return bf, f32, nbytes
+    nbytes = 2 * px * c * 4 + (px * K * hid * es if cond else 0) + weights
+    return (0, convs + tail, nbytes) if f32 else (convs, tail, nbytes)
 
 
 def chain3s_work(B, H, W, c, gc, K):
@@ -226,7 +271,7 @@ def _to(tree, dev):
 
 
 def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=None,
-         library_seq=False, **extra):
+         library_seq=False, rtol=KERNEL_RTOL, **extra):
     """Check one kernel call against its plain version and time both (and the one
     library call computing the same function, where there is one).  library_seq: the
     library_fn is a sequence of library calls, timed on the device as one CUDA graph
@@ -239,7 +284,7 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
 
     got, ref = first(fn()), first(plain_fn())
     torch.cuda.synchronize()
-    err = check_rel(label, got, ref, KERNEL_RTOL)
+    err = check_rel(label, got, ref, rtol)
     ms = cuda_time(fn, reps=reps)
     plain_ms = cuda_time(plain_fn, reps=max(2, reps // 4))
     library_ms = None if library_fn is None else cuda_time(library_fn, reps=reps)
@@ -341,42 +386,46 @@ def _conv_rows(torch, gen, rows, shapes, path):
              relu=relu)
 
 
-def _chain_rows(torch, gen, rows, K, cond_ch, chains, path):
-    """The chain kernel against its plain version, each row with the kernel's tile plan
-    and the bf16 recipe's step loop (FlowStepSpec.inverse_hoisted / inverse over the K
-    steps: cuDNN bf16 conv1 and conv2, float32 conv3 and tail) as the library
-    sequence, timed as one CUDA graph and eagerly; the port never runs it."""
+def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16", key="chain"):
+    """The chain kernel at coupling width hid in the recipe cd (bf16, or float32 for
+    None) against its plain version, each row with the kernel's tile plan and the
+    recipe's step loop (FlowStepSpec.inverse_hoisted / inverse over the K steps: cuDNN
+    convs, bf16 conv1 and conv2 in the bf16 recipe, float32 without TF32 otherwise; the
+    float32 tail) as the library sequence, timed as one CUDA graph and eagerly; the port
+    never runs it.  Rows go under ``key``."""
     from hcflow_tpu_torch.flow import stack
     from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
-    from hcflow_tpu_torch.ops import chain
+    from hcflow_tpu_torch.ops import chain, nets
 
-    hid = 64
+    f32 = cd is None
     for name, cond, c, hw in chains:
         spec = FlowStepSpec(in_channels=c, cond_channels=cond_ch if cond else None,
-                            hidden_channels=hid, compute_dtype="bfloat16")
+                            hidden_channels=hid, compute_dtype=cd)
         steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
         steps = _to(stack.precompute_invconv(perturb(steps, gen)), DEV)
-        pk = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
+        pk = chain.pack_inverse_chain(steps, cd, padded=True)
         z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
         uc = ucf = None
         if cond:
             u = torch.randn(BATCH, hw, hw, cond_ch, device=DEV, generator=gen)
             ucf = stack.compute_u_contribs(spec, steps, u)
-            uc = ucf.to(torch.bfloat16).contiguous()
+            uc = ucf.to(pk["w1"].dtype).contiguous()
 
         def library(z=z, ucf=ucf, steps=steps, spec=spec):
-            for k in reversed(range(K)):
-                z = (spec.inverse_hoisted(steps[k], z, ucf[..., k * hid:(k + 1) * hid])
-                     if ucf is not None else spec.inverse(steps[k], z))[0]
+            with nets.exact_f32():
+                for k in reversed(range(K)):
+                    z = (spec.inverse_hoisted(steps[k], z, ucf[..., k * hid:(k + 1) * hid])
+                         if ucf is not None else spec.inverse(steps[k], z))[0]
             return z
 
-        plan = chain.plan(BATCH, hw, hw, c)
-        log(f"  chain {name}: {plan['th']}x{plan['tw']} tiles, {plan['blocks']} blocks, "
+        plan = chain.plan(BATCH, hw, hw, c, hid=hid, f32=f32)
+        log(f"  {key} {name}: {plan['th']}x{plan['tw']} tiles, {plan['blocks']} blocks, "
             f"{plan['blocks_per_sm']} per SM, {plan['smem']} bytes of shared memory a block")
-        _row(rows, "chain", f"chain {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+        _row(rows, key, f"{key} {name} {BATCH}x{hw}x{hw}x{c} K={K}",
              lambda: chain.inverse_chain(pk, z, uc), lambda: chain.inverse_chain_plain(pk, z, uc),
-             chain_work(BATCH, hw, hw, c, hid, K, cond), 20, path, 1, library_fn=library,
-             library_seq=True, shape=[BATCH, hw, hw, c], chain=name, K=K, plan=plan)
+             chain_work(BATCH, hw, hw, c, hid, K, cond, f32), 20, path, 1, library_fn=library,
+             library_seq=True, rtol=F32_RTOL if f32 else KERNEL_RTOL, shape=[BATCH, hw, hw, c],
+             chain=name, K=K, hid=hid, plan=plan)
 
 
 def _chain3s_rows(torch, gen, rows, K, chains, path):
@@ -393,17 +442,23 @@ def _chain3s_rows(torch, gen, rows, K, chains, path):
         steps = _to(perturb([s.init(g) for s in specs], gen), DEV)
         pk = chain3s.pack_inverse_chain3s(steps, "bfloat16")
         z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
+
+        def library(z=z, steps=steps, specs=specs):
+            for k in reversed(range(K)):
+                z = specs[k].inverse(steps[k], z)[0]
+            return z
+
         _row(rows, "chain3s", f"chain3s {name} {BATCH}x{hw}x{hw}x{c} K={K}",
              lambda: chain3s.inverse_chain(pk, z), lambda: chain3s.inverse_chain3s_plain(pk, z),
-             chain3s_work(BATCH, hw, hw, c, gc, K), 10, path, 1,
-             shape=[BATCH, hw, hw, c], chain=name, K=K)
+             chain3s_work(BATCH, hw, hw, c, gc, K), 10, path, 1, library_fn=library,
+             library_seq=True, shape=[BATCH, hw, hw, c], chain=name, K=K)
 
 
 def phase_kernels(torch, gen):
     """Every kernel against its plain version at every shape of the main paths.
     calls_per_pass counts a row's calls per SR reverse pass or per rescaling request
     (downscale + upscale); conv3x3, on no path, counts one call at each shape."""
-    rows = {"rrdb": [], "rrdb_trunk": [], "chain": [], "chain3s": [], "conv3x3": []}
+    rows = {k: [] for k in KERNELS}
     log("phase 2: kernels against their plain versions on the card")
     log("  SR path (x4, nb 7, gc 32, K 13, hidden 64)")
     _rrdb_rows(torch, gen, rows, 32, ((LR_HW, 14), (2 * LR_HW, 14)), "sr")  # trunk0+1 x 7
@@ -430,20 +485,39 @@ def phase_kernels(torch, gen):
     log("  conv3x3 (on no path): the x8 model's library 3x3 conv shapes")
     _conv_rows(torch, gen, rows, ((4 * hw, 262, 64, False), (2 * hw, 140, 64, False),
                                   (hw, 3, 64, False), (4 * hw, 64, 64, True)), "standalone")
+    x4_chains = [("L1 cond", True, 21, LR_HW), ("L0 cond", True, 6, 2 * LR_HW),
+                 ("L1 main", False, 24, LR_HW), ("L0 main", False, 12, 2 * LR_HW)]
+    log("  trained x4 model, HCFlow+ recipe (phase 6): float32 chains, hidden 64, K 13")
+    _chain_rows(torch, gen, rows, 13, 128, x4_chains, "train", cd=None, key="chain_f32")
+    log("  tiny trained checkpoint (phase 7): chains at hidden 32, K 4, bf16 and float32")
+    _chain_rows(torch, gen, rows, 4, 64, x4_chains, "tiny", hid=32, key="chain_hid32")
+    _chain_rows(torch, gen, rows, 4, 64, x4_chains, "tiny", hid=32, cd=None,
+                key="chain_hid32_f32")
     return rows
 
 
 def _counts():
+    """Launches of every KERNELS entry since the last reset; the chain kernel's by
+    variant (bf16 at hid 64; float32 at hid 64; bf16 and float32 at hid 32)."""
     from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
-    return {"rrdb": rrdb.launches, "rrdb_trunk": rrdb.trunk_launches, "chain": chain.launches,
-            "chain3s": chain3s.launches, "conv3x3": conv.launches}
+    by = chain.launches_by
+    return {"rrdb": rrdb.launches, "rrdb_trunk": rrdb.trunk_launches,
+            "chain": by.get("bf16 hid 64", 0), "chain3s": chain3s.launches,
+            "conv3x3": conv.launches, "chain_f32": by.get("f32 hid 64", 0),
+            "chain_hid32": by.get("bf16 hid 32", 0), "chain_hid32_f32": by.get("f32 hid 32", 0)}
 
 
 def _reset_counts():
     from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
     rrdb.launches = rrdb.trunk_launches = chain.launches = chain3s.launches = conv.launches = 0
+    chain.launches_by = {}
+
+
+def _per_request(**counts):
+    """Launches per request of every kernel: the given ones, 0 for the others."""
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def _check_counts(path, launches, per_unit, n):
@@ -610,8 +684,8 @@ def phase_rescaling(torch, gen):
     launches = _counts()
     # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
     # steps; 2 main chains of 1 + 5 x 8 launches
-    _check_counts("rescaling", launches, {"rrdb": 2 * 6 * 16, "rrdb_trunk": 0, "chain": 2 * 6,
-                                          "chain3s": 2 * 41, "conv3x3": 0}, len(seeds))
+    _check_counts("rescaling", launches, _per_request(rrdb=2 * 6 * 16, chain=2 * 6,
+                                                      chain3s=2 * 41), len(seeds))
     for s, (lr, out) in zip(seeds, outs):
         if tuple(lr.shape) != lr_shape or tuple(out.shape) != tuple(hr.shape):
             raise AssertionError(f"request {s}: bad shapes {tuple(lr.shape)} {tuple(out.shape)}")
@@ -676,6 +750,229 @@ def phase_rescaling(torch, gen):
     return out
 
 
+def _smooth_batch(torch, gen, hw):
+    """A synthetic (HR, LR) batch on the card: HR a smooth random image (noise at 1/8
+    of the size, upsampled bilinearly, plus fine noise) in [0, 1], NHWC; LR its 4x4
+    average (the HR images of a dataset are smooth at this scale, and no dataset is in
+    the repo)."""
+    F = torch.nn.functional
+    lo = torch.rand(BATCH, 3, hw // 8, hw // 8, device=DEV, generator=gen)
+    hr = F.interpolate(lo, size=(hw, hw), mode="bilinear", align_corners=False)
+    hr = (hr + 0.02 * torch.randn(hr.shape, device=DEV, generator=gen)).clamp(0, 1)
+    lr = F.avg_pool2d(hr, SCALE)
+    return hr.permute(0, 2, 3, 1).contiguous(), lr.permute(0, 2, 3, 1).contiguous()
+
+
+def _tf32_probe(torch, nets):
+    """Wrap nets.conv2d so that the backward of every conv records the TF32 flags it
+    runs under; returns (the records, a function that removes the wrapper)."""
+    seen, conv2d = [], nets.conv2d
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+            return g
+
+    nets.conv2d = lambda *a, **k: Probe.apply(conv2d(*a, **k))
+
+    def undo():
+        nets.conv2d = conv2d
+
+    return seen, undo
+
+
+def phase_train(torch, gen):
+    """x4 SR training at full width, HCFlow+ recipe, then the trained params served."""
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+    from hcflow_tpu_torch.ops import nets
+    from hcflow_tpu_torch.train import losses, schedules, trainer
+
+    log("phase 6: x4 SR training at full width, HCFlow+ recipe (bf16 encoders, float32 "
+        "couplings), batch 16, GT 160")
+    model = HCFlowSRSpec.for_scale(SCALE, encoder_dtype="bfloat16")
+    hw = LR_HW * SCALE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=DEV)  # as training starts: zero coupling conv3s and prior heads
+    hr, lr = _smooth_batch(torch, gen, hw)
+    params = model.calibrate(params, hr, lr, generator=gen)
+    tx = trainer.make_optimizer(TRAIN_OPT, schedules.schedule_from_opt(TRAIN_OPT))
+    state = trainer.init_state(params, tx)
+    nll_step = trainer.make_sr_nll_step(model, tx, TRAIN_OPT["nll_weight"])
+    pix_step = trainer.make_sr_pixel_step(model, tx, TRAIN_OPT["pixel_weight_hr"],
+                                          losses.pixel_criterion(TRAIN_OPT["pixel_criterion_hr"]))
+    leaves = trainer.tree_leaves(state.params)
+    before = [t.detach().clone() for t in leaves]
+    torch.cuda.synchronize()
+    log(f"  init + calibrate on the first batch: {time.perf_counter() - t0:.1f} s; "
+        f"{len(leaves)} param tensors, {sum(t.numel() for t in leaves) / 1e6:.2f} M values")
+    times = {"nll": [], "pixel": []}
+    out = {"nll": [], "pixel_loss": [], "grad_norm": []}
+    for it in range(TRAIN_ITERS):
+        if it:
+            hr, lr = _smooth_batch(torch, gen, hw)
+        else:  # the first iteration: TF32 allowed outside the steps, probed inside
+            prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            seen, undo = _tf32_probe(torch, nets)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        state, m = nll_step(state, hr, lr, generator=gen)
+        ev[1].record()
+        state, mp = pix_step(state, hr, lr, generator=gen)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if not it:
+            undo()
+            flags_after = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+            log(f"  TF32 flags in the {len(seen)} conv backward passes of the first iteration: "
+                f"{sorted(set(seen))} (both False expected); after the steps {flags_after}")
+            if len(seen) < 100 or any(a or b for a, b in seen) or flags_after != (True, True):
+                raise AssertionError("a training step ran a backward conv with TF32 allowed")
+        nll, gnorm, pix = m["nll"].item(), m["grad_norm"].item(), mp["l_g_pix_hr"].item()
+        pgnorm = trainer.global_norm(mp["grads"]).item()
+        log(f"  iteration {it + 1}: NLL {nll:.4f} bits/dim, grad norm {gnorm:.4e}; pixel L1 "
+            f"{pix:.5f}, grad norm {pgnorm:.4e}; NLL step {ev[0].elapsed_time(ev[1]):.1f} ms, "
+            f"pixel step {ev[1].elapsed_time(ev[2]):.1f} ms")
+        if not all(math.isfinite(v) for v in (nll, gnorm, pix, pgnorm)):
+            raise AssertionError(f"iteration {it + 1}: non-finite NLL, loss or gradient")
+        out["nll"].append(nll)
+        out["pixel_loss"].append(pix)
+        out["grad_norm"].append([gnorm, pgnorm])
+        if it:
+            times["nll"].append(ev[0].elapsed_time(ev[1]))
+            times["pixel"].append(ev[1].elapsed_time(ev[2]))
+    if state.step != TRAIN_ITERS or state.opt_state["count"] != 2 * TRAIN_ITERS:
+        raise AssertionError(f"{state.opt_state['count']} updates applied at step {state.step}, "
+                             f"expected {2 * TRAIN_ITERS} at step {TRAIN_ITERS}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, leaves)) / len(leaves)
+    if moved < 0.9:
+        raise AssertionError(f"only {moved:.3f} of the param tensors moved")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out.update(nll_step_ms=times["nll"], pixel_step_ms=times["pixel"], moved=moved,
+               peak_mem_gb=peak)
+    log(f"  {TRAIN_ITERS} iterations: NLL step {statistics.mean(times['nll']):.1f} ms, pixel "
+        f"step {statistics.mean(times['pixel']):.1f} ms (mean after the first iteration); "
+        f"{moved:.3f} of the param tensors moved; peak memory {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+
+    # serve the trained params on the card: float32 chain packs, bf16 trunk packs
+    log("  serving the trained params (precompute_inference(fused=True))")
+    trained = trainer.tree_map(lambda t: t.detach(), state.params)
+    fused = model.flow.precompute_inference(trained, fused=True)
+    plain = model.flow.precompute_inference(trained)
+    for lv in model.flow.levels:
+        lp = fused[f"level{lv.level}"]
+        if (lp["main_fused"]["w1"].dtype != torch.float32 or "trunk0_fused" not in lp["cond"]
+                or lp["cond"]["steps_fused"]["w1"].dtype != torch.float32):
+            raise AssertionError("the HCFlow+ recipe's packs: float32 chains, bf16 trunks")
+
+    def request(seed, p=fused):
+        return model.reverse(p, lr, HEAT, generator=torch.Generator(device=DEV).manual_seed(seed))
+
+    request(0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    outs = [request(s) for s in (1, 2)]
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_counts("trained x4 SR", launches, _per_request(rrdb=28 * 16, chain_f32=4 * 13), 2)
+    for o in outs:
+        if tuple(o.shape) != tuple(hr.shape) or not torch.isfinite(o).all():
+            raise AssertionError(f"trained model: bad output {tuple(o.shape)}")
+    L = model.flow.L
+    eps = [torch.randn(BATCH, LR_HW * 2 ** (L - 1 - lv.level), LR_HW * 2 ** (L - 1 - lv.level),
+                       lv.cond_spec.a_channels, device=DEV, generator=gen)
+           for lv in model.flow.levels]
+    with torch.no_grad():
+        out["path_max_abs"], out["path_mean_abs"] = _compare_paths(
+            "trained x4 SR reverse (same eps_list)",
+            model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps),
+            model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps))
+        z, eps_hr = model.flow.encode(fused, hr)
+        d = (model.flow.reverse_flow(fused, z, HEAT, eps_list=eps_hr) - hr).abs()
+        rt_max, rt_mean = d.max().item(), d.mean().item()
+        noise = torch.rand(hr.shape, device=DEV, generator=gen)
+        _reset_counts()
+        nll_f = model.forward(fused, hr, lr, noise=noise)[1].item()
+        _check_counts("trained x4 SR forward (NLL)", _counts(), _per_request(rrdb=28 * 16), 1)
+        nll_p = model.forward(plain, hr, lr, noise=noise)[1].item()
+    nll_rel = abs(nll_f - nll_p) / abs(nll_p)
+    log(f"  encode -> reverse on the kernel path: max abs {rt_max:.3e} (tol {RT_TRAIN_MAX:g}), "
+        f"mean abs {rt_mean:.3e} (tol {RT_TRAIN_MEAN:g}); NLL fused {nll_f:.6f} vs plain "
+        f"{nll_p:.6f} bits/dim, rel {nll_rel:.3e} (tol {NLL_RTOL:g})")
+    if not (rt_max <= RT_TRAIN_MAX and rt_mean <= RT_TRAIN_MEAN):
+        raise AssertionError("the trained model's encode -> reverse does not give HR back")
+    if not nll_rel <= NLL_RTOL:
+        raise AssertionError("the NLL on the fused params disagrees with the plain params")
+    ms, ts = _median_ms(lambda: request(100), n=5)
+    log(f"  trained model's reverse pass (float32 couplings): median {ms:.3f} ms over 5 passes "
+        f"({', '.join(f'{t:.3f}' for t in ts)})")
+    out.update(launches=launches, round_trip_max=rt_max, round_trip_mean=rt_mean, nll_fused=nll_f,
+               nll_plain=nll_p, nll_rel=nll_rel, pass_ms=ms, pass_times_ms=ts)
+    return out
+
+
+def phase_tiny(torch, gen):
+    """The tiny trained checkpoint served fused in both recipes, against the plain path."""
+    from pathlib import Path
+
+    from hcflow_tpu_torch.convert import params_from_state_dict
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+
+    log("phase 7: the tiny trained checkpoint (weights/ref_trained/tiny_x4_400_G.pth, hidden "
+        "32, RRDB nf 32 / gc 16), served fused")
+    pth = Path(__file__).resolve().parent / "weights" / "ref_trained" / "tiny_x4_400_G.pth"
+    sd = torch.load(pth, map_location="cpu")
+    _, lr = _smooth_batch(torch, gen, LR_HW * SCALE)
+    out = {}
+    for cd in ("bfloat16", None):
+        recipe = cd or "float32"
+        model = HCFlowSRSpec.for_scale(SCALE, compute_dtype=cd, **TINY_CKPT)
+        params = params_from_state_dict(sd, model, device=DEV)
+        fused = model.flow.precompute_inference(params, fused=True)
+        plain = model.flow.precompute_inference(params)
+
+        def request(seed, p=fused, model=model):
+            g = torch.Generator(device=DEV).manual_seed(seed)
+            return model.reverse(p, lr, HEAT, generator=g)
+
+        request(0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        outs = [request(s) for s in (1, 2)]
+        torch.cuda.synchronize()
+        launches = _counts()
+        per = (_per_request(rrdb=2 * 2 * 2 * 16, chain_hid32=4 * 4) if cd else
+               _per_request(chain_hid32_f32=4 * 4))
+        _check_counts(f"tiny checkpoint, {recipe} recipe", launches, per, 2)
+        for o in outs:
+            if tuple(o.shape) != (BATCH, LR_HW * SCALE, LR_HW * SCALE, 3) or not torch.isfinite(o).all():
+                raise AssertionError(f"tiny checkpoint: bad output {tuple(o.shape)}")
+        eps = [torch.randn(BATCH, LR_HW * 2 ** (1 - lv.level), LR_HW * 2 ** (1 - lv.level),
+                           lv.cond_spec.a_channels, device=DEV, generator=gen)
+               for lv in model.flow.levels]
+        with torch.no_grad():
+            got = model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps)
+            ref = model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps)
+        if cd:
+            err = _compare_paths(f"tiny checkpoint, {recipe} recipe (same eps_list)", got, ref)
+        else:
+            err = (check_rel(f"tiny checkpoint, {recipe} recipe, kernel path vs plain path "
+                             "(same eps_list)", got, ref, F32_PATH_RTOL),)
+        ms, ts = _median_ms(lambda: request(100), n=5)
+        log(f"  {recipe} recipe: reverse pass median {ms:.3f} ms over 5 passes")
+        out[recipe] = dict(launches=launches, path_err=err, pass_ms=ms, pass_times_ms=ts)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -694,6 +991,17 @@ KERNELS = {
     "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",
                 "one call at each of the x8 model's library 3x3 conv shapes (on no path)",
                 ("pack_kernel", "conv_kernel")),
+    # the chain kernel's variants beside its bf16 hid-64 one: float32 (CUDA-core fmaf)
+    # at hid 64 and the bf16 and float32 ones at hid 32
+    "chain_f32": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
+                  "x4 SR reverse pass of the trained HCFlow+ model (float32 couplings)",
+                  ("chain_step_f32_kernel",)),
+    "chain_hid32": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
+                    "x4 SR reverse pass of the tiny trained checkpoint, bf16 recipe",
+                    ("chain_step_mma_kernel",)),
+    "chain_hid32_f32": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
+                        "x4 SR reverse pass of the tiny trained checkpoint, float32 recipe",
+                        ("chain_step_f32_kernel",)),
 }
 
 
@@ -758,21 +1066,24 @@ def main(argv=None):
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(torch, gen)
     log("phase 3: flagship x4 SR model, full width, bf16 serving recipe")
-    sr = phase_sr(torch, gen, SCALE, LR_HW, HEAT,
-                  {"rrdb": 28 * 16, "rrdb_trunk": 0, "chain": 4 * 13, "chain3s": 0, "conv3x3": 0})
+    sr = phase_sr(torch, gen, SCALE, LR_HW, HEAT, _per_request(rrdb=28 * 16, chain=4 * 13))
     rs = phase_rescaling(torch, gen)
     log("phase 5: x8 SR model (CelebA-8X topology), full width, bf16 serving recipe, "
         "resident trunks")
     # per request: 2 trunks a level, one launch each; 2 chains of 13 steps a level
     sr8 = phase_sr(torch, gen, X8_SCALE, X8_LR_HW, X8_HEAT,
-                   {"rrdb": 0, "rrdb_trunk": 6, "chain": 6 * 13, "chain3s": 0, "conv3x3": 0},
-                   resident=True)
+                   _per_request(rrdb_trunk=6, chain=6 * 13), resident=True)
+    train = phase_train(torch, gen)
+    tiny = phase_tiny(torch, gen)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
-                                  "sr8": sr8["launches"]})
+                                  "sr8": sr8["launches"], "train": train["launches"],
+                                  "tiny_bf16": tiny["bfloat16"]["launches"],
+                                  "tiny_f32": tiny["float32"]["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
-                       "rescaling": rs, "sr8": sr8}, f, indent=1)
+                       "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny}, f,
+                      indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -92,3 +94,26 @@ def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
     if err != 0:
         msg = lib.hcflow_error_string(err).decode()
         raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
+
+
+def refuse_grad(kernel: str, *trees) -> None:
+    """Raise a ValueError if autograd would need a backward pass through ``kernel``.
+
+    No kernel of the port has one, so a kernel never runs on an input that requires
+    grad while grad mode is on (on the card or, for the same rule everywhere, in its
+    plain version on the CPU): training runs the plain step-by-step path, on params that
+    carry no packs, as the JAX package's rule at flow/flownet.py:308 has it.  Nothing is
+    detached silently.
+    """
+    if not torch.is_grad_enabled():
+        return
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise ValueError(f"the {kernel} kernel has no backward pass: call it under "
+                             "torch.no_grad(), or train on params without packed weights")

@@ -77,10 +77,31 @@
 //   __launch_bounds__(256, 2) ptxas gives every instance 126-128 registers, and the
 //   C1P 24 and 32 ones 4-12 bytes of spill (`-Xptxas -v`; chip_smoke.py prints it).
 //
-// Layouts: z is NHWC float32 (B,H,W,c); uc is NHWC bf16 (B,H,W,K*64), step k's term
-// at channels k*64..; the padded pack per step: w1 [9][C1P][64], w2 [64 in][64 out],
-// w3 [9][64][2S] as [shift (S) | scale (S)], vec = b1,e1,b2,e2 (64 each) then g3,bg3
-// (2S each), wt [c][c], ab [c].
+// Hidden widths: the coupling width HID (32 or 64) is a template parameter of the
+// layout and both kernels; HID sets the row pitch HP = HID + 8 of h2, w1 and w2 (5 or 9
+// 16-byte units, odd either way), every shared-memory offset, the products' N of conv1
+// and conv2 and K of conv2 and conv3, and so the tile plan (pick_tile counts the
+// products at either width).
+//
+// The float32 recipe (float32 pack and cond term) runs chain_step_f32_kernel: the same
+// step in float32 on CUDA cores, every product an fmaf of float32 operands, no TF32
+// anywhere (the JAX kernel runs it at Precision.HIGHEST).  Bound: operations (float32
+// outside the tensor cores, 67 TFLOP/s), 0.10 TFLOP a x4 pass.  A block of 8 warps owns
+// an 8x8 tile; z1 (with a 2-pixel halo), h (h1, then h2 in place, over the tile plus a
+// 1-pixel halo) and the tile's z stay in shared memory as float32, pixel rows of odd
+// pitch; so do the weights: w1 and w2 copied before the step waits for the previous
+// one, w3 a row of three taps at a time.  conv1 and conv2 sum 4 pixels x 8 outputs a
+// thread (4 + 2 shared-memory loads per 32 fmaf, the weights broadcast to a warp);
+// conv3 a pixel x 4 shift and 4 scale columns, only for the column groups that hold
+// real columns.  Measured on an H100 (PERF.md): the first design, one pixel a
+// thread with the weights read from L2 one load at a time (the blocks' shared memory
+// leaves L1 little room), reached 2-3 TFLOP/s; unrolling its loops 1.4x more.  The tail
+// is the bf16 kernel's.
+//
+// Layouts: z is NHWC float32 (B,H,W,c); uc is NHWC (B,H,W,K*HID) in the pack's dtype,
+// step k's term at channels k*HID..; the padded pack per step: w1 [9][C1P][HID], w2
+// [HID in][HID out], w3 [9][HID][2S] as [shift (S) | scale (S)], vec = b1,e1,b2,e2 (HID
+// each) then g3,bg3 (2S each), wt [c][c], ab [c].
 
 #include "conv3x3.cuh"
 
@@ -89,19 +110,20 @@ namespace {
 using conv3x3::bf16;
 using conv3x3::smem_addr;
 
-constexpr int HID = 64;
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
-constexpr int HP = HID + 8;  // row pitch (elements) of h2, w1 and w2: 9 16-byte units
 constexpr int MAX_SMEM = 232448;
 constexpr int SM_BYTES = 233472;  // shared memory of an SM, 1 KB of it reserved a block
 
 __host__ __device__ constexpr int up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Shared-memory layout (byte offsets) of a th x tw tile at c channels.
-template <int C1P, int N3P>
+template <int HID, int C1P, int N3P>
 struct Layout {
-  // z1 and w3 row pitches (elements), odd numbers of 16-byte units
-  static constexpr int ZP = C1P / 8 % 2 ? C1P : C1P + 8, W3P = N3P + 8;
+  // row pitches (elements), odd numbers of 16-byte units: h2, w1 and w2; z1; w3
+  static constexpr int HP = HID + 8, ZP = C1P / 8 % 2 ? C1P : C1P + 8, W3P = N3P + 8;
+  // products a warp issues for 16 pixels: conv1 and conv2 (h region), conv3 (tile)
+  static constexpr int MMA12 = (9 * C1P + 15) / 16 * HID / 8 + HID / 16 * HID / 8,
+                       MMA3 = 9 * HID / 16 * 2;
   static constexpr int KS1 = (9 * C1P + 15) / 16;  // conv1's k steps: 9 taps x C1P
   int c, c1, c2, cq, th, tw, zw, hw2, hr, mt12, mt3, items3;
   int o_z1, o_w1, o_w2, o_w3, o_zz, o_h2, o_vec, o_wt, o_ab, bytes;
@@ -166,19 +188,49 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
+// The fused invconv^-1 + actnorm^-1 of a th x tw tile, float32: z = Wt @ zz - ab, four
+// outputs a thread (Wt transposed to [k][o] in shared memory, rows padded to cq, a
+// multiple of 4); no z is written outside the image.
+__device__ __forceinline__ void tail(const float* s_zz, const float* s_wt, const float* s_ab,
+                                     float* __restrict__ zout, size_t img, int H, int W, int c,
+                                     int cq, int x0, int y0, int th, int tw) {
+  const int nq = cq / 4;
+  for (int i = threadIdx.x; i < th * tw * nq; i += NTHREADS) {
+    const int p = i / nq, o = (i - p * nq) * 4;
+    const int gy = y0 + p / tw, gx = x0 + p % tw;
+    if (gy >= H || gx >= W) continue;
+    const float* zz = s_zz + p * c;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < c; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(s_wt + k * cq + o);
+      const float z = zz[k];
+      sum[0] = fmaf(w.x, z, sum[0]);
+      sum[1] = fmaf(w.y, z, sum[1]);
+      sum[2] = fmaf(w.z, z, sum[2]);
+      sum[3] = fmaf(w.w, z, sum[3]);
+    }
+    float* dst = zout + (img + size_t(gy) * W + gx) * c + o;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (o + e < c) dst[e] = sum[e] - s_ab[o + e];
+  }
+}
+
 // ---------------------------------------------------------------------- the step
 // In mma's fragments lane l holds rows g = l/4 and g + 8 and columns 2q, 2q + 1
 // (q = l%4) of each n8 tile; A (16 x 16) and B (16 x 8) come from ldmatrix.x4 with
 // lane l giving row l%16 at column (l/16)*8.
-template <int C1P, int N3P>
+template <int HID, int C1P, int N3P>
 __global__ void __launch_bounds__(NTHREADS, 2)
 chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
                       const bf16* __restrict__ uc, int uc_stride, const bf16* __restrict__ w1,
                       const bf16* __restrict__ w2, const bf16* __restrict__ w3,
                       const float* __restrict__ vec, const float* __restrict__ wt,
                       const float* __restrict__ ab, int H, int W, int c, int th, int tw) {
-  using Lay = Layout<C1P, N3P>;
-  constexpr int ZP = Lay::ZP, W3P = Lay::W3P, S = N3P / 2, NG = S / 8, NVEC = 4 * HID + 2 * N3P;
+  using Lay = Layout<HID, C1P, N3P>;
+  constexpr int HP = Lay::HP, ZP = Lay::ZP, W3P = Lay::W3P, S = N3P / 2, NG = S / 8,
+                NVEC = 4 * HID + 2 * N3P;
+  constexpr int NT = HID / 8, KH = HID / 16;  // n8 tiles of HID; k16 steps of HID
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CPT = C1P / 8;  // 8-channel chunks of z1 a tap
   const Lay L(c, th, tw);
@@ -192,16 +244,16 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
   const size_t img = size_t(blockIdx.z) * H * W;
 
   // ---- w1, w2, the vectors, Wt (transposed to [k][o]) and ab by cp.async
-  for (int i = tid; i < 9 * C1P * 8; i += NTHREADS)
-    conv3x3::cp_async16(s0 + L.o_w1 + (i / 8) * HP * 2 + i % 8 * 16, w1 + (i / 8) * HID + i % 8 * 8,
-                        true);
+  for (int i = tid; i < 9 * C1P * NT; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w1 + (i / NT) * HP * 2 + i % NT * 16,
+                        w1 + (i / NT) * HID + i % NT * 8, true);
   for (int i = tid; i < (Lay::KS1 * 16 - 9 * C1P) * HID / 2; i += NTHREADS) {  // past 9 C1P
     uint32_t* row = reinterpret_cast<uint32_t*>(smem + L.o_w1 + (9 * C1P + i / (HID / 2)) * HP * 2);
     row[i % (HID / 2)] = 0;
   }
-  for (int i = tid; i < HID * 8; i += NTHREADS)
-    conv3x3::cp_async16(s0 + L.o_w2 + (i / 8) * HP * 2 + i % 8 * 16, w2 + (i / 8) * HID + i % 8 * 8,
-                        true);
+  for (int i = tid; i < HID * NT; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w2 + (i / NT) * HP * 2 + i % NT * 16,
+                        w2 + (i / NT) * HID + i % NT * 8, true);
   for (int i = tid; i < NVEC / 4; i += NTHREADS)
     conv3x3::cp_async16(s0 + L.o_vec + i * 16, vec + 4 * i, true);
   for (int i = tid; i < c * c; i += NTHREADS)
@@ -256,18 +308,18 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
       in[h] = r < L.hr && gy >= 0 && gy < H && gx >= 0 && gx < W;
       pix[h] = in[h] ? img + size_t(gy) * W + gx : 0;
     }
-    uint32_t u[8][2];  // cond term, loaded ahead of the products
+    uint32_t u[NT][2];  // cond term, loaded ahead of the products
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         u[nt][h] = uc != nullptr && in[h] ? *reinterpret_cast<const uint32_t*>(
                                                 uc + pix[h] * uc_stride + 8 * nt + 2 * q)
                                           : 0u;
 
-    float acc[8][4];
+    float acc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
     // k = tap * C1P + channel: k step ks takes 8-channel chunks 2 ks (lanes 0-15)
@@ -282,7 +334,7 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
       uint32_t a[4];
       ldsm_x4(a, a1 + chunk(2 * ks + lane / 16));
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < KH; ++np) {
         uint32_t b[4];
         ldsm_x4_t(b, bw1 + (ks * 16 * HP + np * 16) * 2);
         mma(acc[2 * np], a, b[0], b[1]);
@@ -291,9 +343,9 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
     }
     // conv1's epilogue straight into conv2's A fragments: n8 tiles 2ks and 2ks+1 of
     // conv1's sums are k step ks of conv2
-    uint32_t ha[4][4];
+    uint32_t ha[KH][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       const int j = 8 * nt + 2 * q;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -304,14 +356,14 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
     const uint32_t bw2 = s0 + L.o_w2 + ((lane % 16) * HP + lane / 16 * 8) * 2;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < KH; ++ks)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < KH; ++np) {
         uint32_t b[4];
         ldsm_x4_t(b, bw2 + (ks * 16 * HP + np * 16) * 2);
         mma(acc[2 * np], ha[ks], b[0], b[1]);
@@ -324,7 +376,7 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
       if (r >= L.hr) continue;
       uint32_t* dst = reinterpret_cast<uint32_t*>(smem + L.o_h2 + (r * HP + 2 * q) * 2);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         const int j = 8 * nt + 2 * q;
         const float v0 = in[h] ? fmaxf((acc[nt][2 * h] + b2[j]) * e2[j], 0.f) : 0.f;
         const float v1 = in[h] ? fmaxf((acc[nt][2 * h + 1] + b2[j + 1]) * e2[j + 1], 0.f) : 0.f;
@@ -360,7 +412,7 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < KH; ++ks) {
         uint32_t a[4], b[4];
         ldsm_x4(a, a3 + ((tap / 3) * L.hw2 + tap % 3) * HP * 2 + ks * 32);
         ldsm_x4_t(b, b3 + (tap * HID + ks * 16) * W3P * 2);
@@ -385,28 +437,250 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
   }
   __syncthreads();
 
-  // ---- fused invconv^-1 + actnorm^-1: z = Wt @ zz - ab, float32
-  // (four outputs a thread; Wt's rows padded to cq, a multiple of 4)
-  const int nq = L.cq / 4;
-  for (int i = tid; i < th * tw * nq; i += NTHREADS) {
-    const int p = i / nq, o = (i - p * nq) * 4;
-    const int gy = y0 + p / tw, gx = x0 + p % tw;
-    if (gy >= H || gx >= W) continue;
-    const float* zz = s_zz + p * c;
-    float sum[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < c; ++k) {
-      const float4 w = *reinterpret_cast<const float4*>(s_wt + k * L.cq + o);
-      const float z = zz[k];
-      sum[0] = fmaf(w.x, z, sum[0]);
-      sum[1] = fmaf(w.y, z, sum[1]);
-      sum[2] = fmaf(w.z, z, sum[2]);
-      sum[3] = fmaf(w.w, z, sum[3]);
-    }
-    float* dst = zout + (img + size_t(gy) * W + gx) * c + o;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (o + e < c) dst[e] = sum[e] - s_ab[o + e];
+  // ---- fused invconv^-1 + actnorm^-1
+  tail(s_zz, s_wt, s_ab, zout, img, H, W, c, L.cq, x0, y0, th, tw);
+}
+
+// ------------------------------------------------------------- the float32 step
+constexpr int F32_TH = 8, F32_TW = 8;  // the float32 kernel's tile
+// h-region pixels a thread of conv1 / conv2 sums, strided by F32_PQ
+constexpr int F32_PX = 4, F32_PQ = ((F32_TH + 2) * (F32_TW + 2) + F32_PX - 1) / F32_PX;
+constexpr int F32_ITEMS3 = 2;  // conv3 items a thread holds at most (c <= 64)
+
+// Shared-memory layout (byte offsets) of the float32 kernel's tile, all float32: z1 with
+// a 2-pixel halo; h (h1, then h2 in place) over the tile plus a 1-pixel halo; the tile's
+// z; Wt and ab; w2; and one weight region holding w1's real rows [9][c1][HID] during
+// conv1, then w3 a row of taps at a time, [3][HID][2S].  The pixel rows of z1 and h
+// have odd pitches, so that a warp's consecutive pixels fall in distinct banks.
+struct LayoutF32 {
+  int c, c1, c2, cq, th, tw, zw, hw2, hr, zp, hp;
+  int o_z1, o_h, o_zz, o_wt, o_ab, o_w2, o_w, bytes;
+
+  __host__ __device__ LayoutF32(int c_, int hid, int s, int th_, int tw_)
+      : c(c_), th(th_), tw(tw_) {
+    c1 = c / 2;
+    c2 = c - c1;
+    cq = up(c, 4);
+    zw = tw + 4;
+    hw2 = tw + 2;
+    hr = (th + 2) * hw2;
+    zp = c1 | 1;
+    hp = hid + 1;
+    o_z1 = 0;
+    o_h = up((th + 4) * zw * zp * 4, 16);
+    o_zz = o_h + up(hr * hp * 4, 16);
+    o_wt = o_zz + up(th * tw * c * 4, 16);
+    o_ab = o_wt + c * cq * 4;
+    o_w2 = up(o_ab + c * 4, 16);
+    o_w = o_w2 + hid * hid * 4;
+    const int w1 = 9 * c1 * hid, w3 = 3 * hid * 2 * s;
+    bytes = o_w + (w1 > w3 ? w1 : w3) * 4;
   }
+};
+
+// acc[j][e] += a[j] * w[e] for 4 pixels j and 8 outputs e; w is 8 floats of shared
+// memory that a warp's lanes read at one or two addresses (broadcasts)
+__device__ __forceinline__ void fma4x8(float (&acc)[F32_PX][8], const float (&a)[F32_PX],
+                                       const float* w) {
+  const float4 lo = *reinterpret_cast<const float4*>(w);
+  const float4 hi = *reinterpret_cast<const float4*>(w + 4);
+#pragma unroll
+  for (int j = 0; j < F32_PX; ++j) {
+    acc[j][0] = fmaf(a[j], lo.x, acc[j][0]);
+    acc[j][1] = fmaf(a[j], lo.y, acc[j][1]);
+    acc[j][2] = fmaf(a[j], lo.z, acc[j][2]);
+    acc[j][3] = fmaf(a[j], lo.w, acc[j][3]);
+    acc[j][4] = fmaf(a[j], hi.x, acc[j][4]);
+    acc[j][5] = fmaf(a[j], hi.y, acc[j][5]);
+    acc[j][6] = fmaf(a[j], hi.z, acc[j][6]);
+    acc[j][7] = fmaf(a[j], hi.w, acc[j][7]);
+  }
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src, int n4) {
+  for (int i = threadIdx.x; i < n4; i += NTHREADS)
+    reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+}
+
+// One step of the float32 recipe, on the padded float32 pack (c1p = C1P, s = S).
+// conv1 and conv2: a thread sums 4 pixels of the h region x 8 outputs (one item; the
+// 32 lanes of a warp hold consecutive pixels, in at most two output groups);
+// conv3: a thread sums a tile pixel x 4 shift and the 4 matching scale columns (up to
+// F32_ITEMS3 items), for the column groups that hold real columns only.
+template <int HID>
+__global__ void __launch_bounds__(NTHREADS)
+chain_step_f32_kernel(const float* __restrict__ zin, float* __restrict__ zout,
+                      const float* __restrict__ uc, int uc_stride, const float* __restrict__ w1,
+                      const float* __restrict__ w2, const float* __restrict__ w3,
+                      const float* __restrict__ vec, const float* __restrict__ wt,
+                      const float* __restrict__ ab, int H, int W, int c, int c1p, int s) {
+  constexpr int NT = HID / 8, TH = F32_TH, TW = F32_TW, PX = F32_PX, PQ = F32_PQ;
+  static_assert(NT * PQ <= NTHREADS, "conv1 and conv2 take one item a thread");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LayoutF32 L(c, HID, s, TH, TW);
+  float* s_z1 = reinterpret_cast<float*>(smem + L.o_z1);
+  float* s_h = reinterpret_cast<float*>(smem + L.o_h);
+  float* s_zz = reinterpret_cast<float*>(smem + L.o_zz);
+  float* s_wt = reinterpret_cast<float*>(smem + L.o_wt);
+  float* s_ab = reinterpret_cast<float*>(smem + L.o_ab);
+  float* s_w2 = reinterpret_cast<float*>(smem + L.o_w2);
+  float* s_w = reinterpret_cast<float*>(smem + L.o_w);
+  const int tid = threadIdx.x, c1 = L.c1, c2 = L.c2, n3 = 2 * s;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const size_t img = size_t(blockIdx.z) * H * W;
+  const float* b1 = vec;
+  const float* e1 = vec + HID;
+  const float* b2 = vec + 2 * HID;
+  const float* e2 = vec + 3 * HID;
+  const float* g3 = vec + 4 * HID;
+  const float* bg3 = g3 + n3;
+
+  // ---- the step's weights (w1's real rows, w2), Wt (transposed to [k][o]) and ab:
+  // independent of the previous step, so copied before waiting for it; then z
+  for (int t = 0; t < 9; ++t) copy4(s_w + t * c1 * HID, w1 + size_t(t) * c1p * HID, c1 * HID / 4);
+  copy4(s_w2, w2, HID * HID / 4);
+  for (int i = tid; i < c * c; i += NTHREADS) s_wt[(i % c) * L.cq + i / c] = wt[i];
+  for (int i = tid; i < c; i += NTHREADS) s_ab[i] = ab[i];
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int i = tid; i < (TH + 4) * L.zw * c1; i += NTHREADS) {
+    const int px = i / c1, k = i % c1;
+    const int gy = y0 - 2 + px / L.zw, gx = x0 - 2 + px % L.zw;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    s_z1[px * L.zp + k] = in ? zin[(img + size_t(gy) * W + gx) * c + k] : 0.f;
+  }
+  for (int i = tid; i < TH * TW * c; i += NTHREADS) {
+    const int p = i / c, gy = y0 + p / TW, gx = x0 + p % TW;
+    s_zz[i] = gy < H && gx < W ? zin[(img + size_t(gy) * W + gx) * c + i % c] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- conv1 (+ cond term, b1, x e1, ReLU) into h: pixels r_j = q + PQ j of the h
+  // region x outputs 8g..8g+7
+  const bool item12 = tid < NT * PQ;
+  const int g = tid / PQ, q = tid % PQ;
+  if (item12) {
+    int zoff[PX];
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int r = min(q + PQ * j, L.hr - 1);
+      zoff[j] = ((r / L.hw2) * L.zw + r % L.hw2) * L.zp;
+    }
+    float acc[PX][8] = {};
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = ((tap / 3) * L.zw + tap % 3) * L.zp;
+      const float* wr = s_w + tap * c1 * HID + 8 * g;
+#pragma unroll 2
+      for (int k = 0; k < c1; ++k) {
+        float a[PX];
+#pragma unroll
+        for (int j = 0; j < PX; ++j) a[j] = s_z1[zoff[j] + toff + k];
+        fma4x8(acc, a, wr + k * HID);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int r = q + PQ * j;
+      if (r >= L.hr) break;
+      const int gy = y0 - 1 + r / L.hw2, gx = x0 - 1 + r % L.hw2;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float* u = uc != nullptr && in ? uc + (img + size_t(gy) * W + gx) * uc_stride : nullptr;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int o = 8 * g + e;
+        const float h = u != nullptr ? acc[j][e] + u[o] : acc[j][e];
+        s_h[r * L.hp + o] = fmaxf((h + b1[o]) * e1[o], 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- conv2 (1x1, b2, x e2, ReLU) over h in place: each thread sums from its pixels'
+  // h1 rows before the barrier and writes h2 after it; zero outside the image (conv3's
+  // padding)
+  float acc2[PX][8] = {};
+  if (item12) {
+    int hoff[PX];
+#pragma unroll
+    for (int j = 0; j < PX; ++j) hoff[j] = min(q + PQ * j, L.hr - 1) * L.hp;
+#pragma unroll 4
+    for (int k = 0; k < HID; ++k) {
+      float a[PX];
+#pragma unroll
+      for (int j = 0; j < PX; ++j) a[j] = s_h[hoff[j] + k];
+      fma4x8(acc2, a, s_w2 + k * HID + 8 * g);
+    }
+  }
+  __syncthreads();
+  if (item12) {
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int r = q + PQ * j;
+      if (r >= L.hr) break;
+      const int gy = y0 - 1 + r / L.hw2, gx = x0 - 1 + r % L.hw2;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int o = 8 * g + e;
+        s_h[r * L.hp + o] = in ? fmaxf((acc2[j][e] + b2[o]) * e2[o], 0.f) : 0.f;
+      }
+    }
+  }
+
+  // ---- conv3 over the tile ([shift | scale], x g3 + bg3), w3 staged a row of taps at
+  // a time, then the affine inverse on the staged z: z2 = z2 * exp(-logscale) - shift.
+  // An item is a tile pixel x shift columns 4g..4g+3 and scale columns S + 4g..
+  const int items3 = (c2 + 3) / 4 * TH * TW;
+  float a0[F32_ITEMS3][4] = {}, a1[F32_ITEMS3][4] = {};
+  for (int row = 0; row < 3; ++row) {
+    __syncthreads();  // h2 is complete; the weight region is free
+    copy4(s_w, w3 + size_t(row) * 3 * HID * n3, 3 * HID * n3 / 4);
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < F32_ITEMS3; ++it) {
+      const int i = tid + it * NTHREADS;
+      if (i >= items3) break;
+      const int g3i = i / (TH * TW), p = i % (TH * TW), py = p / TW, px = p % TW;
+      for (int t = 0; t < 3; ++t) {
+        const float* hrow = s_h + ((py + row) * L.hw2 + px + t) * L.hp;
+        const float* wr = s_w + t * HID * n3 + 4 * g3i;
+#pragma unroll 4
+        for (int k = 0; k < HID; ++k) {
+          const float h = hrow[k];
+          const float4 ws = *reinterpret_cast<const float4*>(wr + k * n3);
+          const float4 wc = *reinterpret_cast<const float4*>(wr + k * n3 + s);
+          a0[it][0] = fmaf(h, ws.x, a0[it][0]);
+          a0[it][1] = fmaf(h, ws.y, a0[it][1]);
+          a0[it][2] = fmaf(h, ws.z, a0[it][2]);
+          a0[it][3] = fmaf(h, ws.w, a0[it][3]);
+          a1[it][0] = fmaf(h, wc.x, a1[it][0]);
+          a1[it][1] = fmaf(h, wc.y, a1[it][1]);
+          a1[it][2] = fmaf(h, wc.z, a1[it][2]);
+          a1[it][3] = fmaf(h, wc.w, a1[it][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < F32_ITEMS3; ++it) {
+    const int i = tid + it * NTHREADS;
+    if (i >= items3) break;
+    const int g3i = i / (TH * TW), p = i % (TH * TW);
+    if (y0 + p / TW >= H || x0 + p % TW >= W) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * g3i + e;
+      if (j >= c2) break;
+      const float shift = fmaf(a0[it][e], g3[j], bg3[j]);
+      const float scale = fmaf(a1[it][e], g3[s + j], bg3[s + j]);
+      const float ls = 0.318f * atanf(2.f * scale);
+      float* zz = s_zz + p * c + c1 + j;
+      *zz = *zz * expf(-ls) - shift;
+    }
+  }
+  __syncthreads();
+
+  tail(s_zz, s_wt, s_ab, zout, img, H, W, c, L.cq, x0, y0, TH, TW);
 }
 
 // ------------------------------------------------------------------------ launch
@@ -418,16 +692,17 @@ struct Plan {
 // the one that does the least padded work (M-tile rows x products of conv1/2 and
 // conv3, over the grid) among those whose grid covers every SM with two blocks fitting
 // an SM; else among those that cover every SM; else the one with the most blocks.
-template <int C1P, int N3P>
+template <int HID, int C1P, int N3P>
 Plan pick_tile(int B, int H, int W, int c, int nsm) {
   static constexpr int TILES[][2] = {{16, 16}, {8, 20}, {10, 10}, {8, 16}, {8, 8}, {4, 10}, {4, 8}};
+  using Lay = Layout<HID, C1P, N3P>;
   Plan best{0, 0, 0, 0};
   long best_key[3] = {0, 0, 0};
   for (const auto& t : TILES) {
-    const Layout<C1P, N3P> L(c, t[0], t[1]);
+    const Lay L(c, t[0], t[1]);
     if (L.bytes > MAX_SMEM) continue;
     const int blocks = B * ((H + t[0] - 1) / t[0]) * ((W + t[1] - 1) / t[1]);
-    const long work = long(blocks) * (L.mt12 * (Layout<C1P, N3P>::KS1 * 8 + 32) + L.items3 * 72);
+    const long work = long(blocks) * (L.mt12 * Lay::MMA12 + L.mt3 * Lay::MMA3 * (N3P / 16));
     const bool covers = blocks >= nsm, two = 2 * (L.bytes + 1024) <= SM_BYTES;
     const long key[3] = {covers ? 0 : 1, covers && two ? 0 : 1, covers ? work : -blocks};
     if (best.blocks == 0 || key[0] < best_key[0] ||
@@ -451,11 +726,19 @@ int num_sms() {
   return n;
 }
 
-// fn(C1P, N3P) as std::integral_constants for c channels (C1P = c/2 padded to 8; N3P =
-// 2S, twice c - c/2 padded to 8), c from 2 to 64
 template <int N>
 using Int = std::integral_constant<int, N>;
 
+// fn(HID) as a std::integral_constant, for hid 32 or 64
+template <class Fn>
+cudaError_t with_hid(int hid, Fn fn) {
+  if (hid == 32) return fn(Int<32>());
+  if (hid == 64) return fn(Int<64>());
+  return cudaErrorInvalidValue;
+}
+
+// fn(C1P, N3P) as std::integral_constants for c channels (C1P = c/2 padded to 8; N3P =
+// 2S, twice c - c/2 padded to 8), c from 2 to 64
 template <class Fn>
 cudaError_t with_widths(int c, Fn fn) {
   const int c1p = up(c / 2, 8), n3p = 2 * up(c - c / 2, 8);
@@ -469,47 +752,89 @@ cudaError_t with_widths(int c, Fn fn) {
   return cudaErrorInvalidValue;
 }
 
+// The bf16 kernel's plan, or the float32 kernel's fixed tile, for one step.
+cudaError_t plan_step(int B, int H, int W, int c, int hid, bool f32, Plan* p) {
+  if (f32)
+    return with_hid(hid, [&](auto h) {
+      const LayoutF32 L(c, decltype(h)::value, up(c - c / 2, 8), F32_TH, F32_TW);
+      *p = {F32_TH, F32_TW, B * ((H + F32_TH - 1) / F32_TH) * ((W + F32_TW - 1) / F32_TW),
+            L.bytes};
+      return L.bytes <= MAX_SMEM ? cudaSuccess : cudaErrorInvalidValue;
+    });
+  return with_hid(hid, [&](auto h) {
+    return with_widths(c, [&](auto c1p, auto n3p) {
+      *p = pick_tile<decltype(h)::value, decltype(c1p)::value, decltype(n3p)::value>(B, H, W, c,
+                                                                                     num_sms());
+      return p->blocks > 0 ? cudaSuccess : cudaErrorInvalidValue;
+    });
+  });
+}
+
+// fn(kernel, is_f32) for the step kernel of (c, hid, f32), both as constants
+template <class Fn>
+cudaError_t with_kernel(int c, int hid, bool f32, Fn fn) {
+  return with_hid(hid, [&](auto h) {
+    constexpr int HID = decltype(h)::value;
+    if (f32)
+      return fn(std::integral_constant<decltype(&chain_step_f32_kernel<HID>),
+                                       &chain_step_f32_kernel<HID>>(),
+                std::true_type());
+    return with_widths(c, [&](auto c1p, auto n3p) {
+      constexpr auto K = &chain_step_mma_kernel<HID, decltype(c1p)::value, decltype(n3p)::value>;
+      return fn(std::integral_constant<decltype(K), K>(), std::false_type());
+    });
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
-// The tile plan of one step at (B,H,W,c): out = {th, tw, blocks, shared-memory bytes,
-// blocks per SM}.  Returns a CUDA error.
-int hcflow_chain_plan(int B, int H, int W, int c, int* out) {
-  return int(with_widths(c, [&](auto c1p, auto n3p) {
-    constexpr int C1P = decltype(c1p)::value, N3P = decltype(n3p)::value;
-    const Plan p = pick_tile<C1P, N3P>(B, H, W, c, num_sms());
-    if (p.blocks == 0) return cudaErrorInvalidValue;
-    cudaError_t err = conv3x3::allow_smem<chain_step_mma_kernel<C1P, N3P>>(MAX_SMEM);
+// The tile plan of one step at (B,H,W,c), coupling width hid, bf16 (f32 = 0) or
+// float32 (f32 = 1) recipe: out = {th, tw, blocks, shared-memory bytes, blocks per SM}.
+// Returns a CUDA error.
+int hcflow_chain_plan(int B, int H, int W, int c, int hid, int f32, int* out) {
+  if (c < 2 || c > 64) return int(cudaErrorInvalidValue);
+  Plan p{0, 0, 0, 0};
+  cudaError_t err = plan_step(B, H, W, c, hid, f32 != 0, &p);
+  if (err != cudaSuccess) return int(err);
+  return int(with_kernel(c, hid, f32 != 0, [&](auto k, auto) {
+    constexpr auto Kernel = decltype(k)::value;
+    cudaError_t e = conv3x3::allow_smem<Kernel>(MAX_SMEM);
     int per_sm = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_step_mma_kernel<C1P, N3P>,
-                                                          NTHREADS, p.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, NTHREADS, p.smem);
     out[0] = p.th, out[1] = p.tw, out[2] = p.blocks, out[3] = p.smem, out[4] = per_sm;
-    return err;
+    return e;
   }));
 }
 
-// Runs the K steps of one chain, k = K-1 .. 0, on the padded pack.  zin is not
-// written; the n-th step (n = 0 .. K-1) writes buf[n % 2], so the result is in
-// buf[(K-1) % 2].  uc may be null (a chain without cond terms).  hid must be 64 and
-// c 2 .. 64.  Returns the first CUDA error.
-int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const bf16* uc,
-                         const bf16* w1, const bf16* w2, const bf16* w3, const float* vec,
+// Runs the K steps of one chain, k = K-1 .. 0, on the padded pack: bf16 net weights and
+// cond term (f32 = 0) or float32 ones (f32 = 1).  zin is not written; the n-th step (n =
+// 0 .. K-1) writes buf[n % 2], so the result is in buf[(K-1) % 2].  uc may be null (a
+// chain without cond terms).  hid must be 32 or 64 and c 2 .. 64.  Returns the first
+// CUDA error.
+int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const void* uc,
+                         const void* w1, const void* w2, const void* w3, const float* vec,
                          const float* wt, const float* ab, int B, int H, int W, int c, int hid,
-                         int K, cudaStream_t stream) {
-  if (c < 2 || c > 64 || hid != HID || K < 1 || B < 1 || H < 1 || W < 1)
-    return int(cudaErrorInvalidValue);
-  return int(with_widths(c, [&](auto c1p, auto n3p) {
-    constexpr int C1P = decltype(c1p)::value, N3P = decltype(n3p)::value;
-    const Plan p = pick_tile<C1P, N3P>(B, H, W, c, num_sms());
-    if (p.blocks == 0) return cudaErrorInvalidValue;
-    cudaError_t err = conv3x3::allow_smem<chain_step_mma_kernel<C1P, N3P>>(MAX_SMEM);
-    if (err != cudaSuccess) return err;
-    const size_t sw1 = size_t(9) * C1P * HID, sw2 = size_t(HID) * HID,
-                 sw3 = size_t(9) * HID * N3P, svec = size_t(4) * HID + 2 * N3P;
+                         int K, int f32, cudaStream_t stream) {
+  if (c < 2 || c > 64 || K < 1 || B < 1 || H < 1 || W < 1) return int(cudaErrorInvalidValue);
+  Plan p{0, 0, 0, 0};
+  cudaError_t err = plan_step(B, H, W, c, hid, f32 != 0, &p);
+  if (err != cudaSuccess) return int(err);
+  const int c1p = up(c / 2, 8), s = up(c - c / 2, 8);
+  const size_t sw1 = size_t(9) * c1p * hid, sw2 = size_t(hid) * hid, sw3 = size_t(9) * hid * 2 * s,
+               svec = size_t(4) * hid + 4 * s, es = f32 ? 4 : 2;  // element bytes of w and uc
+  const char* cw1 = static_cast<const char*>(w1);
+  const char* cw2 = static_cast<const char*>(w2);
+  const char* cw3 = static_cast<const char*>(w3);
+  const char* cuc = static_cast<const char*>(uc);
+  return int(with_kernel(c, hid, f32 != 0, [&](auto k, auto is_f32) {
+    constexpr auto Kernel = decltype(k)::value;
+    cudaError_t e = conv3x3::allow_smem<Kernel>(MAX_SMEM);
+    if (e != cudaSuccess) return e;
     // Each step after the first may launch while the one before it runs (the kernel
     // waits for it before it reads z or uc).  The first launches in stream order, so
     // that no step copies weights that work queued before the chain is still writing.
@@ -525,13 +850,24 @@ int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const bf16*
     float* bufs[2] = {buf0, buf1};
     const float* src = zin;
     for (int n = 0; n < K; ++n) {
-      const int k = K - 1 - n;
+      const int j = K - 1 - n;
       cfg.numAttrs = n > 0 ? 1 : 0;
-      err = cudaLaunchKernelEx(&cfg, chain_step_mma_kernel<C1P, N3P>, src, bufs[n % 2],
-                               uc ? uc + size_t(k) * HID : nullptr, K * HID, w1 + k * sw1,
-                               w2 + k * sw2, w3 + k * sw3, vec + k * svec, wt + size_t(k) * c * c,
-                               ab + size_t(k) * c, H, W, c, p.th, p.tw);
-      if (err != cudaSuccess) return err;
+      const void* ucj = uc ? cuc + size_t(j) * hid * es : nullptr;
+      const void* w1j = cw1 + j * sw1 * es;
+      const void* w2j = cw2 + j * sw2 * es;
+      const void* w3j = cw3 + j * sw3 * es;
+      if constexpr (!decltype(is_f32)::value)
+        e = cudaLaunchKernelEx(&cfg, Kernel, src, bufs[n % 2], static_cast<const bf16*>(ucj),
+                               K * hid, static_cast<const bf16*>(w1j), static_cast<const bf16*>(w2j),
+                               static_cast<const bf16*>(w3j), vec + j * svec, wt + size_t(j) * c * c,
+                               ab + size_t(j) * c, H, W, c, p.th, p.tw);
+      else
+        e = cudaLaunchKernelEx(&cfg, Kernel, src, bufs[n % 2], static_cast<const float*>(ucj),
+                               K * hid, static_cast<const float*>(w1j),
+                               static_cast<const float*>(w2j), static_cast<const float*>(w3j),
+                               vec + j * svec, wt + size_t(j) * c * c, ab + size_t(j) * c, H, W, c,
+                               c1p, s);
+      if (e != cudaSuccess) return e;
       src = bufs[n % 2];
     }
     return cudaSuccess;

@@ -13,13 +13,18 @@ conditioning features of the deeper levels):
 - ``n_flow_step`` conditional flow steps on a.
 
 Reverse (both kinds): ``z = mean + exp(logs) * eps``, then the steps inverted.
-Forward (rescaling only): the steps, then the whitened ``fake_z = (z - mean) *
-exp(-logs)``; the SR forward (the NLL) is not ported.
+Forward: the steps, then SR adds the prior's log-density of z into logdet (the NLL),
+rescaling returns the whitened ``fake_z = (z - mean) * exp(-logs)``.  ``encode_eps``
+gives the whitened latent of both kinds, which ``reverse(..., eps=...)`` inverts;
+``calibrate`` is the forward with the steps' data-dependent ActNorm inits.
 
-With packed weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the
-trunks run an RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch
-when packed with ``resident_trunk``) and the inverse steps the inverse-chain kernel
-(ops/chain.py); otherwise the plain step-by-step path runs.
+The encoder runs in ``encoder_dtype`` when set (the shipped SR training recipe: bf16
+encoders, float32 couplings), else in ``compute_dtype``; with ``remat_trunks`` and grad
+enabled each RRDB's activations are recomputed in the backward pass.  With packed
+weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the trunks run an
+RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch when packed with
+``resident_trunk``), in the forward as in the reverse, and the inverse steps the
+inverse-chain kernel (ops/chain.py); otherwise the plain step-by-step path runs.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ class ConditionalFlowSpec:
     rrdb_gc: int = 32
     hidden_channels: int = 64
     compute_dtype: Optional[str] = None  # 'bfloat16' => coupling and encoder nets in bf16
+    encoder_dtype: Optional[str] = None  # overrides compute_dtype for the RRDB encoder
+    remat_trunks: bool = True  # recompute the trunks' activations in the backward pass
 
     @property
     def a_channels(self) -> int:
@@ -54,6 +61,10 @@ class ConditionalFlowSpec:
     @property
     def cond_channels(self) -> int:
         return 2 * self.rrdb_nf if self.sr else self.rrdb_nf  # cat(feat1, feat2) or feat2
+
+    @property
+    def encoder_compute_dtype(self) -> Optional[str]:
+        return self.encoder_dtype if self.encoder_dtype is not None else self.compute_dtype
 
     @property
     def conv_first_in(self) -> int:
@@ -88,10 +99,10 @@ class ConditionalFlowSpec:
         packed = params.get(f"{name}_fused")
         if packed is not None:
             return rrdb.trunk_apply(packed, x)
-        return nets.apply_rrdb_trunk(params[name], x, cd)
+        return nets.apply_rrdb_trunk(params[name], x, cd, remat=self.remat_trunks)
 
     def cond_feature(self, params: dict, u: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
+        cd = self.encoder_compute_dtype
         first = nets.conv2d(u, params["conv_first"]["w"], params["conv_first"]["b"], cd)
         feat1 = self._trunk(params, "trunk0", first, cd)
         tc = params["trunk_conv1"]
@@ -116,17 +127,49 @@ class ConditionalFlowSpec:
         return chain.inverse_chain(packed, z, uc.to(packed["w1"].dtype).contiguous())
 
     # ------------------------------------------------------------------- forward
-    def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor):
-        """Rescaling: run the steps on a and whiten it against the prior.
-        Returns (fake_z, cond)."""
+    def _forward_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor, logdet):
+        if self.n_flow_step == 0:
+            return z, logdet
+        ss = self.step_spec
+        fn = (stack.forward_stack_hoisted if ss.coupling_spec.supports_hoisting
+              else stack.forward_stack)
+        return fn(ss, params["steps"], z, cond, logdet)
+
+    def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None):
+        """Run the steps on a.  SR: add the prior's log-density of the result into
+        logdet (shape (B,)) and return (logdet, cond); rescaling: return (fake_z,
+        cond), the result whitened against the prior."""
+        cond = self.cond_feature(params, u)
+        z, logdet = self._forward_steps(params, a, cond, logdet)
+        mean, logs = self._prior(params, cond)
         if self.sr:
-            raise NotImplementedError("the SR forward (NLL) is not ported")
+            return logdet + densities.gaussian_logp(mean, logs, z), cond
+        return (z - mean) * torch.exp(-logs), cond
+
+    def encode_eps(self, params: dict, a: torch.Tensor, u: torch.Tensor, cond=None):
+        """The whitened latent of a under the conditional prior, (f(a) - mean) /
+        std, which ``reverse(..., eps=...)`` maps back to a.  ``cond``: the level's
+        cond features when already computed (they are ``cond_feature(params, u)``)."""
+        if cond is None:
+            cond = self.cond_feature(params, u)
+        z = self._forward_steps(params, a, cond, None)[0]
+        mean, logs = self._prior(params, cond)
+        return (z - mean) * torch.exp(-logs)
+
+    # --------------------------------------------------------------- calibration
+    def calibrate(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None):
+        """The forward with the steps' data-dependent ActNorm inits.  Returns (params,
+        logdet, cond) for SR, (params, fake_z, cond) for rescaling."""
+        new = dict(params)
         cond = self.cond_feature(params, u)
         z = a
         if self.n_flow_step > 0:
-            z = stack.forward_stack_hoisted(self.step_spec, params["steps"], z, cond)[0]
+            new["steps"], z, logdet = stack.calibrate_stack(self.step_spec, params["steps"], z,
+                                                            cond, logdet)
         mean, logs = self._prior(params, cond)
-        return (z - mean) * torch.exp(-logs), cond
+        if self.sr:
+            return new, logdet + densities.gaussian_logp(mean, logs, z), cond
+        return new, (z - mean) * torch.exp(-logs), cond
 
     # ------------------------------------------------------------------- reverse
     def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None):

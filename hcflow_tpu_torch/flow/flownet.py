@@ -10,8 +10,10 @@ level.
 - reverse (both models): the levels deepest first; the level's conditional flow
   samples the split-off channels, the main steps are inverted, the result is
   unsqueezed;
-- forward (rescaling only, ``normal_flow``): HR -> LR z plus one whitened latent per
-  level.
+- forward (``normal_flow``): HR -> LR z plus the logdet with every level's prior
+  log-density (SR) or one whitened latent per level (rescaling); ``encode`` gives the
+  whitened latents of both kinds, which ``reverse_flow(..., eps_list=...)`` inverts;
+  ``calibrate`` is the forward with every data-dependent ActNorm init.
 
 The rescaling main chains alternate Affine3shift steps (``lr_vs_others`` True at even
 k, False at odd k) with DenseBlock nets and no permutation; their steps differ in
@@ -75,6 +77,8 @@ class FlowNetSpec:
     rrdb_nf: int = 64
     rrdb_gc: int = 32
     compute_dtype: Optional[str] = None  # 'bfloat16' => coupling/encoder nets in bf16
+    encoder_dtype: Optional[str] = None  # encoder-only override (bf16 encoders + f32 couplings)
+    remat_trunks: bool = True  # recompute the RRDB trunks' activations in the backward pass
 
     @property
     def levels(self) -> Tuple[LevelSpec, ...]:
@@ -102,6 +106,8 @@ class FlowNetSpec:
                 rrdb_gc=self.rrdb_gc,
                 hidden_channels=self.so_hidden_channels,
                 compute_dtype=self.compute_dtype,
+                encoder_dtype=self.encoder_dtype,
+                remat_trunks=self.remat_trunks,
             )
             out.append(LevelSpec(
                 level=level,
@@ -134,10 +140,30 @@ class FlowNetSpec:
         return haar_unsqueeze2d(x) if self.squeeze == "haar" else unsqueeze2d(x)
 
     # --------------------------------------------------------------- main chains
-    def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor) -> torch.Tensor:
+    def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor, logdet=None):
         for k, p in enumerate(main):
-            z = lv.main_step_spec(k).forward(p, z)[0]
-        return z
+            z, logdet = lv.main_step_spec(k).forward(p, z, None, logdet)
+        return z, logdet
+
+    def _split_forward(self, params: dict, hr: torch.Tensor, logdet=None, calibrate=False):
+        """Squeeze and main steps at every level: (ys, a_s, logdet, new main chains)."""
+        z = hr
+        ys, a_s, mains = [], [], []
+        for lv in self.levels:
+            z = self._squeeze(z)
+            main = params[f"level{lv.level}"]["main"]
+            if calibrate:
+                new = []
+                for k, p in enumerate(main):
+                    p, z, logdet = lv.main_step_spec(k).calibrate(p, z, None, logdet)
+                    new.append(p)
+                mains.append(new)
+            else:
+                z, logdet = self._main_forward(lv, main, z, logdet)
+            ys.append(z[..., : lv.split_channels])
+            a_s.append(z[..., lv.split_channels :])
+            z = ys[-1]
+        return ys, a_s, logdet, mains
 
     def _main_inverse(self, lv: LevelSpec, level_params: dict, z: torch.Tensor) -> torch.Tensor:
         """The chain kernels when packed, else the plain step loop."""
@@ -161,24 +187,37 @@ class FlowNetSpec:
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, -1)
 
     # -------------------------------------------------------------------- forward
-    def normal_flow(self, params: dict, hr: torch.Tensor):
-        """Rescaling: HR (NHWC) -> (LR z, [whitened latent fake_z per level])."""
-        if self.sr:
-            raise NotImplementedError("the SR forward (NLL) is not ported")
-        z = hr
-        ys, a_s = [], []
-        for lv in self.levels:
-            z = self._main_forward(lv, params[f"level{lv.level}"]["main"], self._squeeze(z))
-            ys.append(z[..., : lv.split_channels])
-            a_s.append(z[..., lv.split_channels :])
-            z = ys[-1]
+    def normal_flow(self, params: dict, hr: torch.Tensor, logdet=None):
+        """HR (NHWC) -> LR z.  SR: returns (z, logdet), logdet (B,) accumulating every
+        step's log-determinant and every level's prior log-density (from zeros when
+        None); rescaling: returns (z, [whitened latent fake_z per level])."""
+        if self.sr and logdet is None:
+            logdet = hr.new_zeros(hr.shape[0])
+        ys, a_s, logdet, _ = self._split_forward(params, hr, logdet)
         cond_feats = [None] * self.L
         fake_zs = [None] * self.L
         for i in reversed(range(self.L)):
             u = self._cond_input(i, ys[i], cond_feats)
-            fake_zs[i], cond_feats[i] = self.levels[i].cond_spec.forward(
-                params[f"level{i}"]["cond"], a_s[i], u)
-        return z, fake_zs
+            out, cond_feats[i] = self.levels[i].cond_spec.forward(
+                params[f"level{i}"]["cond"], a_s[i], u, logdet)
+            if self.sr:
+                logdet = out
+            else:
+                fake_zs[i] = out
+        return ys[-1], (logdet if self.sr else fake_zs)
+
+    def encode(self, params: dict, hr: torch.Tensor):
+        """HR -> (z, [whitened latent eps per level]): ``reverse_flow(params, z,
+        eps_std, eps_list=eps)`` reconstructs hr up to float32 rounding."""
+        ys, a_s, _, _ = self._split_forward(params, hr)
+        cond_feats = [None] * self.L
+        eps_list = [None] * self.L
+        for i in reversed(range(self.L)):
+            cs, cp = self.levels[i].cond_spec, params[f"level{i}"]["cond"]
+            u = self._cond_input(i, ys[i], cond_feats)
+            cond_feats[i] = cs.cond_feature(cp, u)
+            eps_list[i] = cs.encode_eps(cp, a_s[i], u, cond=cond_feats[i])
+        return ys[-1], eps_list
 
     # -------------------------------------------------------------------- reverse
     def reverse_flow(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
@@ -198,15 +237,49 @@ class FlowNetSpec:
             z = self._unsqueeze(z)
         return z
 
+    # ---------------------------------------------------------------- calibration
+    def calibrate(self, params: dict, hr: torch.Tensor, logdet=None):
+        """The data-dependent ActNorm init pass, in forward order; returns (params, z,
+        logdet) for SR, (params, z, [fake_z per level]) for rescaling."""
+        if self.sr and logdet is None:
+            logdet = hr.new_zeros(hr.shape[0])
+        ys, a_s, logdet, mains = self._split_forward(params, hr, logdet, calibrate=True)
+        new = {f"level{lv.level}": {**params[f"level{lv.level}"], "main": m}
+               for lv, m in zip(self.levels, mains)}
+        cond_feats = [None] * self.L
+        fake_zs = [None] * self.L
+        for i in reversed(range(self.L)):
+            u = self._cond_input(i, ys[i], cond_feats)
+            new[f"level{i}"]["cond"], out, cond_feats[i] = self.levels[i].cond_spec.calibrate(
+                params[f"level{i}"]["cond"], a_s[i], u, logdet)
+            if self.sr:
+                logdet = out
+            else:
+                fake_zs[i] = out
+        return new, ys[-1], (logdet if self.sr else fake_zs)
+
     # --------------------------------------------------------------- inference prep
     def precompute_inference(self, params: dict, fused: bool = False,
                              resident_trunk: bool = False) -> dict:
-        """Attach the invconv inverses for serving; with ``fused`` also pack every
-        chain for its chain kernel (ops/chain.py, or ops/chain3s.py for the
-        alternating rescaling chains) and every RRDB trunk for the RRDB kernels
-        (the serving path on the card): per RRDB, or with ``resident_trunk`` one
-        stacked pack a trunk for the resident-trunk kernel, the counterpart of the
-        JAX package's ``HCFLOW_RDB_TRUNK=1``."""
+        """Attach the invconv inverses for serving; with ``fused`` also pack, for the
+        serving path on the card, what the card's kernels take, as the JAX package
+        packs what its ``supported`` gates let through:
+
+        - every Affine/FCN chain for the chain kernel (ops/chain.py), in the coupling
+          dtype: bf16 in the bf16 recipe, float32 in the float32 one and in the shipped
+          training recipe (bf16 encoders, float32 couplings);
+        - the alternating rescaling main chains for ops/chain3s.py, in the bf16 recipe
+          only (the kernel takes bf16);
+        - every RRDB trunk for the RRDB kernels when the encoder dtype (``encoder_dtype``,
+          else ``compute_dtype``) is bf16 (the kernels take bf16): per RRDB, or with
+          ``resident_trunk`` one stacked pack a trunk for the resident-trunk kernel, the
+          counterpart of the JAX package's ``HCFLOW_RDB_TRUNK=1``.
+
+        So the bf16 recipe gets every pack; the shipped training recipe float32 chain
+        packs and bf16 trunk packs; the float32 recipe float32 chain packs only, its
+        trunks running the plain path.  The chain kernel takes hid 32 and 64; a pack at
+        another width or dtype still reaches its wrapper, which raises on the card.
+        Training params never carry packs (no kernel has a backward pass)."""
         new = {}
         for lv in self.levels:
             lp = dict(params[f"level{lv.level}"])
@@ -218,15 +291,17 @@ class FlowNetSpec:
             if fused:
                 cd = self.compute_dtype
                 if lv.n_main > 0 and lv.alternate_lrvsothers:
-                    lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
+                    if cd == "bfloat16":
+                        lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
                 elif lv.n_main > 0:
                     lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd, padded=True)
                 if so.n_flow_step > 0:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
                                                                    padded=True)
-                for trunk in ("trunk0", "trunk1"):
-                    cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(cond[trunk], so.compute_dtype,
-                                                                  resident=resident_trunk)
+                if so.encoder_compute_dtype == "bfloat16":
+                    for trunk in ("trunk0", "trunk1"):
+                        cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(
+                            cond[trunk], "bfloat16", resident=resident_trunk)
             lp["cond"] = cond
             new[f"level{lv.level}"] = lp
         return new

@@ -1,6 +1,7 @@
 """One Glow-style flow step: ActNorm -> (invertible 1x1 conv) -> coupling.
 
-The inverse runs the three inverses in reverse order.  Ported kinds: permutation
+The inverse runs the three inverses in reverse order; :meth:`FlowStepSpec.calibrate`
+is the forward that also data-initialises the step's ActNorms.  Ported kinds: permutation
 ``invconv`` (plain weight) or ``none``; coupling ``Affine`` or ``Affine3shift`` with an
 ``FCN`` or ``DenseBlock`` net.
 """
@@ -71,3 +72,14 @@ class FlowStepSpec:
         if "invconv" in params:
             z, logdet = invconv.inverse(params["invconv"], z, logdet)
         return actnorm.inverse(params["actnorm"], z, logdet)
+
+    def calibrate(self, params: dict, z: torch.Tensor, u=None, logdet=None):
+        """The forward with the data-dependent inits of the flow ActNorm and the
+        coupling net's ActNorms; returns (params, z, logdet)."""
+        new = dict(params)
+        new["actnorm"] = actnorm.calibrate(z)
+        z, logdet = actnorm.forward(new["actnorm"], z, logdet)
+        if "invconv" in params:
+            z, logdet = invconv.forward(params["invconv"], z, logdet)
+        new["coupling"], z, logdet = self.coupling_spec.calibrate(params["coupling"], z, u, logdet)
+        return new, z, logdet

@@ -24,6 +24,21 @@ def precompute_invconv(steps: list) -> list:
             for p in steps]
 
 
+def forward_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
+    for p in steps:
+        z, logdet = spec.forward(p, z, u, logdet)
+    return z, logdet
+
+
+def calibrate_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
+    """Data-dependent init across the steps in order; returns (steps, z, logdet)."""
+    new = []
+    for p in steps:
+        p, z, logdet = spec.calibrate(p, z, u, logdet)
+        new.append(p)
+    return new, z, logdet
+
+
 def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
     for p in reversed(steps):
         z, logdet = spec.inverse(p, z, u, logdet)

@@ -1,16 +1,24 @@
-"""Top-level HCFlow SR model, serving direction: LR -> HR sampling.
+"""Top-level HCFlow SR model: HR <-> (LR, latents) with a Dirac-LR NLL objective.
 
-Reverse: sample the per-level latents at temperature eps_std conditioned on the LR
-image, invert the flow, clamp to [0, 1].  Training (the forward NLL) is not ported.
+Forward (the NLL, training): dequantization noise ``hr + U(0, 1) / quant``, logdet
+starting at ``-log(quant) * pixels``; the flow maps HR to a fake LR plus per-level
+latents whose prior log-density accumulates into logdet; the fake LR is quantized
+(straight-through) and tied to the true LR by a narrow Gaussian ("Dirac") with logs
+-6; the NLL is in bits per dimension.  Reverse: sample the per-level latents at
+temperature eps_std conditioned on the LR image, invert the flow, clamp to [0, 1].
+``calibrate`` is the one-time data-dependent ActNorm init on a real batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..flow.flownet import FlowNetSpec
+from ..ops.densities import gaussian_logp
+from ..ops.quant import quantize_ste
 
 
 def device_for(device) -> torch.device:
@@ -33,21 +41,24 @@ def to_device(tree, device):
 @dataclasses.dataclass(frozen=True)
 class HCFlowSRSpec:
     flow: FlowNetSpec
+    quant: int = 256  # dequantization levels of the HR image
 
     @classmethod
-    def for_scale(cls, scale: int, **flow_kwargs) -> "HCFlowSRSpec":
+    def for_scale(cls, scale: int, quant: int = None, **flow_kwargs) -> "HCFlowSRSpec":
         """The shipped topologies, as hcflow_tpu/models/hcflow_sr.py builds them: x4 =>
-        L=2, K=26 with 13 split-off steps, RRDB nb 7; x8 (the CelebA-8X face model) =>
-        L=3, K=26 with 13 split-off steps at every level, RRDB nb 5.  Both nf 64, gc
-        32, coupling width 64 unless overridden."""
+        L=2, K=26 with 13 split-off steps, RRDB nb 7, quant 64; x8 (the CelebA-8X face
+        model) => L=3, K=26 with 13 split-off steps at every level, RRDB nb 5, quant
+        256.  Both nf 64, gc 32, coupling width 64 unless overridden."""
         if scale == 4:
             defaults = dict(L=2, K=(26, 26), after_splitoff=(13, 13), rrdb_nb=(7, 7))
+            quant = 64 if quant is None else quant
         elif scale == 8:
             defaults = dict(L=3, K=(26, 26, 26), after_splitoff=(13, 13, 13), rrdb_nb=(5, 5))
+            quant = 256 if quant is None else quant
         else:
             raise NotImplementedError(f"scale {scale} is not implemented")
         defaults.update(flow_kwargs)
-        return cls(flow=FlowNetSpec(**defaults))
+        return cls(flow=FlowNetSpec(sr=True, **defaults), quant=quant)
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Random params from ``seed`` (drawn on the CPU, so the same on every machine),
@@ -55,13 +66,52 @@ class HCFlowSRSpec:
         device = device_for(device)
         return to_device(self.flow.init(torch.Generator().manual_seed(seed)), device)
 
-    @torch.no_grad()
+    def _dequantize(self, hr: torch.Tensor, generator, noise):
+        """(hr + noise / quant, logdet -log(quant) * pixels); noise in [0, 1) drawn from
+        ``generator`` (on hr's device) unless given: one of the two is required."""
+        B, H, W, _ = hr.shape
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass the dequantization noise or a generator to draw it")
+            noise = torch.rand(hr.shape, generator=generator, device=hr.device, dtype=hr.dtype)
+        logdet = hr.new_full((B,), -math.log(self.quant) * (H * W))
+        return hr + noise / self.quant, logdet
+
+    # ------------------------------------------------------------- normal flow
+    def forward(self, params: dict, hr: torch.Tensor, lr: torch.Tensor, generator=None,
+                noise=None):
+        """HR -> (fake LR in [0, 1], NLL in bits/dim, the batch mean); hr and lr NHWC in
+        [0, 1].  ``noise``: explicit dequantization noise in [0, 1) of hr's shape (zeros
+        for a deterministic NLL); else drawn from ``generator``.  Differentiable: the
+        NLL step's loss."""
+        pixels = hr.shape[1] * hr.shape[2]
+        x, logdet = self._dequantize(hr, generator, noise)
+        z, logdet = self.flow.normal_flow(params, x, logdet)
+        fake_lr = quantize_ste(z)
+        # a narrow Gaussian, approximating a Dirac delta, ties the fake LR to the true LR
+        objective = logdet + gaussian_logp(lr, torch.full_like(lr, -6.0), fake_lr)
+        nll = (-objective / (math.log(2.0) * pixels)).mean()
+        return fake_lr.clamp(0.0, 1.0), nll
+
+    # ------------------------------------------------------------ reverse flow
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
-                eps_list=None) -> torch.Tensor:
+                eps_list=None, grad: bool = False) -> torch.Tensor:
         """LR -> HR sample at temperature eps_std; NHWC, clamped to [0, 1].
 
         ``generator`` draws the latents (a generator on lr's device); ``eps_list``
-        gives them explicitly instead, one whitened latent per level.
+        gives them explicitly instead, one whitened latent per level.  Serving runs
+        without autograd; ``grad=True`` records the graph (the pixel step's loss).
         """
-        hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
-        return hr.clamp(0.0, 1.0)
+        with torch.set_grad_enabled(grad):
+            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
+            return hr.clamp(0.0, 1.0)
+
+    # ------------------------------------------------------------- calibration
+    @torch.no_grad()
+    def calibrate(self, params: dict, hr: torch.Tensor, lr: torch.Tensor = None,
+                  generator=None, noise=None) -> dict:
+        """The one-time data-dependent ActNorm init on a real batch (hr dequantized as
+        the forward does); returns new params.  lr is not read (the JAX package's
+        signature carries it)."""
+        x, logdet = self._dequantize(hr, generator, noise)
+        return self.flow.calibrate(params, x, logdet)[0]

@@ -1,4 +1,5 @@
-"""ActNorm: per-channel affine ``y = (x + bias) * exp(logs)`` on NHWC tensors."""
+"""ActNorm: per-channel affine ``y = (x + bias) * exp(logs)`` on NHWC tensors, with the
+data-dependent init :func:`calibrate`."""
 
 from __future__ import annotations
 
@@ -24,3 +25,12 @@ def inverse(params: dict, y: torch.Tensor, logdet=None):
     if logdet is not None:
         logdet = logdet - params["logs"].sum() * (y.shape[1] * y.shape[2])
     return x, logdet
+
+
+def calibrate(x: torch.Tensor, scale: float = 1.0) -> dict:
+    """Data-dependent init: forward() of the result has zero mean and unit variance
+    per channel on x."""
+    bias = -x.mean(dim=(0, 1, 2))
+    var = ((x + bias) ** 2).mean(dim=(0, 1, 2))
+    logs = torch.log(scale / (torch.sqrt(var) + 1e-6))
+    return {"bias": bias.to(x.dtype), "logs": logs.to(x.dtype)}

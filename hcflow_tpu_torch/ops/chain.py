@@ -14,11 +14,15 @@ In the bf16 recipe z1, h1, h2 and the net weights are rounded to bf16 and every 
 is float32; the invertible tail (steps 4-5) stays float32 throughout.
 
 On the card (``csrc/chain.cu``): one launch per step, with z ping-ponging between
-two buffers.  A block of 8 warps owns an output tile sized per shape (16x16 at 80x80,
-8x20 at 40x40, 4x10 at 20x20 for batch 16; ``plan`` reports it).  It runs the three
-convs on tensor cores (``mma.sync`` m16n8k16, bf16 in, float32 sums) with h1 in
-registers and h2 in shared memory, and the tail in float32 on CUDA cores, so only z
-and the cond term touch device memory.  Bound: operations, barely (19-91 kFLOP per
+two buffers, at coupling width (hid) 32 or 64.  The bf16 recipe: a block of 8 warps
+owns an output tile sized per shape (16x16 at 80x80, 8x20 at 40x40, 4x10 at 20x20 for
+batch 16 at hid 64; ``plan`` reports it).  It runs the three convs on tensor cores
+(``mma.sync`` m16n8k16, bf16 in, float32 sums) with h1 in registers and h2 in shared
+memory, and the tail in float32 on CUDA cores, so only z and the cond term touch
+device memory.  The float32 recipe (a float32 pack): the same step in float32 on CUDA
+cores (every product an ``fmaf`` of float32 operands, no TF32), 8x8 tiles, z1, h and
+the weights in shared memory, 4 pixels x 8 outputs a thread; it computes what the plain
+version computes under ``nets.exact_f32()``.  Bound: operations, barely (19-91 kFLOP per
 pixel of bf16 convs against 50-450 bytes); the least time is 0.01-0.05 ms per 13-step
 chain at the main path's shapes, and the kernel is bound by latency: the step's
 weights staged per block and three dependent convs on a small tile.  The kernel takes
@@ -37,10 +41,11 @@ from .. import _build
 from . import nets
 
 launches = 0  # chain-step kernel launches (one per flow step)
+launches_by = {}  # the same by variant: "bf16 hid 64", "f32 hid 32", ...
 
 _FN = "hcflow_chain_inverse"
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-HID = 64  # the kernel's coupling width
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+HIDS = (32, 64)  # the coupling widths the kernel takes
 
 
 def _up(x: int, m: int) -> int:
@@ -140,8 +145,10 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
 
     ``uc`` (a conditional chain only): the hoisted cond terms of
     ``stack.compute_u_contribs``, (B, H, W, K*hid) in the packed weights' dtype.  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel, which takes the bf16
-    padded pack at hid 64 and 2 to 64 channels."""
+    tensor takes the plain version; a CUDA tensor the kernel, which takes the padded
+    pack, bf16 or float32, at hid 32 or 64 and 2 to 64 channels.  Either raises under
+    autograd when an input requires grad."""
+    _build.refuse_grad("chain", z, uc, packed)
     if not z.is_cuda:
         return inverse_chain_plain(packed, z, uc)
     return _launch(packed, z, uc)
@@ -153,11 +160,11 @@ def _launch(packed, z, uc):
     B, H, W, cz = z.shape
     if cz != c or z.dtype != torch.float32:
         raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
-    if hid != HID or not 2 <= c <= 64:
-        raise ValueError(f"the chain kernel takes hid {HID} and 2 to 64 channels, not {hid}, {c}")
-    for name in ("w1", "w2", "w3"):
-        if packed[name].dtype != torch.bfloat16:
-            raise ValueError("the chain kernel takes the bf16 recipe's packed weights")
+    if hid not in HIDS or not 2 <= c <= 64:
+        raise ValueError(f"the chain kernel takes hid {HIDS} and 2 to 64 channels, not {hid}, {c}")
+    nd = packed["w1"].dtype
+    if nd not in (torch.bfloat16, torch.float32) or any(packed[n].dtype != nd for n in ("w2", "w3")):
+        raise ValueError("the chain kernel takes bf16 or float32 packed weights, all of one dtype")
     S = _up(c - c1, 8)
     shapes = {"w1": (K, 9, _up(c1, 8), hid), "w2": (K, hid, hid), "w3": (K, 9, hid, 2 * S),
               "vec": (K, 4 * hid + 4 * S), "wt": (K, c, c), "ab": (K, c)}
@@ -165,31 +172,36 @@ def _launch(packed, z, uc):
         if tuple(packed[name].shape) != shape:
             raise ValueError(f"packed {name} has shape {tuple(packed[name].shape)}, not {shape} "
                              "(the kernel takes pack_inverse_chain(..., padded=True))")
-    if uc is not None and (uc.dtype != torch.bfloat16 or tuple(uc.shape) != (B, H, W, K * hid)):
-        raise ValueError(f"uc must be bf16 of shape {(B, H, W, K * hid)}")
+    if uc is not None and (uc.dtype != nd or tuple(uc.shape) != (B, H, W, K * hid)):
+        raise ValueError(f"uc must be {nd} of shape {(B, H, W, K * hid)}")
     z = z.contiguous()
     tensors = [z, *(packed[n] for n in ("w1", "w2", "w3", "vec", "wt", "ab"))]
     if uc is not None:
         tensors.append(uc)
-    if not all(t.is_cuda and t.is_contiguous() for t in tensors):
-        raise ValueError("chain kernel inputs must be contiguous CUDA tensors")
+    if not all(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("chain kernel inputs must be contiguous, 16-byte aligned CUDA tensors")
     bufs = [torch.empty_like(z), torch.empty_like(z)]
     lib = _build.load("chain", _FN, _ARGTYPES)
     err = lib.hcflow_chain_inverse(
         z.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
         uc.data_ptr() if uc is not None else None,
         *(packed[n].data_ptr() for n in ("w1", "w2", "w3", "vec", "wt", "ab")),
-        B, H, W, c, hid, K, torch.cuda.current_stream(z.device).cuda_stream,
+        B, H, W, c, hid, K, int(nd == torch.float32),
+        torch.cuda.current_stream(z.device).cuda_stream,
     )
     _build.check(lib, _FN, err)
     launches += K
+    key = f"{'f32' if nd == torch.float32 else 'bf16'} hid {hid}"
+    launches_by[key] = launches_by.get(key, 0) + K
     return bufs[(K - 1) % 2]
 
 
-def plan(B: int, H: int, W: int, c: int) -> dict:
-    """The kernel's tile plan for one step at (B, H, W, c) on the current card: tile
-    height and width, blocks, shared-memory bytes a block, blocks per SM."""
-    lib = _build.load("chain", "hcflow_chain_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+def plan(B: int, H: int, W: int, c: int, hid: int = 64, f32: bool = False) -> dict:
+    """The kernel's tile plan for one step at (B, H, W, c) and coupling width hid, in
+    the bf16 recipe or (``f32``) the float32 one, on the current card: tile height and
+    width, blocks, shared-memory bytes a block, blocks per SM."""
+    lib = _build.load("chain", "hcflow_chain_plan", [ctypes.c_int] * 6 + [ctypes.c_void_p])
     out = (ctypes.c_int * 5)()
-    _build.check(lib, "hcflow_chain_plan", lib.hcflow_chain_plan(B, H, W, c, out))
+    _build.check(lib, "hcflow_chain_plan",
+                 lib.hcflow_chain_plan(B, H, W, c, hid, int(f32), out))
     return dict(zip(("th", "tw", "blocks", "smem", "blocks_per_sm"), out))

@@ -131,7 +131,8 @@ def inverse_chain3s_plain(packed: dict, z: torch.Tensor):
 def inverse_chain(packed: dict, z: torch.Tensor):
     """Run the K-step inverse chain (k = K-1 down to 0) on NHWC float32 z.  Returns
     (z, logdet_delta).  A CPU tensor takes the plain version; a CUDA tensor the
-    kernel."""
+    kernel.  Either raises under autograd when an input requires grad."""
+    _build.refuse_grad("chain3s", z, packed)
     if not z.is_cuda:
         return inverse_chain3s_plain(packed, z)
     return _launch(packed, z)

@@ -121,3 +121,16 @@ class CouplingSpec:
         z1, z2 = z[..., : self.c1], z[..., self.c1 :]
         h = nets.apply_fcn_hoisted(params["f"], z1, u_contrib, self.compute_dtype)
         return self._inverse_from(h, z1, z2, logdet)
+
+    # --------------------------------------------------------------- calibration
+    def calibrate(self, params: dict, z: torch.Tensor, u=None, logdet=None):
+        """The forward that also data-initialises the net's ActNorms (an FCN's; a
+        DenseBlock has none).  Returns (params, z, logdet)."""
+        if self.kind == "Affine3shift":
+            z1 = z[..., :3] if self.lr_vs_others else z[..., 3:]
+        else:
+            z1 = z[..., : self.c1]
+        new = dict(params)
+        if self.nn_module == "FCN":
+            new["f"] = nets.calib_fcn(params["f"], self._f_input(z1, u))[0]
+        return (new, *self.forward(new, z, u, logdet))

@@ -1,5 +1,6 @@
 """Non-invertible sub-networks: conv+ActNorm, Conv2dZeros, FCN, DenseBlock and the
-RRDB encoder.
+RRDB encoder; the ``calib_*`` functions are the data-dependent ActNorm inits of the
+nets' own ActNorms.
 
 Functions take NHWC tensors and OIHW weights (PyTorch's conv layout); each conv runs
 as ``F.conv2d`` on an NCHW view of the NHWC tensor, which is channels-last memory.
@@ -12,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import actnorm
 
@@ -105,6 +107,14 @@ def apply_conv_actnorm(params, x, compute_dtype=None):
     return actnorm.forward(params["actnorm"], y)[0]
 
 
+def calib_conv_actnorm(params, x):
+    """The ActNorm's data-dependent init on the float32 conv of x; returns (params,
+    output)."""
+    y = conv2d(x, params["w"])
+    an = actnorm.calibrate(y)
+    return {"w": params["w"], "actnorm": an}, actnorm.forward(an, y)[0]
+
+
 # ----------------------------------------------------------------------- Conv2dZeros
 def init_conv_zeros(cin, cout, ksize=3):
     return {
@@ -133,6 +143,14 @@ def apply_fcn(params, x, compute_dtype=None):
     x = torch.relu(apply_conv_actnorm(params["conv1"], x, compute_dtype))
     x = torch.relu(apply_conv_actnorm(params["conv2"], x, compute_dtype))
     return apply_conv_zeros(params["conv3"], x)
+
+
+def calib_fcn(params, x):
+    """conv1's and conv2's ActNorm inits, in order; returns (params, output)."""
+    p1, x = calib_conv_actnorm(params["conv1"], x)
+    p2, x = calib_conv_actnorm(params["conv2"], torch.relu(x))
+    return {"conv1": p1, "conv2": p2, "conv3": params["conv3"]}, apply_conv_zeros(
+        params["conv3"], torch.relu(x))
 
 
 def apply_fcn_hoisted(params, z1, u_contrib, compute_dtype=None):
@@ -209,7 +227,14 @@ def init_rrdb_trunk(generator, nb, nf=64, gc=32):
     return [init_rrdb(generator, nf, gc) for _ in range(nb)]
 
 
-def apply_rrdb_trunk(params, x, compute_dtype=None):
+def apply_rrdb_trunk(params, x, compute_dtype=None, remat: bool = False):
+    """The trunk's RRDBs in order.  ``remat`` (with grad enabled): each RRDB's
+    activations are recomputed in the backward pass instead of kept, so only the
+    RRDBs' inputs stay (``torch.utils.checkpoint``, as the JAX package's
+    ``jax.checkpoint`` of the scan body)."""
     for p in params:
-        x = apply_rrdb(p, x, compute_dtype)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(apply_rrdb, p, x, compute_dtype, use_reentrant=False)
+        else:
+            x = apply_rrdb(p, x, compute_dtype)
     return x

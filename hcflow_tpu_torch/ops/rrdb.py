@@ -110,7 +110,8 @@ def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
 
 def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     """One RRDB on NHWC float32 x.  A CPU tensor takes the plain version; a CUDA
-    tensor the kernel."""
+    tensor the kernel.  Either raises under autograd when an input requires grad."""
+    _build.refuse_grad("RRDB", x, packed)
     if not x.is_cuda:
         return rrdb_apply_plain(packed, x)
     global launches
@@ -158,7 +159,9 @@ def trunk_apply_resident_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
 def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
     """A whole trunk, packed by ``pack_rrdb_trunk(..., resident=True)``, on NHWC float32
     x.  A CPU tensor takes the plain version; a CUDA tensor the resident-trunk kernel
-    (one cooperative launch), or it raises."""
+    (one cooperative launch), or it raises.  Either raises under autograd when an input
+    requires grad."""
+    _build.refuse_grad("RRDB trunk", x, packed)
     if not x.is_cuda:
         return trunk_apply_resident_plain(packed, x)
     global trunk_launches

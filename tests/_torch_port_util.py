@@ -5,6 +5,8 @@ inits), perturbed with numpy noise from a seed, and handed to the JAX package in
 its own layout by :func:`to_jax`.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -13,6 +15,15 @@ import torch
 TINY = dict(
     K=(3, 3), after_splitoff=(1, 1), rrdb_nb=(1, 1), rrdb_nf=8, rrdb_gc=4,
     hidden_channels=8, so_hidden_channels=8,
+)
+
+
+# The topology of weights/ref_trained/tiny_x4_parity.yml, the reference PyTorch model
+# trained for 400 steps whose weights are weights/ref_trained/tiny_x4_400_G.pth: x4 SR,
+# K 8 with 4 split-off steps a level, coupling width 32, RRDB nb 2, nf 32, gc 16.
+TINY_CKPT = dict(
+    K=(8, 8), after_splitoff=(4, 4), rrdb_nb=(2, 2), rrdb_nf=32, rrdb_gc=16,
+    hidden_channels=32, so_hidden_channels=32,
 )
 
 
@@ -66,3 +77,183 @@ def randn(seed, shape):
 
 def assert_close(port, ref, atol, rtol=0.0):
     np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), atol=atol, rtol=rtol)
+
+
+# ------------------------------------------ SR forward, calibrate, encode, train steps
+# Shared by tests/test_torch_port_train.py (x4) and tests/test_torch_port_train_x8.py.
+# Tolerances, as tests/test_torch_port_model.py: the float32 recipe 1e-4 (the same
+# arithmetic summed in another order), the bf16 recipes 1e-2 (the two frameworks round
+# to bf16 at other places), each relative to the largest magnitude of what is compared
+# (an NLL, a latent, a gradient leaf) where that exceeds 1.  The fake LR is on the 1/255
+# grid of the straight-through quantizer: a value at a rounding tie may move one level,
+# so it is held to one level plus the tolerance.
+TOL = {None: 1e-4, "bfloat16": 1e-2}
+# (compute_dtype, encoder_dtype): the float32 recipe, the bf16 recipe and the shipped
+# training recipe (bf16 encoders, float32 couplings)
+RECIPES = [(None, None), ("bfloat16", None), (None, "bfloat16")]
+RECIPE_IDS = ["f32", "bf16", "bf16_encoders"]
+TRAIN_OPT = {"lr_G": 5e-5, "max_grad_clip": 5, "max_grad_norm": 100, "beta1": 0.9,
+             "beta2": 0.99, "lr_steps": [2, 4]}
+SR_B = 2
+
+
+def recipe_tol(cd, ed):
+    return TOL["bfloat16" if "bfloat16" in (cd, ed) else None]
+
+
+def close_scaled(port, ref, tol, what=""):
+    """max |port - ref| <= tol * max(1, max |ref|)."""
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape, what
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(port - ref).max())
+    assert err <= tol * scale, f"{what}: max abs err {err:.3e} > {tol:g} x {scale:.3e}"
+
+
+@functools.lru_cache(maxsize=None)
+def sr_case(scale, cd, ed):
+    """(port model, port params, JAX model, JAX params, hr, lr, noise) at a small x4
+    or x8 topology; the params are the port's inits perturbed, read back through
+    params_from_jax; hr, lr and the noise are numpy, for both."""
+    from hcflow_tpu.models.hcflow_sr import HCFlowSRSpec as JHCFlowSRSpec
+    from hcflow_tpu_torch.convert import params_from_jax
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+
+    kw = dict(TINY) if scale == 4 else dict(TINY, K=(2, 2, 2), after_splitoff=(1, 1, 1))
+    model = HCFlowSRSpec.for_scale(scale, compute_dtype=cd, encoder_dtype=ed, **kw)
+    params = perturb(model.init(0, device="cpu"), scale=0.02)
+    jp = to_jax(params)
+    params = params_from_jax(jp, model, device="cpu")
+    jmodel = JHCFlowSRSpec.for_scale(scale, compute_dtype=cd, encoder_dtype=ed, **kw)
+    rng = np.random.default_rng(scale)
+    H, W = (16, 24) if scale == 4 else (16, 32)
+    hr = rng.uniform(size=(SR_B, H, W, 3)).astype(np.float32)
+    # the LR a trained model would give back is near the HR's box average
+    lr = hr.reshape(SR_B, H // scale, scale, W // scale, scale, 3).mean((2, 4))
+    noise = rng.uniform(size=hr.shape).astype(np.float32)
+    return model, params, jmodel, jp, hr, lr, noise
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def jax_run(fn, *args):
+    """fn(*args) compiled by XLA at backend optimisation level 0: the same
+    computation, in a third of the compile time of jax.jit's default on the CPU (a
+    model's gradient takes seconds to compile, and runs in milliseconds here)."""
+    import jax
+
+    lowered = jax.jit(fn).lower(*args)
+    return lowered.compile(compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+def check_sr_forward(scale, cd, ed):
+    """The SR forward, (fake LR, NLL), with explicit noise against JAX's."""
+    import jax
+
+    model, params, jmodel, jp, hr, lr, noise = sr_case(scale, cd, ed)
+    fake_j, nll_j = jax_run(lambda p, a, b, n: jmodel.forward(p, None, a, b, noise=n),
+                            jp, hr, lr, noise)
+    fake, nll = model.forward(params, _t(hr), _t(lr), noise=_t(noise))
+    tol = recipe_tol(cd, ed)
+    assert np.isfinite(float(nll_j)) and torch.isfinite(nll)
+    close_scaled(nll, nll_j, tol, "nll")
+    assert fake.shape == (SR_B, hr.shape[1] // scale, hr.shape[2] // scale, 3)
+    d = np.abs(fake.numpy() - np.asarray(fake_j))
+    assert d.max() <= 1 / 255 + tol, d.max()
+    assert (d > tol).mean() <= 0.05  # ties on the 1/255 grid are rare
+
+
+def check_calibrate(scale):
+    """The data-dependent ActNorm inits from the same dequantized batch."""
+    import jax
+
+    model, params, jmodel, jp, hr, lr, noise = sr_case(scale, None, None)
+    x = hr + noise / model.quant
+    ld = np.full((SR_B,), -np.log(model.quant) * hr.shape[1] * hr.shape[2], np.float32)
+    new_j = jax_run(lambda p, a, b: jmodel.flow.calibrate(p, a, b)[0], jp, x, ld)
+    new = model.calibrate(params, _t(hr), _t(lr), noise=_t(noise))
+    assert jmodel.quant == model.quant == {4: 64, 8: 256}[scale]
+    flat = jax.tree_util.tree_leaves_with_path
+    got, ref = flat(to_jax(new)), flat(jax.tree.map(np.asarray, new_j))
+    assert [p for p, _ in got] == [p for p, _ in ref]
+    for (path, a), (_, b) in zip(got, ref):
+        close_scaled(a, b, TOL[None], jax.tree_util.keystr(path))
+    # the flow ActNorms were re-initialised
+    logs = new["level0"]["main"][0]["actnorm"]["logs"]
+    assert not torch.equal(logs, params["level0"]["main"][0]["actnorm"]["logs"])
+
+
+def check_encode(scale, cd, ed):
+    """encode's z and whitened latents against JAX's; the port's encode -> reverse
+    gives HR back on the plain and the fused params (float32: to float32 rounding;
+    bf16 nets: an input landing across a bf16 rounding boundary moves a net's output
+    by a bf16 step, at a few pixels)."""
+    import jax
+
+    model, params, jmodel, jp, hr, _, _ = sr_case(scale, cd, ed)
+    z_j, eps_j = jax_run(jmodel.flow.encode, jp, hr)
+    z, eps = model.flow.encode(params, _t(hr))
+    tol = recipe_tol(cd, ed)
+    close_scaled(z, z_j, tol, "z")
+    for i, (e, ej) in enumerate(zip(eps, eps_j)):
+        close_scaled(e, ej, tol, f"eps level {i}")
+    for fused in (False, True):
+        pp = model.flow.precompute_inference(params, fused=fused)
+        back = model.flow.reverse_flow(pp, z, 0.9, eps_list=eps)
+        err = (back - _t(hr)).abs().max().item()
+        assert err <= (1e-5 if tol == TOL[None] else 5e-3), (fused, err)
+
+
+def _check_grads(model, grads, jgrads, tol):
+    import jax
+
+    from hcflow_tpu_torch.convert import params_from_jax
+    from hcflow_tpu_torch.train import trainer
+
+    ref = trainer.tree_leaves(params_from_jax(jax.tree.map(np.asarray, jgrads), model,
+                                              device="cpu"))
+    assert len(ref) == len(grads)
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        close_scaled(g, r.numpy(), tol, f"grad leaf {i}")
+
+
+def check_steps(scale, cd, ed):
+    """One NLL step and one pixel step: the loss and the gradient of every leaf against
+    jax.value_and_grad of the JAX steps' loss functions; the NLL step advances the
+    iteration, the pixel step does not, and both move the params."""
+    import jax
+    import jax.numpy as jnp
+
+    from hcflow_tpu_torch.train import losses, schedules, trainer
+
+    model, params, jmodel, jp, hr, lr, noise = sr_case(scale, cd, ed)
+    tol = recipe_tol(cd, ed)
+    nll_weight, pixel_weight = 0.5, 1.0
+    nll_j, g_j = jax_run(jax.value_and_grad(
+        lambda p: nll_weight * jmodel.forward(p, None, hr, lr, noise=noise)[1]), jp)
+    pix_j, gp_j = jax_run(jax.value_and_grad(lambda p: pixel_weight * jnp.mean(
+        jnp.abs(jmodel.reverse(p, jax.random.PRNGKey(0), lr, 0.0) - hr))), jp)
+
+    tx = trainer.make_optimizer(TRAIN_OPT, schedules.schedule_from_opt(TRAIN_OPT))
+    state = trainer.init_state(params, tx)
+    nll_step = trainer.make_sr_nll_step(model, tx, nll_weight)
+    pix_step = trainer.make_sr_pixel_step(model, tx, pixel_weight, losses.pixel_criterion("l1"))
+    before = [t.detach().clone() for t in trainer.tree_leaves(state.params)]
+    state, m = nll_step(state, _t(hr), _t(lr), noise=_t(noise))
+    close_scaled(nll_weight * m["nll"], nll_j, tol, "nll")
+    _check_grads(model, m["grads"], g_j, tol)
+    assert state.step == 1
+    moved = [not torch.equal(a, b) for a, b in zip(before, trainer.tree_leaves(state.params))]
+    assert sum(moved) > len(moved) // 2
+
+    # the pixel step's gradient at the params the JAX loss saw
+    state = trainer.init_state(params, tx)
+    state, m = pix_step(state, _t(hr), _t(lr), generator=torch.Generator().manual_seed(0))
+    close_scaled(m["l_g_pix_hr"], pix_j, tol, "pixel loss")
+    _check_grads(model, m["grads"], gp_j, tol)
+    assert state.step == 0 and state.opt_state["count"] == 1
+    for p in trainer.tree_leaves(state.params):
+        assert p.requires_grad and p.is_leaf and torch.isfinite(p).all()

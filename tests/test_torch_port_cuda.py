@@ -150,3 +150,133 @@ def test_chain3s_kernel_matches_plain(gen, c, K, H, W):
     ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
     _close(got, ref)
     assert torch.equal(ld, ld_ref)
+
+
+# The chain kernel at both coupling widths it takes and in both recipes: bf16 (tensor
+# cores) against the 1e-3 tolerance above; float32 (CUDA-core fmaf, no TF32) against
+# 1e-5 of the output's largest magnitude, the same float32 arithmetic summed in
+# another order.  Ragged shapes: c 21 and 6 against the tiles, c 45 / 48 at 20x20.
+F32_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("hid", [32, 64])
+@pytest.mark.parametrize("cond,c,K,H,W", [(True, 21, 3, 10, 12), (False, 12, 3, 9, 17),
+                                          (True, 45, 2, 20, 20), (False, 6, 2, 21, 37)])
+def test_chain_kernel_widths_and_recipes(gen, cd, hid, cond, c, K, H, W):
+    spec = FlowStepSpec(in_channels=c, cond_channels=128 if cond else None,
+                        hidden_channels=hid, compute_dtype=cd)
+    steps = stack.init_stack(spec, torch.Generator().manual_seed(5), K)
+    steps = stack.precompute_invconv(_perturb(steps, gen))
+    packed = chain.pack_inverse_chain(steps, cd, padded=True)
+    z = torch.randn(2, H, W, c, device="cuda", generator=gen)
+    uc = None
+    if cond:
+        u = torch.randn(2, H, W, 128, device="cuda", generator=gen)
+        uc = stack.compute_u_contribs(spec, steps, u).to(packed["w1"].dtype).contiguous()
+    before = chain.launches
+    got = chain.inverse_chain(packed, z, uc)
+    torch.cuda.synchronize()
+    assert chain.launches == before + K
+    ref = chain.inverse_chain_plain(packed, z, uc)
+    assert torch.isfinite(got).all()
+    tol = RTOL if cd else F32_RTOL
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    p = chain.plan(2, H, W, c, hid=hid, f32=cd is None)
+    assert p["blocks"] >= 1 and p["blocks_per_sm"] >= 1
+
+
+def test_kernel_wrappers_refuse_autograd(gen):
+    """No kernel has a backward pass: each wrapper raises under grad mode when an
+    input requires grad, and runs under torch.no_grad()."""
+    spec = FlowStepSpec(in_channels=12, hidden_channels=64, compute_dtype="bfloat16")
+    steps = stack.precompute_invconv(_perturb(stack.init_stack(
+        spec, torch.Generator().manual_seed(6), 2), gen))
+    packed = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
+    z = torch.randn(1, 8, 8, 12, device="cuda", generator=gen, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward pass"):
+        chain.inverse_chain(packed, z)
+    with torch.no_grad():
+        chain.inverse_chain(packed, z)
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(7), 1, 32, 16), gen)
+    x = torch.randn(1, 8, 8, 32, device="cuda", generator=gen, requires_grad=True)
+    for pk in (rrdb.pack_rrdb_trunk(trunk, "bfloat16"),
+               rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)):
+        with pytest.raises(ValueError, match="no backward pass"):
+            rrdb.trunk_apply(pk, x)
+    specs = [FlowStepSpec(in_channels=12, hidden_channels=32, compute_dtype="bfloat16",
+                          flow_permutation="none", flow_coupling="Affine3shift",
+                          nn_module="DenseBlock", lr_vs_others=(k % 2 == 0)) for k in range(2)]
+    pk3 = chain3s.pack_inverse_chain3s(
+        _perturb([s.init(torch.Generator().manual_seed(8)) for s in specs], gen), "bfloat16")
+    with pytest.raises(ValueError, match="no backward pass"):
+        chain3s.inverse_chain(pk3, z)
+
+
+# ------------------------------------------------- serving whole models on the card
+def _tiny_spec(cd, encoder_dtype=None):
+    """The topology of the tiny trained checkpoint (weights/ref_trained)."""
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+
+    from _torch_port_util import TINY_CKPT
+
+    return HCFlowSRSpec.for_scale(4, compute_dtype=cd, encoder_dtype=encoder_dtype, **TINY_CKPT)
+
+
+# (compute_dtype, encoder_dtype): the bf16 serving recipe, the shipped training recipe
+# (bf16 encoders, float32 couplings) and the float32 recipe
+RECIPES = [("bfloat16", None), (None, "bfloat16"), (None, None)]
+
+
+@pytest.mark.parametrize("cd,ed", RECIPES)
+def test_precompute_inference_packs_what_the_kernels_take(gen, cd, ed):
+    """Chains packed in the coupling dtype, trunks only for bf16 encoders; the fused
+    reverse runs with the counted launches."""
+    model = _tiny_spec(cd, ed)
+    params = model.init(0, device="cuda")
+    pp = model.flow.precompute_inference(params, fused=True)
+    chain_dtype = torch.bfloat16 if cd else torch.float32
+    for lv in range(2):
+        assert pp[f"level{lv}"]["main_fused"]["w1"].dtype == chain_dtype
+        assert pp[f"level{lv}"]["cond"]["steps_fused"]["w1"].dtype == chain_dtype
+        assert ("trunk0_fused" in pp[f"level{lv}"]["cond"]) == ("bfloat16" in (cd, ed))
+    lr = torch.rand(2, 6, 7, 3, device="cuda", generator=gen)
+    chain.launches = rrdb.launches = 0
+    out = model.reverse(pp, lr, 0.9, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    assert out.shape == (2, 24, 28, 3) and torch.isfinite(out).all()
+    assert chain.launches == 4 * 4
+    assert rrdb.launches == (4 * rrdb.LAUNCHES_PER_RRDB * 2 if "bfloat16" in (cd, ed) else 0)
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+def test_tiny_checkpoint_served_fused(gen, cd):
+    """weights/ref_trained/tiny_x4_400_G.pth (hidden 32, RRDB nf 32 / gc 16) served on
+    the kernel path against the plain path under the same latents, in both recipes:
+    the chain kernel at hid 32 in bf16 or float32, the RRDB kernel at nf 32 / gc 16
+    (bf16 recipe)."""
+    from pathlib import Path
+
+    from hcflow_tpu_torch.convert import params_from_state_dict
+
+    pth = Path(__file__).resolve().parents[1] / "weights/ref_trained/tiny_x4_400_G.pth"
+    model = _tiny_spec(cd)
+    params = params_from_state_dict(torch.load(pth, map_location="cpu"), model, device="cuda")
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params)
+    lr = torch.rand(2, 8, 8, 3, device="cuda", generator=gen)
+    eps = [torch.randn(2, 16, 16, 6, device="cuda", generator=gen),
+           torch.randn(2, 8, 8, 21, device="cuda", generator=gen)]
+    chain.launches = 0
+    with torch.no_grad():
+        got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
+        ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
+    torch.cuda.synchronize()
+    assert chain.launches == 16
+    assert torch.isfinite(got).all()
+    d = (got - ref).abs()
+    if cd is None:  # float32 kernels against the float32 plain path
+        assert d.max().item() <= 1e-4 * ref.abs().max().item()
+    else:  # as chip_smoke.py holds the bf16 kernel path against the plain path
+        assert d.max().item() <= 5e-2 * ref.abs().max().item()
+        assert d.mean().item() <= 1e-2 * ref.abs().mean().item()

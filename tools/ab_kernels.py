@@ -10,8 +10,9 @@ runs its own ``chip_smoke.py`` phase-2 rows: the per-RRDB kernel (gc 32 and 16 a
 16x40x40 and 16x80x80), the resident trunk (nb 5 at 20x20, 40x40, 80x80), the inverse
 chain (K 13: the x4 SR chains, c 21 / 6 / 24 / 12, then the x8 ones, c 45 / 12 / 6 /
 48 / 24 / 12), chain3s (K 8 at 40x40 and 80x80) and conv3x3 (262, 140, 3 and 64
-channels in).  Each row is checked against its plain version, as chip_smoke.py
-checks it.  Prints one line of ms/call per ROOT in that order, then the library
+channels in), and where the checkout's chip_smoke.py has them the chain kernel's other
+variants at the x4 chain shapes: float32 at hid 64 (K 13), bf16 and float32 at hid 32
+(K 4).  Each row is checked against its plain version, as chip_smoke.py checks it.  Prints one line of ms/call per ROOT in that order, then the library
 yardsticks' ms of the rows that have one (a checkout's own chip_smoke.py decides
 which), then whether each trunk was bit-identical to the per-RRDB kernel and the
 latter's ms.  ``--unchecked`` times only the per-RRDB kernel
@@ -28,7 +29,8 @@ import sys
 
 ROWS = ("rrdb gc32 40 80, rrdb gc16 40 80, trunk 20 40 80, "
         "chain x4 (L1 cond, L0 cond, L1 main, L0 main) x8 (L2 cond, L1 cond, L0 cond, L2 main, "
-        "L1 main, L0 main), chain3s 40 80, conv3x3 262 140 3 64")
+        "L1 main, L0 main), chain3s 40 80, conv3x3 262 140 3 64, "
+        "[chain_f32, chain_hid32, chain_hid32_f32 x4 (L1 cond, L0 cond, L1 main, L0 main)]")
 
 
 def run_unchecked(root: str) -> None:
@@ -80,6 +82,14 @@ def run_one(root: str) -> None:
         cs._conv_rows(torch, gen, rows, ((2 * hw, 262, 64, False), (hw, 140, 64, False),
                                          (hw // 2, 3, 64, False), (2 * hw, 64, 64, True)),
                       "standalone")
+        if "chain_f32" in getattr(cs, "KERNELS", {}):  # the chain kernel's other variants
+            x4 = [("L1 cond", True, 21, hw), ("L0 cond", True, 6, 2 * hw),
+                  ("L1 main", False, 24, hw), ("L0 main", False, 12, 2 * hw)]
+            for key, K, cond_ch, hid, cd in (("chain_f32", 13, 128, 64, None),
+                                             ("chain_hid32", 4, 64, 32, "bfloat16"),
+                                             ("chain_hid32_f32", 4, 64, 32, None)):
+                rows[key] = []
+                cs._chain_rows(torch, gen, rows, K, cond_ch, x4, "ab", hid=hid, cd=cd, key=key)
     flat = [r for k in rows for r in rows[k]]
     print(root, " ".join(f"{r['ms']:.4f}" for r in flat), flush=True)
     print(root, "library", " ".join(f"{r['library_ms']:.4f}" for r in flat

@@ -5,7 +5,8 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  Each variant
 is the current ``hcflow_tpu_torch/csrc/chain.cu`` with one textual edit (``EDITS``),
 built with nvcc into a temporary directory and called through the same C entry point
-on the same padded pack and inputs: 13-step chains at batch 16 of the x4 / x8 shapes
+on the same padded pack and inputs (the bf16 recipe at hid 64, the kernel
+``chain_step_mma_kernel``): 13-step chains at batch 16 of the x4 / x8 shapes
 c 12 at 80x80, c 6 at 80x80 with cond terms, c 24 at 40x40 and c 48 at 20x20.  Prints
 one line of ms per chain per shape, variants in the order given (default: all, the
 full kernel first and last to show drift).  The variants that skip work give wrong
@@ -115,7 +116,7 @@ def main(argv=None) -> int:
                     z.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
                     uc.data_ptr() if uc is not None else None,
                     *(pk[k].data_ptr() for k in ("w1", "w2", "w3", "vec", "wt", "ab")),
-                    B, hw, hw, c, 64, K, torch.cuda.current_stream().cuda_stream)
+                    B, hw, hw, c, 64, K, 0, torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"probe {name}: CUDA error {err}")
             run()
