@@ -56,12 +56,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
 7. the tiny trained checkpoint weights/ref_trained/tiny_x4_400_G.pth (hidden 32, RRDB
    nf 32 / gc 16), loaded with params_from_state_dict at the explicit spec of
    tiny_x4_parity.yml and served fused in the bf16 and the float32 recipe (the chain
-   kernel at hid 32 in bf16 and in float32, the RRDB kernel at nf 32 / gc 16), each held
-   against the plain path, with exact launch counts;
-8. print the kernels' JSON line, the card line, then the JSON status line last.
+   kernel at hid 32 in bf16 and in float32, the RRDB kernel at nf 32 / gc 16 in bf16 and
+   in float32), each held against the plain path, with exact launch counts;
+8. the float32 serving recipe (no compute_dtype, as the shipped test configs set none)
+   at full width and depth: the x4 SR model of phase 3, the x4 rescaling model of phase
+   4 and the x8 SR model of phase 5 (resident trunks), each as its bf16 phase checks
+   it, the kernel path within 1e-4 x max |plain| of the plain path: the float32 RRDB,
+   resident-trunk and chain3s kernels (3xTF32 products) and the float32 chain kernel;
+9. print the kernels' JSON line, the card line, then the JSON status line last.
 
-Phase 2 also holds the new chain variants against their plain version: float32 at hid
-64 at the shapes of phase 6's serving, bf16 and float32 at hid 32 at phase 7's.
+Phase 2 also holds the variants against their plain version: the chain kernel's float32
+one at hid 64 at the shapes of phase 6's serving, bf16 and float32 at hid 32 at phase
+7's; the float32 RRDB kernel at phases 3, 4 and 7's shapes, the float32 resident trunk
+at phase 5's and chain3s in float32 at phase 4's (1e-5 x max |plain|), each timed
+beside its float32 library sequence (cuDNN with TF32 off) as one CUDA graph.  A
+float32 row's bound_ms is at the 3xTF32 tensor-core rate, the rate its kernel's products
+run at; bound_cuda_core_ms gives the same work at the CUDA-core float32 rate.
 
 Any failed check raises, and the script exits non-zero without the status line.
 Weights are random, perturbed so that the zero-initialised layers (coupling conv3s
@@ -72,6 +82,7 @@ init as training does, and phase 7's, which are trained.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -88,6 +99,7 @@ X8_NB = 5
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # float32 outside the tensor cores
+PEAK_3XTF32 = 495e12 / 3  # float32 products as three TF32 tensor-core products (3xTF32)
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 # Kernel vs its plain version on the card: both take the same bf16 operands and sum in
 # float32, in another order; a feature rounded to bf16 can then land one bf16 step
@@ -203,19 +215,20 @@ def check_rel(name, got, ref, rtol):
 
 
 # ------------------------------------------------------------------ shapes and bounds
-def rrdb_work(B, H, W, nf, gc):
-    """(bf16 FLOP, bytes) that one RRDB must do and move: the input read once, the
-    output written once, the bf16 weights and f32 biases read once."""
+def rrdb_work(B, H, W, nf, gc, es=2):
+    """(FLOP, bytes) that one RRDB must do and move: the input read once, the output
+    written once, the weights (es bytes each: bf16 2, float32 4) and f32 biases read
+    once."""
     px = B * H * W
     macs = sum(9 * (nf + i * gc) * (gc if i < 4 else nf) for i in range(5))  # per block
     weights, biases = 3 * macs, 3 * (4 * gc + nf)  # one weight per MAC of a pixel
-    return 2 * 3 * macs * px, 2 * px * nf * 4 + 2 * weights + 4 * biases
+    return 2 * 3 * macs * px, 2 * px * nf * 4 + es * weights + 4 * biases
 
 
-def trunk_work(B, H, W, nf, gc, nb):
-    """(bf16 FLOP, bytes) of a trunk of nb RRDBs: the input read once, the output
-    written once, every RRDB's weights and biases read once."""
-    flops, nbytes = rrdb_work(B, H, W, nf, gc)
+def trunk_work(B, H, W, nf, gc, nb, es=2):
+    """(FLOP, bytes) of a trunk of nb RRDBs: the input read once, the output written
+    once, every RRDB's weights and biases read once."""
+    flops, nbytes = rrdb_work(B, H, W, nf, gc, es)
     io = 2 * B * H * W * nf * 4
     return nb * flops, io + nb * (nbytes - io)
 
@@ -243,17 +256,20 @@ def chain_work(B, H, W, c, hid, K, cond, f32=False):
     return (0, convs + tail, nbytes) if f32 else (convs, tail, nbytes)
 
 
-def chain3s_work(B, H, W, c, gc, K):
+def chain3s_work(B, H, W, c, gc, K, f32=False):
     """(bf16 FLOP, f32 FLOP, bytes) of one K-step rescaling main chain at its real
-    (unpadded) widths: z in and out once, the weights once."""
+    (unpadded) widths: z in and out once, the weights once (the float32 recipe's,
+    ``f32``: float32 products on weights of 4 bytes)."""
     px = B * H * W
     macs = 0
     for k in range(K):
         cin, fout = (3, 2 * (c - 3)) if k % 2 == 0 else (c - 3, 3)
         macs += sum(9 * (cin + i * gc) * (gc if i < 4 else fout) for i in range(5))
-    f32 = 4 * px * K * c  # the coupling update and the ActNorm inverse, ~4 FLOP a value
-    weights = 2 * macs + 4 * K * (4 * gc + 2 * c)  # one weight per MAC; biases, ActNorm
-    return 2 * px * macs, f32, 2 * px * c * 4 + weights
+    tail = 4 * px * K * c  # the coupling update and the ActNorm inverse, ~4 FLOP a value
+    es = 4 if f32 else 2
+    weights = es * macs + 4 * K * (4 * gc + 2 * c)  # one weight per MAC; biases, ActNorm
+    nbytes = 2 * px * c * 4 + weights
+    return (0, 2 * px * macs + tail, nbytes) if f32 else (2 * px * macs, tail, nbytes)
 
 
 def bound(ops_s, nbytes):
@@ -294,7 +310,12 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
         library_ms = graph_time(library_fn, reps=reps)
         lib = f", library {library_ms:.4f} ms as a graph ({extra['library_eager_ms']:.4f} eager)"
     bf, f32, nbytes = work
-    b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+    if bf:  # a bf16 row: bf16 tensor-core products, a float32 tail on the CUDA cores
+        b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+    else:  # a float32 row: float32-accurate products as 3xTF32 on the tensor cores
+        b_ms, b_by = bound(f32 / PEAK_3XTF32, nbytes)
+        extra["bound_cuda_core_ms"] = bound(f32 / PEAK_F32, nbytes)[0]
+        lib += f", bound at the CUDA-core float32 rate {extra['bound_cuda_core_ms']:.4f} ms"
     log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}, "
         f"{(bf + f32) / ms / 1e9:.1f} TFLOP/s), {calls} calls per {path} unit")
     rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
@@ -303,63 +324,68 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
     return got
 
 
-def _library_trunk(torch, trunk):
-    """A trunk's params on the card with bf16 conv weights, for the library yardstick:
-    nets.apply_rrdb(_trunk) in the bf16 recipe (cuDNN bf16 convs, float32 bias,
-    leaky ReLU, concats and residuals), a sequence of library calls, since no single
-    call computes an RRDB; the port never runs it on the kernel path."""
+def _library_trunk(torch, trunk, cd="bfloat16"):
+    """A trunk's params on the card, for the library yardstick: nets.apply_rrdb(_trunk)
+    in the recipe cd (bf16: cuDNN bf16 convs, the conv weights cast to bf16; None:
+    cuDNN float32 convs with TF32 off, nets.exact_f32), float32 bias, leaky ReLU,
+    concats and residuals, a sequence of library calls, since no single call computes
+    an RRDB; the port never runs it on the kernel path."""
     def cast(t):
-        return t.to(DEV, torch.bfloat16) if t.ndim == 4 else t.to(DEV)
+        return t.to(DEV, torch.bfloat16) if t.ndim == 4 and cd else t.to(DEV)
 
     return [{r: {c: {k: cast(v) for k, v in conv.items()} for c, conv in rdb.items()}
              for r, rdb in p.items()} for p in trunk]
 
 
-def _rrdb_rows(torch, gen, rows, gc, shapes, path):
+def _rrdb_rows(torch, gen, rows, gc, shapes, path, nf=64, cd="bfloat16", key="rrdb"):
+    """The per-RRDB kernel in the recipe cd (bf16, or float32 for None) against its
+    plain version, beside nets.apply_rrdb in the same recipe as one CUDA graph."""
     from hcflow_tpu_torch.ops import nets, rrdb
 
-    nf = 64
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(11), 1, nf, gc), gen)
-    packed = _to(rrdb.pack_rrdb(trunk[0], "bfloat16"), DEV)
-    lib = _library_trunk(torch, trunk)[0]
+    packed = _to(rrdb.pack_rrdb(trunk[0], cd), DEV)
+    lib = _library_trunk(torch, trunk, cd)[0]
     for hw, calls in shapes:
         x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
-        flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc)
-        _row(rows, "rrdb", f"rrdb gc {gc} {BATCH}x{hw}x{hw}x{nf}",
+        flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc, 2 if cd else 4)
+        _row(rows, key, f"{key} nf {nf} gc {gc} {BATCH}x{hw}x{hw}x{nf}",
              lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
-             (flops, 0, nbytes), 10, path, calls,
-             library_fn=lambda: nets.apply_rrdb(lib, x, "bfloat16"), library_seq=True,
-             shape=[BATCH, hw, hw, nf], gc=gc)
+             (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
+             library_fn=lambda: nets.apply_rrdb(lib, x, cd), library_seq=True,
+             rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[BATCH, hw, hw, nf], gc=gc)
 
 
-def _trunk_rows(torch, gen, rows, shapes, path):
-    """The resident trunk (nb 5, gc 32) against its plain version and against the
-    per-RRDB kernel run nb times (bit-identical expected), timed beside it."""
+def _trunk_rows(torch, gen, rows, shapes, path, cd="bfloat16", key="rrdb_trunk"):
+    """The resident trunk (nb 5, gc 32) in the recipe cd against its plain version and
+    against the per-RRDB kernel run nb times (bit-identical expected), timed beside it."""
     from hcflow_tpu_torch.ops import nets, rrdb
 
     nf, gc = 64, 32
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(14), X8_NB, nf, gc), gen)
-    lib = _library_trunk(torch, trunk)
+    lib = _library_trunk(torch, trunk, cd)
     trunk = _to(trunk, DEV)
-    res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
-    per = rrdb.pack_rrdb_trunk(trunk, "bfloat16")
+    res = rrdb.pack_rrdb_trunk(trunk, cd, resident=True)
+    per = rrdb.pack_rrdb_trunk(trunk, cd)
     for hw, calls in shapes:
         x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
-        label = f"rrdb_trunk nb {X8_NB} gc {gc} {BATCH}x{hw}x{hw}x{nf}"
-        flops, nbytes = trunk_work(BATCH, hw, hw, nf, gc, X8_NB)
-        got = _row(rows, "rrdb_trunk", label, lambda: rrdb.trunk_apply(res, x),
-                   lambda: rrdb.trunk_apply_resident_plain(res, x), (flops, 0, nbytes), 10, path,
-                   calls, library_fn=lambda: nets.apply_rrdb_trunk(lib, x, "bfloat16"),
-                   library_seq=True, shape=[BATCH, hw, hw, nf], gc=gc, nb=X8_NB)
+        label = f"{key} nb {X8_NB} gc {gc} {BATCH}x{hw}x{hw}x{nf}"
+        flops, nbytes = trunk_work(BATCH, hw, hw, nf, gc, X8_NB, 2 if cd else 4)
+        got = _row(rows, key, label, lambda: rrdb.trunk_apply(res, x),
+                   lambda: rrdb.trunk_apply_resident_plain(res, x),
+                   (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
+                   library_fn=lambda: nets.apply_rrdb_trunk(lib, x, cd), library_seq=True,
+                   rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[BATCH, hw, hw, nf], gc=gc,
+                   nb=X8_NB)
         ref = rrdb.trunk_apply(per, x)
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
-        err = 0.0 if same else check_rel(f"{label} vs per-RRDB kernel", got, ref, KERNEL_RTOL)
+        err = 0.0 if same else check_rel(f"{label} vs per-RRDB kernel", got, ref,
+                                         KERNEL_RTOL if cd else F32_RTOL)
         per_ms = cuda_time(lambda: rrdb.trunk_apply(per, x), reps=10)
         log(f"    vs the per-RRDB kernel ({X8_NB} x {rrdb.LAUNCHES_PER_RRDB} launches, "
             f"{per_ms:.4f} ms/trunk): {'bit-identical' if same else f'max abs {err:.3e}'}")
-        rows["rrdb_trunk"][-1].update(per_rrdb_ms=per_ms, identical_to_per_rrdb=same,
-                                      per_rrdb_max_abs=err)
+        rows[key][-1].update(per_rrdb_ms=per_ms, identical_to_per_rrdb=same,
+                             per_rrdb_max_abs=err)
 
 
 def _conv_rows(torch, gen, rows, shapes, path):
@@ -428,30 +454,35 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
              chain=name, K=K, hid=hid, plan=plan)
 
 
-def _chain3s_rows(torch, gen, rows, K, chains, path):
+def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s"):
+    """chain3s in the recipe cd against its plain version, beside its step loop
+    (FlowStepSpec.inverse over the K steps in the same recipe; float32 with TF32 off)
+    as one CUDA graph."""
     from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
-    from hcflow_tpu_torch.ops import chain3s
+    from hcflow_tpu_torch.ops import chain3s, nets
 
     gc = 32
     for name, c, hw in chains:
-        specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype="bfloat16",
+        specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype=cd,
                               flow_permutation="none", flow_coupling="Affine3shift",
                               nn_module="DenseBlock", lr_vs_others=(k % 2 == 0))
                  for k in range(K)]
         g = torch.Generator().manual_seed(13)
         steps = _to(perturb([s.init(g) for s in specs], gen), DEV)
-        pk = chain3s.pack_inverse_chain3s(steps, "bfloat16")
+        pk = chain3s.pack_inverse_chain3s(steps, cd)
         z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
 
         def library(z=z, steps=steps, specs=specs):
-            for k in reversed(range(K)):
-                z = specs[k].inverse(steps[k], z)[0]
+            with nets.exact_f32() if cd is None else contextlib.nullcontext():
+                for k in reversed(range(K)):
+                    z = specs[k].inverse(steps[k], z)[0]
             return z
 
-        _row(rows, "chain3s", f"chain3s {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+        _row(rows, key, f"{key} {name} {BATCH}x{hw}x{hw}x{c} K={K}",
              lambda: chain3s.inverse_chain(pk, z), lambda: chain3s.inverse_chain3s_plain(pk, z),
-             chain3s_work(BATCH, hw, hw, c, gc, K), 10, path, 1, library_fn=library,
-             library_seq=True, shape=[BATCH, hw, hw, c], chain=name, K=K)
+             chain3s_work(BATCH, hw, hw, c, gc, K, f32=cd is None), 10, path, 1,
+             library_fn=library, library_seq=True, rtol=KERNEL_RTOL if cd else F32_RTOL,
+             shape=[BATCH, hw, hw, c], chain=name, K=K)
 
 
 def phase_kernels(torch, gen):
@@ -493,26 +524,46 @@ def phase_kernels(torch, gen):
     _chain_rows(torch, gen, rows, 4, 64, x4_chains, "tiny", hid=32, key="chain_hid32")
     _chain_rows(torch, gen, rows, 4, 64, x4_chains, "tiny", hid=32, cd=None,
                 key="chain_hid32_f32")
+    log("  float32 recipe (phase 8; phase 7's float32 trunks): the RRDB, trunk and chain3s "
+        "kernels in 3xTF32")
+    _rrdb_rows(torch, gen, rows, 32, ((LR_HW, 14), (2 * LR_HW, 14)), "sr_f32", cd=None,
+               key="rrdb_f32")
+    _rrdb_rows(torch, gen, rows, 16, ((LR_HW, 6), (2 * LR_HW, 6)), "rescaling_f32", cd=None,
+               key="rrdb_f32")
+    # the tiny checkpoint: trunk0 and trunk1 of nb 2 a level
+    _rrdb_rows(torch, gen, rows, 16, ((LR_HW, 4), (2 * LR_HW, 4)), "tiny_f32", nf=32, cd=None,
+               key="rrdb_f32")
+    _trunk_rows(torch, gen, rows, ((hw, 2), (2 * hw, 2), (4 * hw, 2)), "sr8_f32", cd=None,
+                key="rrdb_trunk_f32")
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, LR_HW), ("L0 main", 12, 2 * LR_HW)],
+                  "rescaling_f32", cd=None, key="chain3s_f32")
     return rows
 
 
 def _counts():
-    """Launches of every KERNELS entry since the last reset; the chain kernel's by
-    variant (bf16 at hid 64; float32 at hid 64; bf16 and float32 at hid 32)."""
+    """Launches of every KERNELS entry since the last reset, by variant: the chain
+    kernel's (bf16 at hid 64; float32 at hid 64; bf16 and float32 at hid 32), the RRDB,
+    trunk and chain3s kernels' (bf16, float32)."""
     from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
     by = chain.launches_by
-    return {"rrdb": rrdb.launches, "rrdb_trunk": rrdb.trunk_launches,
-            "chain": by.get("bf16 hid 64", 0), "chain3s": chain3s.launches,
+    return {"rrdb": rrdb.launches_by.get("bf16", 0),
+            "rrdb_trunk": rrdb.trunk_launches_by.get("bf16", 0),
+            "chain": by.get("bf16 hid 64", 0), "chain3s": chain3s.launches_by.get("bf16", 0),
             "conv3x3": conv.launches, "chain_f32": by.get("f32 hid 64", 0),
-            "chain_hid32": by.get("bf16 hid 32", 0), "chain_hid32_f32": by.get("f32 hid 32", 0)}
+            "chain_hid32": by.get("bf16 hid 32", 0), "chain_hid32_f32": by.get("f32 hid 32", 0),
+            "rrdb_f32": rrdb.launches_by.get("f32", 0),
+            "rrdb_trunk_f32": rrdb.trunk_launches_by.get("f32", 0),
+            "chain3s_f32": chain3s.launches_by.get("f32", 0)}
 
 
 def _reset_counts():
     from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
 
-    rrdb.launches = rrdb.trunk_launches = chain.launches = chain3s.launches = conv.launches = 0
-    chain.launches_by = {}
+    for counts in (chain.launches_by, rrdb.launches_by, rrdb.trunk_launches_by,
+                   chain3s.launches_by):
+        counts.clear()
+    conv.launches = 0
 
 
 def _per_request(**counts):
@@ -528,8 +579,12 @@ def _check_counts(path, launches, per_unit, n):
                                  f"per request")
 
 
-def _compare_paths(name, a, b):
-    """Kernel path a against plain path b, before the clamp."""
+def _compare_paths(name, a, b, f32=False):
+    """Kernel path a against plain path b, before the clamp; a float32 path (``f32``)
+    within F32_PATH_RTOL x max |plain|."""
+    if f32:
+        return (check_rel(f"{name}, kernel path vs plain path", a, b, F32_PATH_RTOL),
+                (a - b).abs().mean().item())
     d = (a - b).abs()
     max_abs, mean_abs = d.max().item(), d.mean().item()
     max_ref, mean_ref = b.abs().max().item(), b.abs().mean().item()
@@ -556,15 +611,16 @@ def _median_ms(fn, n=7):
     return statistics.median(times), times
 
 
-def phase_sr(torch, gen, scale, lr_hw, heat, per_request, resident=False):
-    """An SR model at full width in the bf16 serving recipe, batch 16: requests with
-    launch counts (per_request: launches of each kernel per request), outputs, heat 0,
-    the kernel path against the plain path (and, with resident trunks, against the
-    per-RRDB kernel path) under the same explicit latents, and the time per pass."""
+def phase_sr(torch, gen, scale, lr_hw, heat, per_request, resident=False, cd="bfloat16"):
+    """An SR model at full width in the serving recipe cd (bf16, or float32 for None),
+    batch 16: requests with launch counts (per_request: launches of each kernel per
+    request), outputs, heat 0, the kernel path against the plain path (and, with
+    resident trunks, against the per-RRDB kernel path) under the same explicit latents,
+    and the time per pass."""
     from hcflow_tpu_torch.models import HCFlowSRSpec
     from hcflow_tpu_torch.ops import nets
 
-    model = HCFlowSRSpec.for_scale(scale, compute_dtype="bfloat16")
+    model = HCFlowSRSpec.for_scale(scale, compute_dtype=cd)
     L = model.flow.L
     t0 = time.perf_counter()
     params = perturb(model.init(0, device=DEV), gen)
@@ -629,13 +685,13 @@ def phase_sr(torch, gen, scale, lr_hw, heat, per_request, resident=False):
         got = model.flow.reverse_flow(fused, lr, heat, eps_list=eps)
         out["path_max_abs"], out["path_mean_abs"] = _compare_paths(
             f"x{scale} SR reverse (same eps_list)", got,
-            model.flow.reverse_flow(plain, lr, heat, eps_list=eps))
+            model.flow.reverse_flow(plain, lr, heat, eps_list=eps), f32=cd is None)
         if resident:
             ref = model.flow.reverse_flow(per_rrdb, lr, heat, eps_list=eps)
             torch.cuda.synchronize()
             same = torch.equal(got, ref)
             err = 0.0 if same else check_rel("resident-trunk path vs per-RRDB kernel path", got,
-                                             ref, KERNEL_RTOL)
+                                             ref, KERNEL_RTOL if cd else F32_PATH_RTOL)
             log(f"  resident-trunk path vs per-RRDB kernel path (same eps_list): "
                 f"{'bit-identical' if same else f'max abs {err:.3e}'}")
             out.update(per_rrdb_identical=same, per_rrdb_max_abs=err)
@@ -657,11 +713,15 @@ def phase_sr(torch, gen, scale, lr_hw, heat, per_request, resident=False):
     return out
 
 
-def phase_rescaling(torch, gen):
+def phase_rescaling(torch, gen, per_request, cd="bfloat16"):
+    """The x4 rescaling model at full width in the serving recipe cd (bf16, or float32
+    for None): downscale -> quantize -> upscale requests with launch counts
+    (per_request), outputs, heat 0, the kernel path against the plain path, the round
+    trip, and the time of each direction."""
     from hcflow_tpu_torch.models import HCFlowRescalingSpec, quantize
 
-    log("phase 4: x4 rescaling model, full width, bf16 serving recipe")
-    model = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
+    f32 = cd is None
+    model = HCFlowRescalingSpec.default_x4(compute_dtype=cd)
     params = perturb(model.init(0, device=DEV), gen)
     fused = model.flow.precompute_inference(params, fused=True)
     plain = model.flow.precompute_inference(params, fused=False)
@@ -682,10 +742,7 @@ def phase_rescaling(torch, gen):
     outs = [request(s) for s in seeds]
     torch.cuda.synchronize()
     launches = _counts()
-    # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
-    # steps; 2 main chains of 1 + 5 x 8 launches
-    _check_counts("rescaling", launches, _per_request(rrdb=2 * 6 * 16, chain=2 * 6,
-                                                      chain3s=2 * 41), len(seeds))
+    _check_counts("rescaling", launches, per_request, len(seeds))
     for s, (lr, out) in zip(seeds, outs):
         if tuple(lr.shape) != lr_shape or tuple(out.shape) != tuple(hr.shape):
             raise AssertionError(f"request {s}: bad shapes {tuple(lr.shape)} {tuple(out.shape)}")
@@ -708,7 +765,7 @@ def phase_rescaling(torch, gen):
         z_p, zs_p = model.flow.normal_flow(plain, hr)
         if not torch.equal(z_f, z_p):
             raise AssertionError("the downscale's LR differs between the two paths")
-        fwd_err = [_compare_paths(f"downscale latent, level {i}", a, b)
+        fwd_err = [_compare_paths(f"downscale latent, level {i}", a, b, f32)
                    for i, (a, b) in enumerate(zip(zs_f, zs_p))]
         # the upscale under the same explicit latents, before the clamp
         eps = [torch.randn(BATCH, 2 * LR_HW, 2 * LR_HW, 6, device=DEV, generator=gen),
@@ -716,7 +773,7 @@ def phase_rescaling(torch, gen):
         lq = quantize(z_p.clamp(0, 1))
         rev_err = _compare_paths("upscale (same eps_list)",
                                  model.flow.reverse_flow(fused, lq, RS_HEAT, eps_list=eps),
-                                 model.flow.reverse_flow(plain, lq, RS_HEAT, eps_list=eps))
+                                 model.flow.reverse_flow(plain, lq, RS_HEAT, eps_list=eps), f32)
         # the round trip: the unquantized LR and its own latents give HR back
         rt_plain = (model.flow.reverse_flow(plain, z_p, RS_HEAT, eps_list=zs_p) - hr).abs()
         rt_kernel = (model.flow.reverse_flow(fused, z_f, RS_HEAT, eps_list=zs_f) - hr).abs()
@@ -951,7 +1008,7 @@ def phase_tiny(torch, gen):
         torch.cuda.synchronize()
         launches = _counts()
         per = (_per_request(rrdb=2 * 2 * 2 * 16, chain_hid32=4 * 4) if cd else
-               _per_request(chain_hid32_f32=4 * 4))
+               _per_request(rrdb_f32=2 * 2 * 2 * 16, chain_hid32_f32=4 * 4))
         _check_counts(f"tiny checkpoint, {recipe} recipe", launches, per, 2)
         for o in outs:
             if tuple(o.shape) != (BATCH, LR_HW * SCALE, LR_HW * SCALE, 3) or not torch.isfinite(o).all():
@@ -1002,12 +1059,21 @@ KERNELS = {
     "chain_hid32_f32": ("hcflow_tpu_torch/csrc/chain.cu", "hcflow_tpu/ops/pallas_chain.py:360",
                         "x4 SR reverse pass of the tiny trained checkpoint, float32 recipe",
                         ("chain_step_f32_kernel",)),
+    # the float32 recipe's variants of the tile-conv kernels (3xTF32 products)
+    "rrdb_f32": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547",
+                 "x4 SR float32 pass + rescaling float32 request + tiny checkpoint float32 pass",
+                 ("to_dense_kernel", "feature_kernel", "residual_kernel")),
+    "rrdb_trunk_f32": ("hcflow_tpu_torch/csrc/rrdb_trunk.cu", "hcflow_tpu/ops/pallas_rdb.py:476",
+                       "x8 SR float32 pass", ("trunk_kernel",)),
+    "chain3s_f32": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
+                    "rescaling float32 request",
+                    ("prologue_kernel", "feature_kernel", "coupling_kernel")),
 }
 
 
 def kernel_lines(rows, launches):
-    """One entry a kernel; ms, plain_ms, bound_ms and library_ms summed over the unit
-    its "per" names."""
+    """One entry a kernel; ms, plain_ms, bound_ms, bound_cuda_core_ms (float32 kernels,
+    else None) and library_ms summed over the unit its "per" names."""
     out = []
     for name, (source, replaces, per, _) in KERNELS.items():
         rs = rows[name]
@@ -1017,12 +1083,15 @@ def kernel_lines(rows, launches):
                  for b in ("bytes", "operations")}
         by = max(share, key=share.get)  # what bounds most of the least time
         library = [r["library_ms"] * r["calls_per_pass"] for r in rs if r["library_ms"] is not None]
+        cuda_core = [r["bound_cuda_core_ms"] * r["calls_per_pass"] for r in rs
+                     if "bound_cuda_core_ms" in r]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(n[name] for n in launches.values()),
             "max_abs_err": max(r["err"] for r in rs),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": by, "library_ms": sum(library) if library else None, "per": per,
+            "bound_by": by, "library_ms": sum(library) if library else None,
+            "bound_cuda_core_ms": sum(cuda_core) if cuda_core else None, "per": per,
             "launches_by_path": {p: n[name] for p, n in launches.items()}, "shapes": rs,
         })
     return out
@@ -1067,7 +1136,10 @@ def main(argv=None):
     rows = phase_kernels(torch, gen)
     log("phase 3: flagship x4 SR model, full width, bf16 serving recipe")
     sr = phase_sr(torch, gen, SCALE, LR_HW, HEAT, _per_request(rrdb=28 * 16, chain=4 * 13))
-    rs = phase_rescaling(torch, gen)
+    log("phase 4: x4 rescaling model, full width, bf16 serving recipe")
+    # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
+    # steps; 2 main chains of 1 + 5 x 8 launches
+    rs = phase_rescaling(torch, gen, _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * 41))
     log("phase 5: x8 SR model (CelebA-8X topology), full width, bf16 serving recipe, "
         "resident trunks")
     # per request: 2 trunks a level, one launch each; 2 chains of 13 steps a level
@@ -1075,14 +1147,29 @@ def main(argv=None):
                    _per_request(rrdb_trunk=6, chain=6 * 13), resident=True)
     train = phase_train(torch, gen)
     tiny = phase_tiny(torch, gen)
+    log("phase 8: the float32 serving recipe (no compute_dtype, as the shipped test configs "
+        "configs/test_*.yml), full width: the RRDB, trunk and chain3s kernels in 3xTF32")
+    log("  x4 SR (configs/test_SR_DF2K_4X_HCFlow.yml's topology)")
+    sr_f32 = phase_sr(torch, gen, SCALE, LR_HW, HEAT,
+                      _per_request(rrdb_f32=28 * 16, chain_f32=4 * 13), cd=None)
+    log("  x4 rescaling (configs/test_Rescaling_DF2K_4X_HCFlow.yml's topology)")
+    rs_f32 = phase_rescaling(torch, gen, _per_request(rrdb_f32=2 * 6 * 16, chain_f32=2 * 6,
+                                                      chain3s_f32=2 * 41), cd=None)
+    log("  x8 SR (configs/test_SR_CelebA_8X_HCFlow.yml's topology), resident trunks")
+    sr8_f32 = phase_sr(torch, gen, X8_SCALE, X8_LR_HW, X8_HEAT,
+                       _per_request(rrdb_trunk_f32=6, chain_f32=6 * 13), resident=True, cd=None)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
-                                  "tiny_f32": tiny["float32"]["launches"]})
+                                  "tiny_f32": tiny["float32"]["launches"],
+                                  "sr_f32": sr_f32["launches"],
+                                  "rescaling_f32": rs_f32["launches"],
+                                  "sr8_f32": sr8_f32["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
-                       "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny}, f,
+                       "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
+                       "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32}, f,
                       indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))

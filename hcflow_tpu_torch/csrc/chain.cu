@@ -84,19 +84,17 @@
 // products at either width).
 //
 // The float32 recipe (float32 pack and cond term) runs chain_step_f32_kernel: the same
-// step in float32 on CUDA cores, every product an fmaf of float32 operands, no TF32
-// anywhere (the JAX kernel runs it at Precision.HIGHEST).  Bound: operations (float32
-// outside the tensor cores, 67 TFLOP/s), 0.10 TFLOP a x4 pass.  A block of 8 warps owns
-// an 8x8 tile; z1 (with a 2-pixel halo), h (h1, then h2 in place, over the tile plus a
-// 1-pixel halo) and the tile's z stay in shared memory as float32, pixel rows of odd
-// pitch; so do the weights: w1 and w2 copied before the step waits for the previous
-// one, w3 a row of three taps at a time.  conv1 and conv2 sum 4 pixels x 8 outputs a
-// thread (4 + 2 shared-memory loads per 32 fmaf, the weights broadcast to a warp);
-// conv3 a pixel x 4 shift and 4 scale columns, only for the column groups that hold
-// real columns.  Measured on an H100 (PERF.md): the first design, one pixel a
-// thread with the weights read from L2 one load at a time (the blocks' shared memory
-// leaves L1 little room), reached 2-3 TFLOP/s; unrolling its loops 1.4x more.  The tail
-// is the bf16 kernel's.
+// step with float32 operands and sums (the JAX kernel runs it at Precision.HIGHEST), in
+// the bf16 kernel's shape on tensor cores: mma.sync m16n8k8 .tf32 with each product
+// split in three TF32 ones (3xTF32, conv3x3.cuh: x = hi + lo, hi*hi + hi*lo + lo*hi, an
+// error of ~2^-21 relative a product; no single-pass TF32), tiles by pick_tile, h1 in
+// registers as conv2's A, h2 in shared memory as float32.  Bound: operations, 0.10
+// TFLOP a x4 pass: 1.43 ms at the 67 TFLOP/s of float32 outside the tensor cores, 0.58
+// at the 165 TFLOP/s that three TF32 products a product leave of the 495 TF32 peak.
+// What bounds it (tools/probe_chain.py --f32, PERF.md): the products, 3 a product (one
+// product instead of three: -42%), then the splits (-25% without them); staging w3 and
+// the tail 3% each.  It replaced a CUDA-core design (fmaf, fixed 8x8 tiles, every block
+// copying the step's weights: 7.70 ms a trained x4 pass) after an A/B on one card.
 //
 // Layouts: z is NHWC float32 (B,H,W,c); uc is NHWC (B,H,W,K*HID) in the pack's dtype,
 // step k's term at channels k*HID..; the padded pack per step: w1 [9][C1P][HID], w2
@@ -112,7 +110,7 @@ using conv3x3::smem_addr;
 
 constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
 constexpr int MAX_SMEM = 232448;
-constexpr int SM_BYTES = 233472;  // shared memory of an SM, 1 KB of it reserved a block
+using conv3x3::SM_SMEM;  // shared memory of an SM, 1 KB of it reserved a block
 
 __host__ __device__ constexpr int up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -442,245 +440,290 @@ chain_step_mma_kernel(const float* __restrict__ zin, float* __restrict__ zout,
 }
 
 // ------------------------------------------------------------- the float32 step
-constexpr int F32_TH = 8, F32_TW = 8;  // the float32 kernel's tile
-// h-region pixels a thread of conv1 / conv2 sums, strided by F32_PQ
-constexpr int F32_PX = 4, F32_PQ = ((F32_TH + 2) * (F32_TW + 2) + F32_PX - 1) / F32_PX;
-constexpr int F32_ITEMS3 = 2;  // conv3 items a thread holds at most (c <= 64)
+// Shared-memory layout (byte offsets) of the float32 kernel's th x tw tile, all float32.
+// Region 1 holds z1 (with a 2-pixel halo), w1 and w2 while conv1/2 run, then a row of
+// w3's taps and the tile's z; h2, the vectors, Wt and ab sit beside it.  Pitches (in
+// floats): z1 and h2 rows C1P + 4 and HID + 4 (an odd number of 16-byte units, so that
+// ldmatrix reads 8 pixels without bank conflicts); w1 and w3 rows HID + 8 and N3P + 8
+// (8 mod 32: a warp's B-fragment loads, rows q and columns g, hit 32 banks); w2 rows HID
+// + 4 (4 mod 32: conv2 reads rows 2q and 2q + 1, see below).
+constexpr int MAX_MT3 = 2;  // conv3 M tiles a warp holds across the three tap rows
 
-// Shared-memory layout (byte offsets) of the float32 kernel's tile, all float32: z1 with
-// a 2-pixel halo; h (h1, then h2 in place) over the tile plus a 1-pixel halo; the tile's
-// z; Wt and ab; w2; and one weight region holding w1's real rows [9][c1][HID] during
-// conv1, then w3 a row of taps at a time, [3][HID][2S].  The pixel rows of z1 and h
-// have odd pitches, so that a warp's consecutive pixels fall in distinct banks.
+template <int HID, int C1P, int N3P>
 struct LayoutF32 {
-  int c, c1, c2, cq, th, tw, zw, hw2, hr, zp, hp;
-  int o_z1, o_h, o_zz, o_wt, o_ab, o_w2, o_w, bytes;
+  static constexpr int ZP = C1P + 4, HP = HID + 4, W1P = HID + 8, W2P = HID + 4, W3P = N3P + 8;
+  static constexpr int KS1 = 9 * C1P / 8;  // conv1's k8 steps: 9 taps x C1P
+  // TF32 products a warp issues for 16 pixels (three a product): conv1 and conv2 (h
+  // region), conv3 (tile)
+  static constexpr int MMA12 = 3 * (KS1 + HID / 8) * (HID / 8), MMA3 = 3 * 9 * (HID / 8) * 2;
+  int c, c1, c2, cq, th, tw, zw, hw2, hr, mt12, mt3;
+  int o_z1, o_w1, o_w2, o_w3, o_zz, o_h2, o_vec, o_wt, o_ab, bytes;
 
-  __host__ __device__ LayoutF32(int c_, int hid, int s, int th_, int tw_)
-      : c(c_), th(th_), tw(tw_) {
+  __host__ __device__ LayoutF32(int c_, int th_, int tw_) : c(c_), th(th_), tw(tw_) {
     c1 = c / 2;
     c2 = c - c1;
     cq = up(c, 4);
     zw = tw + 4;
     hw2 = tw + 2;
     hr = (th + 2) * hw2;
-    zp = c1 | 1;
-    hp = hid + 1;
+    mt12 = (hr + 15) / 16;
+    mt3 = (th * tw + 15) / 16;
     o_z1 = 0;
-    o_h = up((th + 4) * zw * zp * 4, 16);
-    o_zz = o_h + up(hr * hp * 4, 16);
-    o_wt = o_zz + up(th * tw * c * 4, 16);
+    o_w1 = (th + 4) * zw * ZP * 4;
+    o_w2 = o_w1 + 9 * C1P * W1P * 4;
+    const int r1a = o_w2 + HID * W2P * 4;
+    o_w3 = 0;
+    o_zz = 3 * HID * W3P * 4;
+    const int r1b = o_zz + th * tw * c * 4;
+    o_h2 = up(r1a > r1b ? r1a : r1b, 16);
+    o_vec = o_h2 + hr * HP * 4;
+    o_wt = o_vec + (4 * HID + 2 * N3P) * 4;
     o_ab = o_wt + c * cq * 4;
-    o_w2 = up(o_ab + c * 4, 16);
-    o_w = o_w2 + hid * hid * 4;
-    const int w1 = 9 * c1 * hid, w3 = 3 * hid * 2 * s;
-    bytes = o_w + (w1 > w3 ? w1 : w3) * 4;
+    bytes = up(o_ab + c * 4, 16);
   }
 };
 
-// acc[j][e] += a[j] * w[e] for 4 pixels j and 8 outputs e; w is 8 floats of shared
-// memory that a warp's lanes read at one or two addresses (broadcasts)
-__device__ __forceinline__ void fma4x8(float (&acc)[F32_PX][8], const float (&a)[F32_PX],
-                                       const float* w) {
-  const float4 lo = *reinterpret_cast<const float4*>(w);
-  const float4 hi = *reinterpret_cast<const float4*>(w + 4);
-#pragma unroll
-  for (int j = 0; j < F32_PX; ++j) {
-    acc[j][0] = fmaf(a[j], lo.x, acc[j][0]);
-    acc[j][1] = fmaf(a[j], lo.y, acc[j][1]);
-    acc[j][2] = fmaf(a[j], lo.z, acc[j][2]);
-    acc[j][3] = fmaf(a[j], lo.w, acc[j][3]);
-    acc[j][4] = fmaf(a[j], hi.x, acc[j][4]);
-    acc[j][5] = fmaf(a[j], hi.y, acc[j][5]);
-    acc[j][6] = fmaf(a[j], hi.z, acc[j][6]);
-    acc[j][7] = fmaf(a[j], hi.w, acc[j][7]);
-  }
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src, int n4) {
-  for (int i = threadIdx.x; i < n4; i += NTHREADS)
-    reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
-}
-
-// One step of the float32 recipe, on the padded float32 pack (c1p = C1P, s = S).
-// conv1 and conv2: a thread sums 4 pixels of the h region x 8 outputs (one item; the
-// 32 lanes of a warp hold consecutive pixels, in at most two output groups);
-// conv3: a thread sums a tile pixel x 4 shift and the 4 matching scale columns (up to
-// F32_ITEMS3 items), for the column groups that hold real columns only.
-template <int HID>
-__global__ void __launch_bounds__(NTHREADS)
+// One step of the float32 recipe on the padded float32 pack, the bf16 kernel's design
+// in float32: conv1, conv2 and conv3 as implicit GEMMs on mma.sync m16n8k8 .tf32, each
+// product split in three TF32 ones (conv3x3::mma_3xtf32: x = hi + lo, hi*hi + hi*lo +
+// lo*hi, float32 sums), A by ldmatrix from float32 rows (a tap is an address offset),
+// split in registers; B loaded as scalars from the [k][n] weight rows and split too.
+// conv1's accumulator is conv2's A in registers: in m16n8k8 a thread holds columns 2q
+// and 2q + 1 of each n8 tile but A's fragment takes columns q and q + 4, so conv2's k
+// step ks runs over h1 channels 8 ks + (0, 2, 4, 6, 1, 3, 5, 7) and reads w2's rows in
+// that order.  conv3 streams w3 a row of three taps at a time; a warp's M tiles (16
+// pixels x all [shift | scale] columns, so that each A fragment it splits serves every
+// n8 tile) stay in registers across the rows.
+template <int HID, int C1P, int N3P>
+__global__ void __launch_bounds__(NTHREADS, 2)
 chain_step_f32_kernel(const float* __restrict__ zin, float* __restrict__ zout,
                       const float* __restrict__ uc, int uc_stride, const float* __restrict__ w1,
                       const float* __restrict__ w2, const float* __restrict__ w3,
                       const float* __restrict__ vec, const float* __restrict__ wt,
-                      const float* __restrict__ ab, int H, int W, int c, int c1p, int s) {
-  constexpr int NT = HID / 8, TH = F32_TH, TW = F32_TW, PX = F32_PX, PQ = F32_PQ;
-  static_assert(NT * PQ <= NTHREADS, "conv1 and conv2 take one item a thread");
+                      const float* __restrict__ ab, int H, int W, int c, int th, int tw) {
+  using Lay = LayoutF32<HID, C1P, N3P>;
+  constexpr int ZP = Lay::ZP, HP = Lay::HP, W1P = Lay::W1P, W2P = Lay::W2P, W3P = Lay::W3P;
+  constexpr int S = N3P / 2, NG = S / 8, NVEC = 4 * HID + 2 * N3P, NT = HID / 8, N3T = N3P / 8;
+  constexpr int CPT = C1P / 8;  // 8-channel chunks of z1 a tap
   extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutF32 L(c, HID, s, TH, TW);
+  const Lay L(c, th, tw);
+  const uint32_t s0 = smem_addr(smem);
+  const float* s_w1 = reinterpret_cast<const float*>(smem + L.o_w1);
+  const float* s_w2 = reinterpret_cast<const float*>(smem + L.o_w2);
+  const float* s_w3 = reinterpret_cast<const float*>(smem + L.o_w3);
   float* s_z1 = reinterpret_cast<float*>(smem + L.o_z1);
-  float* s_h = reinterpret_cast<float*>(smem + L.o_h);
+  float* s_h2 = reinterpret_cast<float*>(smem + L.o_h2);
   float* s_zz = reinterpret_cast<float*>(smem + L.o_zz);
-  float* s_wt = reinterpret_cast<float*>(smem + L.o_wt);
-  float* s_ab = reinterpret_cast<float*>(smem + L.o_ab);
-  float* s_w2 = reinterpret_cast<float*>(smem + L.o_w2);
-  float* s_w = reinterpret_cast<float*>(smem + L.o_w);
-  const int tid = threadIdx.x, c1 = L.c1, c2 = L.c2, n3 = 2 * s;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const float* s_vec = reinterpret_cast<const float*>(smem + L.o_vec);
+  const float* s_wt = reinterpret_cast<const float*>(smem + L.o_wt);
+  const float* s_ab = reinterpret_cast<const float*>(smem + L.o_ab);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int c1 = L.c1, c2 = L.c2, x0 = blockIdx.x * tw, y0 = blockIdx.y * th;
   const size_t img = size_t(blockIdx.z) * H * W;
-  const float* b1 = vec;
-  const float* e1 = vec + HID;
-  const float* b2 = vec + 2 * HID;
-  const float* e2 = vec + 3 * HID;
-  const float* g3 = vec + 4 * HID;
-  const float* bg3 = g3 + n3;
 
-  // ---- the step's weights (w1's real rows, w2), Wt (transposed to [k][o]) and ab:
-  // independent of the previous step, so copied before waiting for it; then z
-  for (int t = 0; t < 9; ++t) copy4(s_w + t * c1 * HID, w1 + size_t(t) * c1p * HID, c1 * HID / 4);
-  copy4(s_w2, w2, HID * HID / 4);
-  for (int i = tid; i < c * c; i += NTHREADS) s_wt[(i % c) * L.cq + i / c] = wt[i];
-  for (int i = tid; i < c; i += NTHREADS) s_ab[i] = ab[i];
+  // ---- w1, w2, the vectors, Wt (transposed to [k][o]) and ab by cp.async: independent
+  // of the previous step, so copied before waiting for it
+  for (int i = tid; i < 9 * C1P * NT * 2; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w1 + ((i / (2 * NT)) * W1P + i % (2 * NT) * 4) * 4,
+                        w1 + i * 4, true);
+  for (int i = tid; i < HID * NT * 2; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_w2 + ((i / (2 * NT)) * W2P + i % (2 * NT) * 4) * 4,
+                        w2 + i * 4, true);
+  for (int i = tid; i < NVEC / 4; i += NTHREADS)
+    conv3x3::cp_async16(s0 + L.o_vec + i * 16, vec + 4 * i, true);
+  for (int i = tid; i < c * c; i += NTHREADS)
+    cp_async4(s0 + L.o_wt + ((i % c) * L.cq + i / c) * 4, wt + i);
+  for (int i = tid; i < c; i += NTHREADS) cp_async4(s0 + L.o_ab + i * 4, ab + i);
+  conv3x3::cp_async_commit();
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  for (int i = tid; i < (TH + 4) * L.zw * c1; i += NTHREADS) {
-    const int px = i / c1, k = i % c1;
+
+  // ---- z1 with a 2-pixel halo, [pixel][ZP]; zero outside the image and from channel
+  // c1 on
+  for (int i = tid; i < (th + 4) * L.zw * CPT * 2; i += NTHREADS) {
+    const int px = i / (2 * CPT), part = i % (2 * CPT);
     const int gy = y0 - 2 + px / L.zw, gx = x0 - 2 + px % L.zw;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    s_z1[px * L.zp + k] = in ? zin[(img + size_t(gy) * W + gx) * c + k] : 0.f;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const float* src = zin + (img + size_t(gy) * W + gx) * c + part * 4;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (part * 4 + k < c1) f[k] = src[k];
+    }
+    *reinterpret_cast<float4*>(s_z1 + px * ZP + part * 4) = make_float4(f[0], f[1], f[2], f[3]);
   }
-  for (int i = tid; i < TH * TW * c; i += NTHREADS) {
-    const int p = i / c, gy = y0 + p / TW, gx = x0 + p % TW;
-    s_zz[i] = gy < H && gx < W ? zin[(img + size_t(gy) * W + gx) * c + i % c] : 0.f;
-  }
+  conv3x3::cp_async_wait<0>();
   __syncthreads();
 
-  // ---- conv1 (+ cond term, b1, x e1, ReLU) into h: pixels r_j = q + PQ j of the h
-  // region x outputs 8g..8g+7
-  const bool item12 = tid < NT * PQ;
-  const int g = tid / PQ, q = tid % PQ;
-  if (item12) {
-    int zoff[PX];
+  const float* b1 = s_vec;
+  const float* e1 = s_vec + HID;
+  const float* b2 = s_vec + 2 * HID;
+  const float* e2 = s_vec + 3 * HID;
+  const float* g3 = s_vec + 4 * HID;
+  const float* bg3 = g3 + N3P;
+
+  // ---- conv1 (+ cond term) and conv2 over the h region, 16 pixels a warp at a time
+  for (int mt = warp; mt < L.mt12; mt += NWARPS) {
+    const int ra = min(mt * 16 + lane % 16, L.hr - 1);  // this lane's A row (pixel)
+    const uint32_t a1 = s0 + L.o_z1 + ((ra / L.hw2 * L.zw + ra % L.hw2) * ZP + lane / 16 * 4) * 4;
+    float acc[NT][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int r = min(q + PQ * j, L.hr - 1);
-      zoff[j] = ((r / L.hw2) * L.zw + r % L.hw2) * L.zp;
-    }
-    float acc[PX][8] = {};
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * L.zw + tap % 3) * L.zp;
-      const float* wr = s_w + tap * c1 * HID + 8 * g;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    // k step j: tap j / CPT, channels 8 (j % CPT) ..; w1 row j * 8 + k
 #pragma unroll 2
-      for (int k = 0; k < c1; ++k) {
-        float a[PX];
+    for (int j = 0; j < Lay::KS1; ++j) {
+      const int tap = j / CPT;
+      uint32_t a[4], ah[4], al[4];
+      conv3x3::ldsm_x4(a, a1 + (((tap / 3) * L.zw + tap % 3) * ZP + j % CPT * 8) * 4);
+      conv3x3::split_tf32(a, ah, al);
+      const float* wr = s_w1 + (j * 8 + q) * W1P + g;
 #pragma unroll
-        for (int j = 0; j < PX; ++j) a[j] = s_z1[zoff[j] + toff + k];
-        fma4x8(acc, a, wr + k * HID);
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        conv3x3::split_tf32(__float_as_uint(wr[8 * nt]), bh0, bl0);
+        conv3x3::split_tf32(__float_as_uint(wr[4 * W1P + 8 * nt]), bh1, bl1);
+        conv3x3::mma_3xtf32(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3], ah, al, bh0, bh1, bl0,
+                            bl1);
       }
     }
+    // the rows this thread's sums belong to: pixels r[h] = mt*16 + g + 8h
+    bool in[2];
 #pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int r = q + PQ * j;
-      if (r >= L.hr) break;
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
       const int gy = y0 - 1 + r / L.hw2, gx = x0 - 1 + r % L.hw2;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const float* u = uc != nullptr && in ? uc + (img + size_t(gy) * W + gx) * uc_stride : nullptr;
+      in[h] = r < L.hr && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float* u = uc != nullptr && in[h] ? uc + (img + size_t(gy) * W + gx) * uc_stride
+                                              : nullptr;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int o = 8 * g + e;
-        const float h = u != nullptr ? acc[j][e] + u[o] : acc[j][e];
-        s_h[r * L.hp + o] = fmaxf((h + b1[o]) * e1[o], 0.f);
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = 8 * nt + 2 * q;
+        const float2 uf = u != nullptr ? *reinterpret_cast<const float2*>(u + j)
+                                       : make_float2(0.f, 0.f);
+        acc[nt][2 * h] = fmaxf((acc[nt][2 * h] + uf.x + b1[j]) * e1[j], 0.f);
+        acc[nt][2 * h + 1] = fmaxf((acc[nt][2 * h + 1] + uf.y + b1[j + 1]) * e1[j + 1], 0.f);
+      }
+    }
+    // conv2: h1 (conv1's epilogue, in acc) is its A; k step ks = n8 tile ks of h1, A
+    // fragment {c0, c2, c1, c3} = channels 8 ks + 2q (rows g, g + 8), 8 ks + 2q + 1
+    float acc2[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const uint32_t a[4] = {__float_as_uint(acc[ks][0]), __float_as_uint(acc[ks][2]),
+                             __float_as_uint(acc[ks][1]), __float_as_uint(acc[ks][3])};
+      uint32_t ah[4], al[4];
+      conv3x3::split_tf32(a, ah, al);
+      const float* wr = s_w2 + (8 * ks + 2 * q) * W2P + g;
+#pragma unroll
+      for (int np = 0; np < NT; ++np) {
+        uint32_t bh0, bl0, bh1, bl1;
+        conv3x3::split_tf32(__float_as_uint(wr[8 * np]), bh0, bl0);
+        conv3x3::split_tf32(__float_as_uint(wr[W2P + 8 * np]), bh1, bl1);
+        conv3x3::mma_3xtf32(acc2[np][0], acc2[np][1], acc2[np][2], acc2[np][3], ah, al, bh0, bh1,
+                            bl0, bl1);
+      }
+    }
+    // conv2's epilogue into h2; zero outside the image (conv3's padding)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (r >= L.hr) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = 8 * nt + 2 * q;
+        const float v0 = in[h] ? fmaxf((acc2[nt][2 * h] + b2[j]) * e2[j], 0.f) : 0.f;
+        const float v1 = in[h] ? fmaxf((acc2[nt][2 * h + 1] + b2[j + 1]) * e2[j + 1], 0.f) : 0.f;
+        *reinterpret_cast<float2*>(s_h2 + r * HP + j) = make_float2(v0, v1);
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // h2 is complete; z1, w1 and w2 are no longer read
 
-  // ---- conv2 (1x1, b2, x e2, ReLU) over h in place: each thread sums from its pixels'
-  // h1 rows before the barrier and writes h2 after it; zero outside the image (conv3's
-  // padding)
-  float acc2[PX][8] = {};
-  if (item12) {
-    int hoff[PX];
-#pragma unroll
-    for (int j = 0; j < PX; ++j) hoff[j] = min(q + PQ * j, L.hr - 1) * L.hp;
-#pragma unroll 4
-    for (int k = 0; k < HID; ++k) {
-      float a[PX];
-#pragma unroll
-      for (int j = 0; j < PX; ++j) a[j] = s_h[hoff[j] + k];
-      fma4x8(acc2, a, s_w2 + k * HID + 8 * g);
-    }
+  // ---- the tile's float32 z (rows of the tile are runs of z)
+  const int wv = min(tw, W - x0);
+  for (int ty = 0; ty < th && y0 + ty < H; ++ty) {
+    const float* src = zin + (img + size_t(y0 + ty) * W + x0) * c;
+    for (int i = tid; i < wv * c; i += NTHREADS)
+      cp_async4(s0 + L.o_zz + (ty * tw * c + i) * 4, src + i);
   }
-  __syncthreads();
-  if (item12) {
+  // ---- conv3 over the tile, w3 a row of three taps at a time: M tile mi = warp + k
+  // NWARPS of the tile x the N3T n8 tiles [shift (NG) | scale (NG)]
+  float acc3[MAX_MT3][N3T][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int r = q + PQ * j;
-      if (r >= L.hr) break;
-      const int gy = y0 - 1 + r / L.hw2, gx = x0 - 1 + r % L.hw2;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+  for (int k = 0; k < MAX_MT3; ++k)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int o = 8 * g + e;
-        s_h[r * L.hp + o] = in ? fmaxf((acc2[j][e] + b2[o]) * e2[o], 0.f) : 0.f;
-      }
-    }
-  }
-
-  // ---- conv3 over the tile ([shift | scale], x g3 + bg3), w3 staged a row of taps at
-  // a time, then the affine inverse on the staged z: z2 = z2 * exp(-logscale) - shift.
-  // An item is a tile pixel x shift columns 4g..4g+3 and scale columns S + 4g..
-  const int items3 = (c2 + 3) / 4 * TH * TW;
-  float a0[F32_ITEMS3][4] = {}, a1[F32_ITEMS3][4] = {};
+    for (int n = 0; n < N3T; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc3[k][n][e] = 0.f;
   for (int row = 0; row < 3; ++row) {
-    __syncthreads();  // h2 is complete; the weight region is free
-    copy4(s_w, w3 + size_t(row) * 3 * HID * n3, 3 * HID * n3 / 4);
+    if (row) __syncthreads();  // the previous row's taps are no longer read
+    for (int i = tid; i < 3 * HID * (N3P / 4); i += NTHREADS)
+      conv3x3::cp_async16(s0 + L.o_w3 + ((i / (N3P / 4)) * W3P + i % (N3P / 4) * 4) * 4,
+                          w3 + (size_t(row) * 3 * HID * N3P + i * 4), true);
+    conv3x3::cp_async_commit();
+    conv3x3::cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
-    for (int it = 0; it < F32_ITEMS3; ++it) {
-      const int i = tid + it * NTHREADS;
-      if (i >= items3) break;
-      const int g3i = i / (TH * TW), p = i % (TH * TW), py = p / TW, px = p % TW;
+    for (int k = 0; k < MAX_MT3; ++k) {
+      const int mi = warp + k * NWARPS;
+      if (mi >= L.mt3) break;
+      const int ra = min(mi * 16 + lane % 16, th * tw - 1);
+      const uint32_t a3 = s0 + L.o_h2 + ((ra / tw * L.hw2 + ra % tw) * HP + lane / 16 * 4) * 4;
+#pragma unroll
       for (int t = 0; t < 3; ++t) {
-        const float* hrow = s_h + ((py + row) * L.hw2 + px + t) * L.hp;
-        const float* wr = s_w + t * HID * n3 + 4 * g3i;
-#pragma unroll 4
-        for (int k = 0; k < HID; ++k) {
-          const float h = hrow[k];
-          const float4 ws = *reinterpret_cast<const float4*>(wr + k * n3);
-          const float4 wc = *reinterpret_cast<const float4*>(wr + k * n3 + s);
-          a0[it][0] = fmaf(h, ws.x, a0[it][0]);
-          a0[it][1] = fmaf(h, ws.y, a0[it][1]);
-          a0[it][2] = fmaf(h, ws.z, a0[it][2]);
-          a0[it][3] = fmaf(h, ws.w, a0[it][3]);
-          a1[it][0] = fmaf(h, wc.x, a1[it][0]);
-          a1[it][1] = fmaf(h, wc.y, a1[it][1]);
-          a1[it][2] = fmaf(h, wc.z, a1[it][2]);
-          a1[it][3] = fmaf(h, wc.w, a1[it][3]);
+        const uint32_t at = a3 + ((row * L.hw2 + t) * HP) * 4;
+        const float* wr = s_w3 + (t * HID + q) * W3P + g;
+#pragma unroll 2
+        for (int ks = 0; ks < HID / 8; ++ks) {
+          uint32_t a[4], ah[4], al[4];
+          conv3x3::ldsm_x4(a, at + ks * 32);
+          conv3x3::split_tf32(a, ah, al);
+#pragma unroll
+          for (int n = 0; n < N3T; ++n) {
+            const float* w = wr + ks * 8 * W3P + 8 * n;
+            uint32_t bh0, bl0, bh1, bl1;
+            conv3x3::split_tf32(__float_as_uint(w[0]), bh0, bl0);
+            conv3x3::split_tf32(__float_as_uint(w[4 * W3P]), bh1, bl1);
+            conv3x3::mma_3xtf32(acc3[k][n][0], acc3[k][n][1], acc3[k][n][2], acc3[k][n][3], ah,
+                                al, bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
   }
+  // ---- the affine inverse on the staged z, float32: z2 = z2 * exp(-logscale) - shift
 #pragma unroll
-  for (int it = 0; it < F32_ITEMS3; ++it) {
-    const int i = tid + it * NTHREADS;
-    if (i >= items3) break;
-    const int g3i = i / (TH * TW), p = i % (TH * TW);
-    if (y0 + p / TW >= H || x0 + p % TW >= W) continue;
+  for (int k = 0; k < MAX_MT3; ++k) {
+    const int mi = warp + k * NWARPS;
+    if (mi >= L.mt3) break;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 4 * g3i + e;
-      if (j >= c2) break;
-      const float shift = fmaf(a0[it][e], g3[j], bg3[j]);
-      const float scale = fmaf(a1[it][e], g3[s + j], bg3[s + j]);
-      const float ls = 0.318f * atanf(2.f * scale);
-      float* zz = s_zz + p * c + c1 + j;
-      *zz = *zz * expf(-ls) - shift;
+    for (int h = 0; h < 2; ++h) {
+      const int p = mi * 16 + g + 8 * h;
+      if (p >= th * tw || y0 + p / tw >= H || x0 + p % tw >= W) continue;
+#pragma unroll
+      for (int pr = 0; pr < NG; ++pr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = 8 * pr + 2 * q + e;
+          if (jj >= c2) continue;
+          const float shift = fmaf(acc3[k][pr][2 * h + e], g3[jj], bg3[jj]);
+          const float scale = fmaf(acc3[k][NG + pr][2 * h + e], g3[S + jj], bg3[S + jj]);
+          const float ls = 0.318f * atanf(2.f * scale);
+          float* zz = s_zz + p * c + c1 + jj;
+          *zz = *zz * expf(-ls) - shift;
+        }
     }
   }
   __syncthreads();
 
-  tail(s_zz, s_wt, s_ab, zout, img, H, W, c, L.cq, x0, y0, TH, TW);
+  // ---- fused invconv^-1 + actnorm^-1
+  tail(s_zz, s_wt, s_ab, zout, img, H, W, c, L.cq, x0, y0, th, tw);
 }
 
 // ------------------------------------------------------------------------ launch
@@ -692,18 +735,19 @@ struct Plan {
 // the one that does the least padded work (M-tile rows x products of conv1/2 and
 // conv3, over the grid) among those whose grid covers every SM with two blocks fitting
 // an SM; else among those that cover every SM; else the one with the most blocks.
-template <int HID, int C1P, int N3P>
+// Lay: the bf16 kernel's Layout or the float32 kernel's LayoutF32; CAP_MT3: only tiles
+// whose conv3 M tiles fit the warps' registers (the float32 kernel holds them there).
+template <class Lay, int N3P, bool CAP_MT3>
 Plan pick_tile(int B, int H, int W, int c, int nsm) {
   static constexpr int TILES[][2] = {{16, 16}, {8, 20}, {10, 10}, {8, 16}, {8, 8}, {4, 10}, {4, 8}};
-  using Lay = Layout<HID, C1P, N3P>;
   Plan best{0, 0, 0, 0};
   long best_key[3] = {0, 0, 0};
   for (const auto& t : TILES) {
     const Lay L(c, t[0], t[1]);
-    if (L.bytes > MAX_SMEM) continue;
+    if (L.bytes > MAX_SMEM || (CAP_MT3 && L.mt3 > MAX_MT3 * NWARPS)) continue;
     const int blocks = B * ((H + t[0] - 1) / t[0]) * ((W + t[1] - 1) / t[1]);
     const long work = long(blocks) * (L.mt12 * Lay::MMA12 + L.mt3 * Lay::MMA3 * (N3P / 16));
-    const bool covers = blocks >= nsm, two = 2 * (L.bytes + 1024) <= SM_BYTES;
+    const bool covers = blocks >= nsm, two = 2 * (L.bytes + 1024) <= SM_SMEM;
     const long key[3] = {covers ? 0 : 1, covers && two ? 0 : 1, covers ? work : -blocks};
     if (best.blocks == 0 || key[0] < best_key[0] ||
         (key[0] == best_key[0] &&
@@ -752,36 +796,37 @@ cudaError_t with_widths(int c, Fn fn) {
   return cudaErrorInvalidValue;
 }
 
-// The bf16 kernel's plan, or the float32 kernel's fixed tile, for one step.
+// The tile plan of one step: the bf16 kernel's or the float32 kernel's.
 cudaError_t plan_step(int B, int H, int W, int c, int hid, bool f32, Plan* p) {
-  if (f32)
-    return with_hid(hid, [&](auto h) {
-      const LayoutF32 L(c, decltype(h)::value, up(c - c / 2, 8), F32_TH, F32_TW);
-      *p = {F32_TH, F32_TW, B * ((H + F32_TH - 1) / F32_TH) * ((W + F32_TW - 1) / F32_TW),
-            L.bytes};
-      return L.bytes <= MAX_SMEM ? cudaSuccess : cudaErrorInvalidValue;
-    });
   return with_hid(hid, [&](auto h) {
     return with_widths(c, [&](auto c1p, auto n3p) {
-      *p = pick_tile<decltype(h)::value, decltype(c1p)::value, decltype(n3p)::value>(B, H, W, c,
-                                                                                     num_sms());
+      constexpr int HID = decltype(h)::value, C1P = decltype(c1p)::value,
+                    N3P = decltype(n3p)::value;
+      *p = f32 ? pick_tile<LayoutF32<HID, C1P, N3P>, N3P, true>(B, H, W, c, num_sms())
+               : pick_tile<Layout<HID, C1P, N3P>, N3P, false>(B, H, W, c, num_sms());
       return p->blocks > 0 ? cudaSuccess : cudaErrorInvalidValue;
     });
   });
 }
 
-// fn(kernel, is_f32) for the step kernel of (c, hid, f32), both as constants
+// The element type of a step kernel's cond term and net weights, as a value
+template <class T>
+struct Elem {
+  using type = T;
+};
+
+// fn(kernel, Elem<T>) for the step kernel of (c, hid, f32), as a constant, and its
+// element type T: bf16 or float
 template <class Fn>
 cudaError_t with_kernel(int c, int hid, bool f32, Fn fn) {
   return with_hid(hid, [&](auto h) {
-    constexpr int HID = decltype(h)::value;
-    if (f32)
-      return fn(std::integral_constant<decltype(&chain_step_f32_kernel<HID>),
-                                       &chain_step_f32_kernel<HID>>(),
-                std::true_type());
     return with_widths(c, [&](auto c1p, auto n3p) {
-      constexpr auto K = &chain_step_mma_kernel<HID, decltype(c1p)::value, decltype(n3p)::value>;
-      return fn(std::integral_constant<decltype(K), K>(), std::false_type());
+      constexpr int HID = decltype(h)::value, C1P = decltype(c1p)::value,
+                    N3P = decltype(n3p)::value;
+      constexpr auto KB = &chain_step_mma_kernel<HID, C1P, N3P>;
+      constexpr auto KF = &chain_step_f32_kernel<HID, C1P, N3P>;
+      return f32 ? fn(std::integral_constant<decltype(KF), KF>(), Elem<float>())
+                 : fn(std::integral_constant<decltype(KB), KB>(), Elem<bf16>());
     });
   });
 }
@@ -831,8 +876,9 @@ int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const void*
   const char* cw2 = static_cast<const char*>(w2);
   const char* cw3 = static_cast<const char*>(w3);
   const char* cuc = static_cast<const char*>(uc);
-  return int(with_kernel(c, hid, f32 != 0, [&](auto k, auto is_f32) {
+  return int(with_kernel(c, hid, f32 != 0, [&](auto k, auto elem) {
     constexpr auto Kernel = decltype(k)::value;
+    using T = typename decltype(elem)::type;
     cudaError_t e = conv3x3::allow_smem<Kernel>(MAX_SMEM);
     if (e != cudaSuccess) return e;
     // Each step after the first may launch while the one before it runs (the kernel
@@ -856,17 +902,10 @@ int hcflow_chain_inverse(const float* zin, float* buf0, float* buf1, const void*
       const void* w1j = cw1 + j * sw1 * es;
       const void* w2j = cw2 + j * sw2 * es;
       const void* w3j = cw3 + j * sw3 * es;
-      if constexpr (!decltype(is_f32)::value)
-        e = cudaLaunchKernelEx(&cfg, Kernel, src, bufs[n % 2], static_cast<const bf16*>(ucj),
-                               K * hid, static_cast<const bf16*>(w1j), static_cast<const bf16*>(w2j),
-                               static_cast<const bf16*>(w3j), vec + j * svec, wt + size_t(j) * c * c,
-                               ab + size_t(j) * c, H, W, c, p.th, p.tw);
-      else
-        e = cudaLaunchKernelEx(&cfg, Kernel, src, bufs[n % 2], static_cast<const float*>(ucj),
-                               K * hid, static_cast<const float*>(w1j),
-                               static_cast<const float*>(w2j), static_cast<const float*>(w3j),
-                               vec + j * svec, wt + size_t(j) * c * c, ab + size_t(j) * c, H, W, c,
-                               c1p, s);
+      e = cudaLaunchKernelEx(&cfg, Kernel, src, bufs[n % 2], static_cast<const T*>(ucj), K * hid,
+                             static_cast<const T*>(w1j), static_cast<const T*>(w2j),
+                             static_cast<const T*>(w3j), vec + j * svec, wt + size_t(j) * c * c,
+                             ab + size_t(j) * c, H, W, c, p.th, p.tw);
       if (e != cudaSuccess) return e;
       src = bufs[n % 2];
     }

@@ -63,6 +63,27 @@
 // pairs of two pixels per 8x8 sub-tile) with the same float32 arithmetic and fmaf
 // order as before; chain3s's coupling, which needs channels that sit in different
 // threads, stages the sums through shared memory once (stage_acc).
+//
+// The float32 recipe (conv_tile_f32: float32 dense buffers and weights, which the
+// kernels take when the weights are float pointers) computes what the plain version
+// computes under exact_f32(): float32 operands and sums, no rounding of the features.
+// The card has no float32 tensor-core product, so each product is split in three TF32
+// ones (3xTF32): x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and a*b
+// ~ hi_a*hi_b + hi_a*lo_b + lo_a*hi_b, summed in float32: about 21 bits of each
+// operand, an error of ~2^-21 relative per product (single-pass TF32: 2^-11).  It runs
+// on mma.sync m16n8k8 .tf32 with the split in registers, not on wgmma: wgmma reads
+// both operands from shared memory, so hi and lo would both have to be staged (twice
+// the stage of a float32 chunk, already twice bf16's), and its .tf32 form takes only
+// K-major operands.  The tile, the two warpgroups and their M rows are those above:
+// warp w of warpgroup g computes rows 16w..16w+15 of each of its 64-row sub-tiles,
+// all COUT columns, as n8 tiles; mma.sync's m16n8 fragment then lays out every sum
+// where wgmma's does (Acc, for_each_pair and the epilogues serve both).  The ring
+// stages 8 input channels a chunk (one k8 step a tap) as float32, pixel rows of 12
+// floats (48 bytes: ldmatrix reads 8 consecutive pixels without bank conflicts), and
+// the weights K-major from the float32 pack (9, cout, cin) [tap][co][ci], rows of 12
+// floats; ldmatrix gives A (16 pixels x 8 channels, a tap is a start address) and B
+// (two n8 tiles x 8 channels) straight as TF32 fragments, and the threads split them.
+// 2 or 3 stages a COUT (stages_f32), so that 2 blocks fit an SM.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +110,27 @@ template <int COUT>
 __host__ __device__ constexpr int stage_bytes() { return IN_BYTES + 9 * CK * COUT * 2; }
 template <int COUT>
 __host__ __device__ constexpr int smem_bytes() { return STAGES * stage_bytes<COUT>(); }
+
+// The float32 (3xTF32) ring: 8 input channels a stage, rows of PITCH_F32 floats.
+constexpr int CK_F32 = 8, PITCH_F32 = 12, ROW_F32 = PITCH_F32 * 4;
+constexpr int IN_BYTES_F32 = IH * MAX_IW * ROW_F32;
+constexpr int SM_SMEM = 233472;  // shared memory of an SM; 1 KB of it reserved a block
+template <int COUT>
+__host__ __device__ constexpr int stage_bytes_f32() { return IN_BYTES_F32 + 9 * COUT * ROW_F32; }
+// 3 stages where two blocks of them fit an SM, else 2 (COUT 64)
+template <int COUT>
+__host__ __device__ constexpr int stages_f32() {
+  return 2 * (3 * stage_bytes_f32<COUT>() + 1024) <= SM_SMEM ? 3 : 2;
+}
+template <int COUT>
+__host__ __device__ constexpr int smem_bytes_f32() {
+  return stages_f32<COUT>() * stage_bytes_f32<COUT>();
+}
+// The dynamic shared memory of a tile-conv kernel whose dense buffers hold T
+template <int COUT, class T>
+__host__ __device__ constexpr int smem_for() {
+  return std::is_same<T, float>::value ? smem_bytes_f32<COUT>() : smem_bytes<COUT>();
+}
 
 // fn(std::integral_constant<int, MT>()) with the sub-tile count every launcher takes
 // for image width W: 16-pixel-wide tiles where they waste no more columns than
@@ -134,6 +176,47 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// x = hi + lo, hi and lo TF32 values, the ones cvt.rna.tf32.f32 gives (round to nearest,
+// ties away from zero): hi = rna(x), lo = rna(x - hi), x - hi exact in float32.  By bit
+// arithmetic, four full-rate operations (two cvt.rna and a subtraction took 40% of the
+// float32 chain kernel's time, PERF.md): a TF32 operand of mma is read from the top 19
+// bits of its register, so adding half a TF32 ulp (0x1000) to a finite float's bits
+// rounds its magnitude to nearest, ties away, once the product truncates the rest; hi's
+// value for the subtraction has those bits cleared.  (A NaN x gives a NaN lo.)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = x + 0x1000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+// d += a (16 x 8, row) * b (8 x 8, col); TF32 operands, float32 sums
+__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2, float& d3,
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a * b in float32 accuracy from split operands: the small products first
+__device__ __forceinline__ void mma_3xtf32(float& d0, float& d1, float& d2, float& d3,
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(d0, d1, d2, d3, al, bh0, bh1);
+  mma_tf32(d0, d1, d2, d3, ah, bl0, bl1);
+  mma_tf32(d0, d1, d2, d3, ah, bh0, bh1);
 }
 
 // wgmma shared-memory descriptor without swizzle; lbo, sbo in bytes
@@ -212,31 +295,44 @@ struct Wgmma<64> {
   }
 };
 
-// ------------------------------------------------------------------ bf16 staging
-// dense[p, c] = bf16(x[p, c]) for the n = pixels * C values of x (C channels) into
+// ------------------------------------------------------------------ dense staging
+// One or two float32 values into a dense buffer of T (bf16: rounded to nearest even)
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// dense[p, c] = T(x[p, c]) for the n = pixels * C values of x (C channels) into
 // dense (ctot channels; its others are not written), four values a thread (16-byte
 // loads; C and ctot are multiples of 4), grid-stride over the caller's grid.
-__device__ __forceinline__ void to_dense(const float* __restrict__ x, bf16* __restrict__ dense,
+template <class T>
+__device__ __forceinline__ void to_dense(const float* __restrict__ x, T* __restrict__ dense,
                                          int ctot, int C, size_t n) {
   for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n / 4;
        i += size_t(gridDim.x) * blockDim.x) {
     const float4 v = reinterpret_cast<const float4*>(x)[i];
     const size_t e = 4 * i;
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dense + (e / C) * ctot + e % C);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
+    T* d = dense + (e / C) * ctot + e % C;
+    store2(d, v.x, v.y);
+    store2(d + 2, v.z, v.w);
   }
 }
 
-__global__ void to_dense_kernel(const float* __restrict__ x, bf16* __restrict__ dense, int ctot,
+template <class T>
+__global__ void to_dense_kernel(const float* __restrict__ x, T* __restrict__ dense, int ctot,
                                 int C, size_t n) {
   to_dense(x, dense, ctot, C, n);
 }
 
-cudaError_t launch_to_dense(const float* x, bf16* dense, int ctot, int C, size_t n,
+template <class T>
+cudaError_t launch_to_dense(const float* x, T* dense, int ctot, int C, size_t n,
                             cudaStream_t stream) {
   const size_t blocks = (n / 4 + 255) / 256;
-  to_dense_kernel<<<unsigned(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(x, dense, ctot,
+  to_dense_kernel<T><<<unsigned(blocks < 65535 ? blocks : 65535), 256, 0, stream>>>(x, dense, ctot,
                                                                                  C, n);
   return cudaGetLastError();
 }
@@ -372,6 +468,119 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
   }
 }
 
+// Stage chunk c0 .. c0+7 of the tile at (x0, y0) (float32, ctot channels) and its
+// float32 weights (9, cin, COUT) [tap][co][ci] into one float32 ring stage: pixel rows
+// and weight rows of PITCH_F32 floats, zero outside the image.
+template <int COUT>
+__device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float* src, int ctot,
+                                               int c0, const float* w, int cin, int H, int W,
+                                               int IW, int x0, int y0, size_t img) {
+  const uint32_t s_in = smem_addr(stage), s_w = s_in + IN_BYTES_F32;
+  const int npx = IH * IW;
+  for (int i = threadIdx.x; i < 2 * npx; i += NTHREADS) {
+    const int part = i & 1, q = i >> 1;
+    const int gy = y0 - 1 + q / IW, gx = x0 - 1 + q % IW;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const size_t pix = img + size_t(gy) * W + gx;
+    cp_async16(s_in + q * ROW_F32 + part * 16, in ? src + pix * ctot + c0 + part * 4 : src, in);
+  }
+  for (int e = threadIdx.x; e < 9 * COUT * 2; e += NTHREADS) {
+    const int row = e >> 1, part = e & 1;  // row = tap * COUT + co
+    cp_async16(s_w + row * ROW_F32 + part * 16, w + size_t(row) * cin + c0 + part * 4, true);
+  }
+}
+
+// conv_tile in float32 (3xTF32 products on mma.sync; see the top of this file): src
+// (B,H,W,ctot) float32, channels [0, cin) read (cin a multiple of 8); w (9, COUT, cin)
+// float32 [tap][co][ci].  smem holds smem_bytes_f32<COUT>(); the sums are left in acc,
+// laid out as conv_tile's.  The chunks run in conv_tile's rotated order, and chunks,
+// taps and products in one fixed order, so every kernel that calls this gives
+// bit-identical sums for the same inputs.
+template <int COUT, int MT>
+__device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char* smem,
+                                              const float* __restrict__ src, int ctot, int cin,
+                                              const float* __restrict__ w, int H, int W, int x0,
+                                              int y0, int image) {
+  static_assert(COUT % 16 == 0 && COUT <= 64, "COUT must be 16, 32, 48 or 64");
+  static_assert(MT >= 1 && MT <= MAX_MT, "MT must be 1 or 2");
+  constexpr int S = stages_f32<COUT>(), SB = stage_bytes_f32<COUT>(), IW = 8 * MT + 2;
+  const int nchunks = cin / CK_F32, wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32,
+            lane = threadIdx.x % 32;
+  const size_t img = size_t(image) * H * W;
+  const int tx = (W + 8 * MT - 1) / (8 * MT), ty = (H + TH - 1) / TH;
+  const int first = ((image * ty + y0 / TH) * tx + x0 / (8 * MT)) % nchunks;
+  auto c0 = [&](int c) { return (c + first) % nchunks * CK_F32; };
+  // this lane's ldmatrix rows.  A: M row lane % 16 of the warp's 16 (pixel row 8 g + 2 w
+  // + m / 8, column m % 8 of a sub-tile), channels 4 (lane / 16) ..; B: n row 8 (lane /
+  // 16) + lane % 8 of an n8 pair, channels 4 (lane / 8 % 2) ..
+  const int am = lane % 16;
+  const uint32_t a_off = ((8 * wg + 2 * warp + am / 8) * IW + am % 8) * ROW_F32 + lane / 16 * 16;
+  const uint32_t b_off = (lane / 16 * 8 + lane % 8) * ROW_F32 + lane / 8 % 2 * 16;
+#pragma unroll
+  for (int s = 0; s < MT; ++s)
+#pragma unroll
+    for (int j = 0; j < COUT / 2; ++j) acc.v[s][j] = 0.f;
+
+  __syncthreads();  // the ring's last contents (another tile, an epilogue) are consumed
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nchunks)
+      load_chunk_f32<COUT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, IW, x0, y0, img);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<S - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();         // everyone's have; every warp is done with chunk c-1's stage
+    const uint32_t s_in = smem_addr(smem + c % S * SB) + a_off,
+                   s_w = smem_addr(smem + c % S * SB) + IN_BYTES_F32 + b_off;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int s = 0; s < MT; ++s) {
+        uint32_t a[4];
+        ldsm_x4(a, s_in + (dy * IW + 8 * s + dx) * ROW_F32);
+        split_tf32(a, ah[s], al[s]);
+      }
+#pragma unroll
+      for (int np = 0; np < COUT / 16; ++np) {
+        uint32_t b[4], bh[4], bl[4];  // n8 tile 2 np: b[0], b[1]; 2 np + 1: b[2], b[3]
+        ldsm_x4(b, s_w + (tap * COUT + 16 * np) * ROW_F32);
+        split_tf32(b, bh, bl);
+#pragma unroll
+        for (int s = 0; s < MT; ++s)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = 4 * (2 * np + j);
+            mma_3xtf32(acc.v[s][n], acc.v[s][n + 1], acc.v[s][n + 2], acc.v[s][n + 3], ah[s],
+                       al[s], bh[2 * j], bh[2 * j + 1], bl[2 * j], bl[2 * j + 1]);
+          }
+      }
+    }
+    // refill chunk c-1's stage (every warp left it before the barrier above)
+    const int next = c + S - 1;
+    if (next < nchunks)
+      load_chunk_f32<COUT>(smem + next % S * SB, src, ctot, c0(next), w, cin, H, W, IW, x0, y0,
+                           img);
+    cp_async_commit();
+  }
+}
+
+// The tile conv of a dense-block kernel whose buffers and weights hold T: bf16 on
+// wgmma (conv_tile), float32 in 3xTF32 (conv_tile_f32).
+template <int COUT, int MT, class T>
+__device__ __forceinline__ void conv_dense(Acc<COUT, MT>& acc, unsigned char* smem,
+                                           const T* __restrict__ src, int ctot, int cin,
+                                           const T* __restrict__ w, int H, int W, int x0, int y0,
+                                           int image) {
+  if constexpr (std::is_same<T, float>::value)
+    conv_tile_f32(acc, smem, src, ctot, cin, w, H, W, x0, y0, image);
+  else
+    conv_tile(acc, smem, src, ctot, cin, w, H, W, x0, y0, image);
+}
+
 // fn(pix, local, o, v0, v1) for each of this thread's accumulator pairs that lies in
 // the image: pix the pixel's index in (B,H,W), local its index in the tile (row-major,
 // width 8 MT), o the even output channel of v0 (v1 is channel o + 1).  In wgmma's
@@ -404,37 +613,38 @@ __device__ __forceinline__ void for_each_pair(const Acc<COUT, MT>& acc, int H, i
 template <int COUT, int MT>
 __device__ __forceinline__ void stage_acc(const Acc<COUT, MT>& acc, float* s_acc, int H, int W,
                                           int x0, int y0, int image) {
-  static_assert(TH * 8 * MT * COUT * 4 <= smem_bytes<COUT>(), "staging must fit the ring");
+  static_assert(TH * 8 * MT * COUT * 4 <= smem_bytes<COUT>() &&
+                    TH * 8 * MT * COUT * 4 <= smem_bytes_f32<COUT>(),
+                "staging must fit the ring");
   for_each_pair(acc, H, W, x0, y0, image,
                       [&](size_t, int local, int o, float v0, float v1) {
                         *reinterpret_cast<float2*>(s_acc + local * COUT + o) = make_float2(v0, v1);
                       });
 }
 
-// A dense-block feature conv's epilogue: dense[..., out_off + o] = bf16(lrelu_0.2(conv + bias)).
-template <int COUT, int MT>
-__device__ __forceinline__ void feature_store(const Acc<COUT, MT>& acc, bf16* dense, int ctot,
+// A dense-block feature conv's epilogue: dense[..., out_off + o] = T(lrelu_0.2(conv + bias)).
+template <int COUT, int MT, class T>
+__device__ __forceinline__ void feature_store(const Acc<COUT, MT>& acc, T* dense, int ctot,
                                               const float* __restrict__ bias, int out_off, int H,
                                               int W, int x0, int y0, int image) {
   for_each_pair(acc, H, W, x0, y0, image,
                       [&](size_t pix, int, int o, float v0, float v1) {
                         v0 += bias[o];
                         v1 += bias[o + 1];
-                        *reinterpret_cast<__nv_bfloat162*>(dense + pix * ctot + out_off + o) =
-                            __floats2bfloat162_rn(v0 > 0.f ? v0 : 0.2f * v0,
-                                                  v1 > 0.f ? v1 : 0.2f * v1);
+                        store2(dense + pix * ctot + out_off + o, v0 > 0.f ? v0 : 0.2f * v0,
+                               v1 > 0.f ? v1 : 0.2f * v1);
                       });
 }
 
 // A dense block's conv5 epilogue (rrdb.cu, rrdb_trunk.cu): x = 0.2 * (conv + b) +
 // xres; then, if xrrdb, x = 0.2 * x + xrrdb; xout = x and, if next, next[..., o] =
-// bf16(x) (next has ctot channels).  xres, xout and xrrdb are (B,H,W,COUT) float and
+// T(x) (next has ctot channels).  xres, xout and xrrdb are (B,H,W,COUT) float and
 // may alias one another: each element is read and then written by the same thread.
-template <int COUT, int MT>
+template <int COUT, int MT, class T>
 __device__ __forceinline__ void residual_store(const Acc<COUT, MT>& acc, int ctot,
                                                const float* __restrict__ bias,
                                                const float* xres, float* xout,
-                                               const float* xrrdb, bf16* next, int H, int W,
+                                               const float* xrrdb, T* next, int H, int W,
                                                int x0, int y0, int image) {
   for_each_pair(acc, H, W, x0, y0, image,
                       [&](size_t pix, int, int o, float v0, float v1) {
@@ -448,9 +658,7 @@ __device__ __forceinline__ void residual_store(const Acc<COUT, MT>& acc, int cto
                           b = fmaf(b, 0.2f, q.y);
                         }
                         *reinterpret_cast<float2*>(xout + e) = make_float2(a, b);
-                        if (next != nullptr)
-                          *reinterpret_cast<__nv_bfloat162*>(next + pix * ctot + o) =
-                              __floats2bfloat162_rn(a, b);
+                        if (next != nullptr) store2(next + pix * ctot + o, a, b);
                       });
 }
 
@@ -478,29 +686,30 @@ cudaError_t launch(dim3 g, int bytes, cudaStream_t stream, Args... args) {
   return cudaGetLastError();
 }
 
-// A dense-block feature conv: dense[..., out_off + o] = bf16(lrelu_0.2(conv + bias)).
-template <int COUT, int MT>
+// A dense-block feature conv: dense[..., out_off + o] = T(lrelu_0.2(conv + bias)).
+template <int COUT, int MT, class T>
 __global__ void __launch_bounds__(NTHREADS, 2)
-feature_kernel(bf16* __restrict__ dense, int ctot, int cin, const bf16* __restrict__ w,
+feature_kernel(T* __restrict__ dense, int ctot, int cin, const T* __restrict__ w,
                const float* __restrict__ bias, int out_off, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * TH;
   Acc<COUT, MT> acc;
-  conv_tile(acc, smem, dense, ctot, cin, w, H, W, x0, y0, blockIdx.z);
+  conv_dense(acc, smem, dense, ctot, cin, w, H, W, x0, y0, blockIdx.z);
   feature_store(acc, dense, ctot, bias, out_off, H, W, x0, y0, blockIdx.z);
 }
 
-template <int COUT>
-cudaError_t launch_feature(bf16* dense, int ctot, int cin, const bf16* w, const float* bias,
+template <int COUT, class T>
+cudaError_t launch_feature(T* dense, int ctot, int cin, const T* w, const float* bias,
                            int out_off, int B, int H, int W, cudaStream_t stream) {
   return with_mt(W, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
-    return launch<feature_kernel<COUT, MT>>(grid(B, H, W, MT), smem_bytes<COUT>(), stream, dense,
-                                            ctot, cin, w, bias, out_off, H, W);
+    return launch<feature_kernel<COUT, MT, T>>(grid(B, H, W, MT), smem_for<COUT, T>(), stream,
+                                               dense, ctot, cin, w, bias, out_off, H, W);
   });
 }
 
-cudaError_t launch_feature(int cout, bf16* dense, int ctot, int cin, const bf16* w,
+template <class T>
+cudaError_t launch_feature(int cout, T* dense, int ctot, int cin, const T* w,
                            const float* bias, int out_off, int B, int H, int W,
                            cudaStream_t stream) {
   switch (cout) {

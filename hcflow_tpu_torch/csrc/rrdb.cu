@@ -1,5 +1,6 @@
 // One RRDB (3 residual dense blocks) for Hopper (sm_90a), as 3x3 convolutions on
-// the warpgroup tensor cores (wgmma bf16, float32 accumulation).
+// the tensor cores: wgmma bf16 in the bf16 recipe, 3xTF32 mma.sync in the float32 one
+// (float32 accumulation in both).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel, called by
 // rrdb_apply).  Per dense block, with x the block input:
@@ -20,6 +21,13 @@
 // element is read and written by one thread) and writes its bf16 copy into the next
 // block's buffer (a second buffer, since neighbouring tiles still read this one).
 // rrdb_trunk.cu runs a whole trunk of these RRDBs in one launch.
+//
+// The float32 recipe (hcflow_rrdb_apply_f32; the JAX kernel runs it at
+// Precision.HIGHEST) keeps the same launches with float32 dense buffers and features
+// (no rounding), the products of conv3x3.cuh's conv_tile_f32: 3xTF32 on mma.sync, an
+// error of float32's order.  Bound: operations, at the float32 rates: 2.58 TFLOP an
+// x4 pass is 38.5 ms at the 67 TFLOP/s of float32 outside the tensor cores and 15.6 ms
+// at the 165 TFLOP/s that three TF32 products a product leave of the 495 TF32 peak.
 
 #include "conv3x3.cuh"
 
@@ -29,35 +37,35 @@ using conv3x3::bf16;
 using conv3x3::NTHREADS;
 
 // conv5 of a dense block (conv3x3.cuh's residual_store): x = 0.2 * (conv + b) + xres;
-// then, if xrrdb, x = 0.2 * x + xrrdb; xout = x and, if next, next[..., o] = bf16(x).
-template <int COUT, int MT>
+// then, if xrrdb, x = 0.2 * x + xrrdb; xout = x and, if next, next[..., o] = T(x).
+template <int COUT, int MT, class T>
 __global__ void __launch_bounds__(NTHREADS, 2)
-residual_kernel(const bf16* __restrict__ dense, int ctot, const bf16* __restrict__ w,
+residual_kernel(const T* __restrict__ dense, int ctot, const T* __restrict__ w,
                 const float* __restrict__ bias, const float* xres, float* xout,
-                const float* xrrdb, bf16* __restrict__ next, int H, int W) {
+                const float* xrrdb, T* __restrict__ next, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * conv3x3::TH;
   conv3x3::Acc<COUT, MT> acc;
-  conv3x3::conv_tile(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
+  conv3x3::conv_dense(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
   conv3x3::residual_store(acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, blockIdx.z);
 }
 
-template <int COUT>
-cudaError_t launch_residual(const bf16* dense, int ctot, const bf16* w, const float* bias,
-                            const float* xres, float* xout, const float* xrrdb, bf16* next,
+template <int COUT, class T>
+cudaError_t launch_residual(const T* dense, int ctot, const T* w, const float* bias,
+                            const float* xres, float* xout, const float* xrrdb, T* next,
                             int B, int H, int W, cudaStream_t stream) {
   return conv3x3::with_mt(W, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
-    return conv3x3::launch<residual_kernel<COUT, MT>>(conv3x3::grid(B, H, W, MT),
-                                                      conv3x3::smem_bytes<COUT>(), stream, dense,
-                                                      ctot, w, bias, xres, xout, xrrdb, next, H, W);
+    return conv3x3::launch<residual_kernel<COUT, MT, T>>(
+        conv3x3::grid(B, H, W, MT), conv3x3::smem_for<COUT, T>(), stream, dense, ctot, w, bias,
+        xres, xout, xrrdb, next, H, W);
   });
 }
 
-cudaError_t launch_residual(int nf, const bf16* dense, int ctot, const bf16* w,
-                            const float* bias, const float* xres, float* xout,
-                            const float* xrrdb, bf16* next, int B, int H, int W,
-                            cudaStream_t stream) {
+template <class T>
+cudaError_t launch_residual(int nf, const T* dense, int ctot, const T* w, const float* bias,
+                            const float* xres, float* xout, const float* xrrdb, T* next, int B,
+                            int H, int W, cudaStream_t stream) {
   switch (nf) {
     case 16:
       return launch_residual<16>(dense, ctot, w, bias, xres, xout, xrrdb, next, B, H, W,
@@ -74,28 +82,19 @@ cudaError_t launch_residual(int nf, const bf16* dense, int ctot, const bf16* w,
 
 bool width_ok(int c) { return c == 16 || c == 32 || c == 64; }
 
-}  // namespace
-
-extern "C" {
-
-const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
-
-// One RRDB.  x, out: (B,H,W,nf) float32, distinct; dense0, dense1: (B,H,W,nf+4gc) bf16
-// scratch.  w[r*5 + i], bias[r*5 + i] (arrays of 15 device pointers, in host memory):
-// dense block r's conv i+1, weight (9, cin_i, cout_i) bf16, bias float.  nf and gc
-// are each 16, 32 or 64.  Makes 16 launches (one conversion, 15 convs); returns the
-// first CUDA error.
-int hcflow_rrdb_apply(const float* x, float* out, bf16* dense0, bf16* dense1,
-                      const bf16* const* w, const float* const* bias, int B, int H, int W,
-                      int nf, int gc, cudaStream_t stream) {
+// One RRDB with dense buffers and weights of T (the C entry points below)
+template <class T>
+int rrdb_apply(const float* x, float* out, T* dense0, T* dense1, const T* const* w,
+               const float* const* bias, int B, int H, int W, int nf, int gc,
+               cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || !width_ok(nf) || !width_ok(gc))
     return int(cudaErrorInvalidValue);
   const int ctot = nf + 4 * gc;
   cudaError_t err = conv3x3::launch_to_dense(x, dense0, ctot, nf, size_t(B) * H * W * nf, stream);
   if (err != cudaSuccess) return int(err);
-  bf16* dense[2] = {dense0, dense1};
+  T* dense[2] = {dense0, dense1};
   for (int r = 0; r < 3; ++r) {
-    bf16* d = dense[r % 2];
+    T* d = dense[r % 2];
     for (int i = 0; i < 4; ++i) {
       err = conv3x3::launch_feature(gc, d, ctot, nf + i * gc, w[r * 5 + i], bias[r * 5 + i],
                                     nf + i * gc, B, H, W, stream);
@@ -108,6 +107,31 @@ int hcflow_rrdb_apply(const float* x, float* out, bf16* dense0, bf16* dense1,
     if (err != cudaSuccess) return int(err);
   }
   return int(cudaSuccess);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
+
+// One RRDB, bf16 recipe.  x, out: (B,H,W,nf) float32, distinct; dense0, dense1:
+// (B,H,W,nf+4gc) bf16 scratch.  w[r*5 + i], bias[r*5 + i] (arrays of 15 device pointers,
+// in host memory): dense block r's conv i+1, weight (9, cin_i, cout_i) bf16 [tap][ci][co],
+// bias float.  nf and gc are each 16, 32 or 64.  Makes 16 launches (one conversion, 15
+// convs); returns the first CUDA error.
+int hcflow_rrdb_apply(const float* x, float* out, bf16* dense0, bf16* dense1,
+                      const bf16* const* w, const float* const* bias, int B, int H, int W,
+                      int nf, int gc, cudaStream_t stream) {
+  return rrdb_apply(x, out, dense0, dense1, w, bias, B, H, W, nf, gc, stream);
+}
+
+// One RRDB, float32 recipe (3xTF32 products): as hcflow_rrdb_apply with float32 dense
+// buffers and float32 weights (9, cout_i, cin_i) [tap][co][ci].  16 launches.
+int hcflow_rrdb_apply_f32(const float* x, float* out, float* dense0, float* dense1,
+                          const float* const* w, const float* const* bias, int B, int H, int W,
+                          int nf, int gc, cudaStream_t stream) {
+  return rrdb_apply(x, out, dense0, dense1, w, bias, B, H, W, nf, gc, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // A whole RRDB trunk (nb RRDBs of 3 residual dense blocks) in one cooperative launch
-// for Hopper (sm_90a), on the warpgroup tensor cores (wgmma bf16, float32 accumulation).
+// for Hopper (sm_90a), on the tensor cores (wgmma bf16 in the bf16 recipe, 3xTF32
+// mma.sync in the float32 one; float32 accumulation in both).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel_trunk, called
 // through _build_call_trunk by trunk_apply when the JAX package packs the trunk as one
@@ -32,9 +33,15 @@
 // them without a proxy fence).  Not carried over from the TPU kernel: its
 // scatter-by-source layout and its bf16 RRDB base (_FIT16), VMEM workarounds.
 //
-// Layouts: x, out, carry (B,H,W,nf) float32; dense0, dense1 (B,H,W,nf+4gc) bf16;
-// w[i] (3nb, 9, nf+i*gc, cout_i) bf16 [block][tap][ci][co], cout_i = gc for i < 4
-// and nf for i = 4; b[i] (3nb, cout_i) float32; dense block j = 3 * rrdb + r.
+// The float32 recipe (hcflow_rrdb_trunk_apply_f32) is the same kernel on float32 dense
+// buffers and weights, its convs conv3x3.cuh's conv_tile_f32 (bit-identical to the
+// float32 per-RRDB kernel, as the bf16 one is to its own); 88.1 KB of shared memory,
+// 2 blocks/SM.
+//
+// Layouts: x, out, carry (B,H,W,nf) float32; dense0, dense1 (B,H,W,nf+4gc) bf16
+// (float32); w[i] (3nb, 9, nf+i*gc, cout_i) bf16 [block][tap][ci][co] (float32: (3nb, 9,
+// cout_i, nf+i*gc) [block][tap][co][ci]), cout_i = gc for i < 4 and nf for i = 4; b[i]
+// (3nb, cout_i) float32; dense block j = 3 * rrdb + r.
 
 #include <cooperative_groups.h>
 
@@ -48,25 +55,27 @@ using conv3x3::bf16;
 using conv3x3::NTHREADS;
 using conv3x3::TH;
 
+// T: the dense buffers' and weights' type, bf16 or float (the float32 recipe)
+template <class T>
 struct TrunkArgs {
-  const float* x;    // the trunk's input, not written
-  float* out;        // the RRDB base, then the trunk's output
-  float* carry;      // the dense block's float32 carry
-  bf16* dense[2];    // dense block j works in dense[j % 2]
-  const bf16* w[5];  // conv i+1 of every dense block
+  const float* x;  // the trunk's input, not written
+  float* out;      // the RRDB base, then the trunk's output
+  float* carry;    // the dense block's float32 carry
+  T* dense[2];     // dense block j works in dense[j % 2]
+  const T* w[5];   // conv i+1 of every dense block
   const float* b[5];
   int B, H, W, nb;
 };
 
-template <int NF, int GC>
+template <int NF, int GC, class T>
 constexpr int trunk_smem() {
-  return conv3x3::smem_bytes<GC>() > conv3x3::smem_bytes<NF>() ? conv3x3::smem_bytes<GC>()
-                                                               : conv3x3::smem_bytes<NF>();
+  return conv3x3::smem_for<GC, T>() > conv3x3::smem_for<NF, T>() ? conv3x3::smem_for<GC, T>()
+                                                                 : conv3x3::smem_for<NF, T>();
 }
 
 // MT: 8x8 sub-tiles per warpgroup (conv3x3::with_mt)
-template <int NF, int GC, int MT>
-__global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
+template <int NF, int GC, int MT, class T>
+__global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CTOT = NF + 4 * GC, TW = 8 * MT;
   cg::grid_group grid = cg::this_grid();
@@ -78,16 +87,16 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
 
   const int blocks = 3 * a.nb;
   for (int j = 0; j < blocks; ++j) {
-    bf16* d = a.dense[j % 2];
+    T* d = a.dense[j % 2];
     for (int i = 0; i < 4; ++i) {
       grid.sync();  // conv i reads its predecessors' outputs, halos included
       const int cin = NF + i * GC;
-      const bf16* w = a.w[i] + size_t(j) * 9 * cin * GC;
+      const T* w = a.w[i] + size_t(j) * 9 * cin * GC;
       const float* bias = a.b[i] + size_t(j) * GC;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
         conv3x3::Acc<GC, MT> acc;
-        conv3x3::conv_tile(acc, smem, d, CTOT, cin, w, H, W, x0, y0, image);
+        conv3x3::conv_dense(acc, smem, d, CTOT, cin, w, H, W, x0, y0, image);
         conv3x3::feature_store(acc, d, CTOT, bias, cin, H, W, x0, y0, image);
       }
     }
@@ -100,24 +109,24 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs a) {
     const float* xres = r == 0 ? base : a.carry;
     float* xout = r == 2 ? a.out : a.carry;
     const float* xrrdb = r == 2 ? base : nullptr;
-    bf16* next = j + 1 < blocks ? a.dense[(j + 1) % 2] : nullptr;
-    const bf16* w = a.w[4] + size_t(j) * 9 * CTOT * NF;
+    T* next = j + 1 < blocks ? a.dense[(j + 1) % 2] : nullptr;
+    const T* w = a.w[4] + size_t(j) * 9 * CTOT * NF;
     const float* bias = a.b[4] + size_t(j) * NF;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
       conv3x3::Acc<NF, MT> acc;
-      conv3x3::conv_tile(acc, smem, d, CTOT, CTOT, w, H, W, x0, y0, image);
+      conv3x3::conv_dense(acc, smem, d, CTOT, CTOT, w, H, W, x0, y0, image);
       conv3x3::residual_store(acc, CTOT, bias, xres, xout, xrrdb, next, H, W, x0, y0, image);
     }
   }
 }
 
-template <int NF, int GC, int MT>
-cudaError_t launch_trunk(TrunkArgs a, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC, MT>);
-  constexpr int smem = trunk_smem<NF, GC>();
+template <int NF, int GC, int MT, class T>
+cudaError_t launch_trunk(TrunkArgs<T> a, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC, MT, T>);
+  constexpr int smem = trunk_smem<NF, GC, T>();
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = conv3x3::allow_smem<trunk_kernel<NF, GC, MT>>(smem);
+  cudaError_t err = conv3x3::allow_smem<trunk_kernel<NF, GC, MT, T>>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -135,15 +144,15 @@ cudaError_t launch_trunk(TrunkArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int NF, int GC>
-cudaError_t launch_trunk(const TrunkArgs& a, cudaStream_t stream) {
+template <int NF, int GC, class T>
+cudaError_t launch_trunk(const TrunkArgs<T>& a, cudaStream_t stream) {
   return conv3x3::with_mt(a.W, [&](auto mt) {
     return launch_trunk<NF, GC, decltype(mt)::value>(a, stream);
   });
 }
 
-template <int NF>
-cudaError_t launch_trunk(int gc, const TrunkArgs& a, cudaStream_t stream) {
+template <int NF, class T>
+cudaError_t launch_trunk(int gc, const TrunkArgs<T>& a, cudaStream_t stream) {
   switch (gc) {
     case 16: return launch_trunk<NF, 16>(a, stream);
     case 32: return launch_trunk<NF, 32>(a, stream);
@@ -152,22 +161,12 @@ cudaError_t launch_trunk(int gc, const TrunkArgs& a, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
-
-// A trunk of nb RRDBs.  x (B,H,W,nf) float32 is not written; out (same shape)
-// receives the result; carry (same shape) float32 and dense0, dense1 (B,H,W,nf+4gc)
-// bf16 are scratch.  w, b: host arrays of 5 device pointers (layouts above).  nf and
-// gc are each 16, 32 or 64.  One cooperative launch; returns its CUDA error
-// (cudaErrorNotSupported where the card has no cooperative launch).
-int hcflow_rrdb_trunk_apply(const float* x, float* out, float* carry, bf16* dense0,
-                            bf16* dense1, const bf16* const* w, const float* const* b, int B,
-                            int H, int W, int nf, int gc, int nb, cudaStream_t stream) {
+template <class T>
+int trunk_apply(const float* x, float* out, float* carry, T* dense0, T* dense1,
+                const T* const* w, const float* const* b, int B, int H, int W, int nf, int gc,
+                int nb, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || nb < 1) return int(cudaErrorInvalidValue);
-  TrunkArgs a{x, out, carry, {dense0, dense1}, {}, {}, B, H, W, nb};
+  TrunkArgs<T> a{x, out, carry, {dense0, dense1}, {}, {}, B, H, W, nb};
   for (int i = 0; i < 5; ++i) {
     a.w[i] = w[i];
     a.b[i] = b[i];
@@ -178,6 +177,32 @@ int hcflow_rrdb_trunk_apply(const float* x, float* out, float* carry, bf16* dens
     case 64: return int(launch_trunk<64>(gc, a, stream));
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* hcflow_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
+
+// A trunk of nb RRDBs, bf16 recipe.  x (B,H,W,nf) float32 is not written; out (same
+// shape) receives the result; carry (same shape) float32 and dense0, dense1
+// (B,H,W,nf+4gc) bf16 are scratch.  w, b: host arrays of 5 device pointers (layouts
+// above).  nf and gc are each 16, 32 or 64.  One cooperative launch; returns its CUDA
+// error (cudaErrorNotSupported where the card has no cooperative launch).
+int hcflow_rrdb_trunk_apply(const float* x, float* out, float* carry, bf16* dense0,
+                            bf16* dense1, const bf16* const* w, const float* const* b, int B,
+                            int H, int W, int nf, int gc, int nb, cudaStream_t stream) {
+  return trunk_apply(x, out, carry, dense0, dense1, w, b, B, H, W, nf, gc, nb, stream);
+}
+
+// The same trunk in the float32 recipe (3xTF32 products): float32 dense buffers and
+// weights w[i] (3nb, 9, cout_i, nf+i*gc) [block][tap][co][ci].  One cooperative launch.
+int hcflow_rrdb_trunk_apply_f32(const float* x, float* out, float* carry, float* dense0,
+                                float* dense1, const float* const* w, const float* const* b,
+                                int B, int H, int W, int nf, int gc, int nb,
+                                cudaStream_t stream) {
+  return trunk_apply(x, out, carry, dense0, dense1, w, b, B, H, W, nf, gc, nb, stream);
 }
 
 }  // extern "C"

@@ -23,8 +23,9 @@ encoders, float32 couplings), else in ``compute_dtype``; with ``remat_trunks`` a
 enabled each RRDB's activations are recomputed in the backward pass.  With packed
 weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the trunks run an
 RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch when packed with
-``resident_trunk``), in the forward as in the reverse, and the inverse steps the
-inverse-chain kernel (ops/chain.py); otherwise the plain step-by-step path runs.
+``resident_trunk``; bf16 or float32, as the encoder dtype is), in the forward as in the
+reverse, and the inverse steps the inverse-chain kernel (ops/chain.py); otherwise the
+plain step-by-step path runs.
 """
 
 from __future__ import annotations

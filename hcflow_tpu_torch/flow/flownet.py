@@ -262,24 +262,29 @@ class FlowNetSpec:
     def precompute_inference(self, params: dict, fused: bool = False,
                              resident_trunk: bool = False) -> dict:
         """Attach the invconv inverses for serving; with ``fused`` also pack, for the
-        serving path on the card, what the card's kernels take, as the JAX package
-        packs what its ``supported`` gates let through:
+        serving path on the card, what the card's kernels take, as the JAX package's
+        ``precompute_inference(fused="all")`` packs (hcflow_tpu/flow/flownet.py:297):
 
         - every Affine/FCN chain for the chain kernel (ops/chain.py), in the coupling
-          dtype: bf16 in the bf16 recipe, float32 in the float32 one and in the shipped
-          training recipe (bf16 encoders, float32 couplings);
-        - the alternating rescaling main chains for ops/chain3s.py, in the bf16 recipe
-          only (the kernel takes bf16);
-        - every RRDB trunk for the RRDB kernels when the encoder dtype (``encoder_dtype``,
-          else ``compute_dtype``) is bf16 (the kernels take bf16): per RRDB, or with
-          ``resident_trunk`` one stacked pack a trunk for the resident-trunk kernel, the
-          counterpart of the JAX package's ``HCFLOW_RDB_TRUNK=1``.
+          dtype;
+        - the alternating rescaling main chains for ops/chain3s.py, in the coupling
+          dtype;
+        - every RRDB trunk for the RRDB kernels (ops/rrdb.py), in the encoder dtype
+          (``encoder_dtype``, else ``compute_dtype``), when nf and gc are multiples of
+          8 (the JAX package's gate) and, for params on the card, widths the kernels
+          take (16, 32, 64; ``rrdb.packs_trunk``), other trunks running the plain path:
+          per RRDB, or with ``resident_trunk`` one stacked pack a trunk for the
+          resident-trunk kernel, the counterpart of the JAX package's
+          ``HCFLOW_RDB_TRUNK=1``.
 
-        So the bf16 recipe gets every pack; the shipped training recipe float32 chain
-        packs and bf16 trunk packs; the float32 recipe float32 chain packs only, its
-        trunks running the plain path.  The chain kernel takes hid 32 and 64; a pack at
-        another width or dtype still reaches its wrapper, which raises on the card.
-        Training params never carry packs (no kernel has a backward pass)."""
+        Each pack is bf16 or float32 as its dtype says, and every kernel takes both: the
+        bf16 recipe gets bf16 packs, the float32 recipe (the shipped test configs set no
+        ``compute_dtype``) float32 packs, whose kernels run 3xTF32 products (float32
+        accuracy), and the shipped training recipe (bf16 encoders, float32 couplings)
+        float32 chain packs and bf16 trunk packs.  A chain pack at a width the kernel
+        does not take (hid other than 32 or 64) still reaches its wrapper, which raises
+        on the card.  Training params never carry
+        packs (no kernel has a backward pass)."""
         new = {}
         for lv in self.levels:
             lp = dict(params[f"level{lv.level}"])
@@ -291,17 +296,17 @@ class FlowNetSpec:
             if fused:
                 cd = self.compute_dtype
                 if lv.n_main > 0 and lv.alternate_lrvsothers:
-                    if cd == "bfloat16":
-                        lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
+                    lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
                 elif lv.n_main > 0:
                     lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd, padded=True)
                 if so.n_flow_step > 0:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
                                                                    padded=True)
-                if so.encoder_compute_dtype == "bfloat16":
+                dev = cond["conv_first"]["w"].device
+                if rrdb.packs_trunk(so.rrdb_nf, so.rrdb_gc, dev):
                     for trunk in ("trunk0", "trunk1"):
                         cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(
-                            cond[trunk], "bfloat16", resident=resident_trunk)
+                            cond[trunk], so.encoder_compute_dtype, resident=resident_trunk)
             lp["cond"] = cond
             new[f"level{lv.level}"] = lp
         return new

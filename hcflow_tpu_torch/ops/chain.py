@@ -19,13 +19,15 @@ owns an output tile sized per shape (16x16 at 80x80, 8x20 at 40x40, 4x10 at 20x2
 batch 16 at hid 64; ``plan`` reports it).  It runs the three convs on tensor cores
 (``mma.sync`` m16n8k16, bf16 in, float32 sums) with h1 in registers and h2 in shared
 memory, and the tail in float32 on CUDA cores, so only z and the cond term touch
-device memory.  The float32 recipe (a float32 pack): the same step in float32 on CUDA
-cores (every product an ``fmaf`` of float32 operands, no TF32), 8x8 tiles, z1, h and
-the weights in shared memory, 4 pixels x 8 outputs a thread; it computes what the plain
-version computes under ``nets.exact_f32()``.  Bound: operations, barely (19-91 kFLOP per
-pixel of bf16 convs against 50-450 bytes); the least time is 0.01-0.05 ms per 13-step
-chain at the main path's shapes, and the kernel is bound by latency: the step's
-weights staged per block and three dependent convs on a small tile.  The kernel takes
+device memory.  The float32 recipe (a float32 pack): the same step with float32
+operands and sums, on tensor cores as ``mma.sync`` m16n8k8 TF32 products, each product
+split in three (3xTF32: ``x = hi + lo``, ``hi*hi + hi*lo + lo*hi``, an error of
+float32's order; no single-pass TF32), tiles by the same planner; it computes what the
+plain version computes under ``nets.exact_f32()``, and is bound by its products.  The
+bf16 recipe is bound by operations, barely (19-91 kFLOP per pixel of bf16 convs against
+50-450 bytes); the least time is 0.01-0.05 ms per 13-step chain at the main path's
+shapes, and the kernel is bound by latency: the step's weights staged per block and
+three dependent convs on a small tile.  The kernel takes
 the padded pack (``pack_inverse_chain(..., padded=True)``): c1 padded to 8 and shift
 and scale to 8 each, with zeros, so that shift j and scale j sit in one thread's
 fragment; the plain version reads either pack.
@@ -40,8 +42,8 @@ import torch
 from .. import _build
 from . import nets
 
-launches = 0  # chain-step kernel launches (one per flow step)
-launches_by = {}  # the same by variant: "bf16 hid 64", "f32 hid 32", ...
+# chain-step kernel launches (one per flow step), by variant: "bf16 hid 64", "f32 hid 32", ...
+launches_by = {}
 
 _FN = "hcflow_chain_inverse"
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -155,7 +157,6 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
 
 
 def _launch(packed, z, uc):
-    global launches
     K, c1, c, hid, _ = _dims(packed)
     B, H, W, cz = z.shape
     if cz != c or z.dtype != torch.float32:
@@ -190,7 +191,6 @@ def _launch(packed, z, uc):
         torch.cuda.current_stream(z.device).cuda_stream,
     )
     _build.check(lib, _FN, err)
-    launches += K
     key = f"{'f32' if nd == torch.float32 else 'bf16'} hid {hid}"
     launches_by[key] = launches_by.get(key, 0) + K
     return bufs[(K - 1) % 2]

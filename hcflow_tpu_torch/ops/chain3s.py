@@ -15,7 +15,9 @@ The chain's logdet does not depend on z (the Affine3shift inverse adds nothing, 
 the reference's convention, and ActNorm adds ``-sum(logs) * H * W``), so it is
 computed at pack time.  In the bf16 recipe the net input and the features x1..x4 are
 rounded to bf16 as conv operands and every sum is float32, as in the TPU kernel; z
-and the coupling stay float32.
+and the coupling stay float32.  In the float32 recipe (a float32 pack) nothing is
+rounded: the kernel's products are 3xTF32 (``csrc/conv3x3.cuh``'s ``conv_tile_f32``),
+an error of float32's order, as the JAX kernel runs them at ``Precision.HIGHEST``.
 
 On the card (``csrc/chain3s.cu``): one launch per dense-block conv plus one that
 copies z and stages the first net input, 1 + 5K per chain.  Bound: operations
@@ -34,9 +36,10 @@ import torch.nn.functional as F
 from .. import _build
 from . import nets
 
-launches = 0  # chain3s kernel launches (1 + 5 per flow step)
+launches_by = {}  # chain3s kernel launches (1 + 5 per flow step), by recipe: "bf16", "f32"
 
-_FN = "hcflow_chain3s_inverse"
+# the C entry points by the packed weights' dtype: the bf16 and the float32 recipe
+_FN = {torch.bfloat16: "hcflow_chain3s_inverse", torch.float32: "hcflow_chain3s_inverse_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
@@ -45,8 +48,9 @@ def _rup16(n: int) -> int:
 
 
 def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
-    """One dense block's weights as [tap][ci][co] with the net input padded to 16
-    channels (zero rows) and conv5's outputs permuted by ``perm`` and zero-padded."""
+    """One dense block's weights by ``nets.pack_taps`` (bf16 [tap][ci][co], float32
+    [tap][co][ci]) with the net input padded to 16 channels (zero rows) and conv5's
+    outputs permuted by ``perm`` and zero-padded."""
     pad_in = _rup16(cin) - cin
     ws, bs = [], []
     for i in range(1, 6):
@@ -57,8 +61,7 @@ def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
             pad_out = _rup16(fout) - fout
             w, b = F.pad(w, (0, 0, 0, 0, 0, 0, 0, pad_out)), F.pad(b, (0, pad_out))
         w = torch.cat([w[:, :cin], w.new_zeros(w.shape[0], pad_in, 3, 3), w[:, cin:]], 1)
-        cout, ci = w.shape[:2]
-        ws.append(w.permute(2, 3, 1, 0).reshape(9, ci, cout).to(nd))
+        ws.append(nets.pack_taps(w, nd))
         bs.append(b.float())
     return ws, bs
 
@@ -67,7 +70,8 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
     """Pack an alternating chain's per-step params for the kernel.
 
     Stacked per parity (``e``: even k, net input z1; ``o``: odd k, net input z2),
-    index k // 2: ``w{e,o}{1..5}`` (n, 9, cin_i, cout_i) in the net dtype, ``b{e,o}{1..5}``
+    index k // 2: ``w{e,o}{1..5}`` (n, 9, cin_i, cout_i) in the net dtype (float32: (n,
+    9, cout_i, cin_i), K-major), ``b{e,o}{1..5}``
     float32; the even conv5's outputs go from the even/odd "cross" split to
     [shift | scale].  ``an_s`` = exp(-logs) and ``an_b`` (K, c); ``logsum`` = the sum
     of every step's ActNorm logs.
@@ -93,7 +97,7 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
 
 def _dims(packed):
     K, c = packed["an_s"].shape
-    return K, c, packed["we1"].shape[3]
+    return K, c, nets.taps(packed["we1"]).shape[3]
 
 
 def inverse_chain3s_plain(packed: dict, z: torch.Tensor):
@@ -111,13 +115,13 @@ def inverse_chain3s_plain(packed: dict, z: torch.Tensor):
             tag, idx = "eo"[k % 2], k // 2
             z1, z2 = z[..., :3], z[..., 3:]
             x = z1 if k % 2 == 0 else z2
-            cin_pad = packed[f"w{tag}1"].shape[2]
+            cin_pad = nets.taps(packed[f"w{tag}1"]).shape[2]
             feats = [rnd(F.pad(x, (0, cin_pad - x.shape[-1])))]
             for i in range(1, 5):
-                h = nets.conv_taps(torch.cat(feats, -1), packed[f"w{tag}{i}"][idx],
+                h = nets.conv_taps(torch.cat(feats, -1), nets.taps(packed[f"w{tag}{i}"][idx]),
                                    packed[f"b{tag}{i}"][idx])
                 feats.append(rnd(nets.lrelu(h)))
-            p = nets.conv_taps(torch.cat(feats, -1), packed[f"w{tag}5"][idx],
+            p = nets.conv_taps(torch.cat(feats, -1), nets.taps(packed[f"w{tag}5"][idx]),
                                packed[f"b{tag}5"][idx])
             if k % 2 == 0:
                 shift, scale = p[..., :c2], p[..., c2 : 2 * c2]
@@ -139,26 +143,25 @@ def inverse_chain(packed: dict, z: torch.Tensor):
 
 
 def _launch(packed, z):
-    global launches
     K, c, gc = _dims(packed)
     B, H, W, cz = z.shape
     if cz != c or z.dtype != torch.float32:
         raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
     names = [f"{t}{i}" for t in "eo" for i in range(1, 6) if f"w{t}{i}" in packed]
-    if any(packed[f"w{n}"].dtype != torch.bfloat16 for n in names):
-        raise ValueError("the chain3s kernel takes the bf16 recipe's packed weights")
+    wd = nets.pack_dtype([packed[f"w{n}"] for n in names], "chain3s")
     if gc not in (16, 32, 64):
         raise ValueError(f"the chain3s kernel takes a growth of 16, 32 or 64, not {gc}")
-    cin_e, sp_e = packed["we1"].shape[2], packed["we5"].shape[3]
-    cin_o, sp_o = (packed["wo1"].shape[2], packed["wo5"].shape[3]) if K > 1 else (16, 16)
+    cin_e, sp_e = nets.taps(packed["we1"]).shape[2], nets.taps(packed["we5"]).shape[3]
+    cin_o, sp_o = ((nets.taps(packed["wo1"]).shape[2], nets.taps(packed["wo5"]).shape[3])
+                   if K > 1 else (16, 16))
     z = z.contiguous()
     tensors = [z, packed["an_s"], packed["an_b"]] + [packed[x + n] for x in "wb" for n in names]
     if not all(t.is_cuda and t.is_contiguous() for t in tensors):
         raise ValueError("chain3s kernel inputs must be contiguous CUDA tensors")
     out = torch.empty_like(z)
     # the padding channels of the net inputs are read and never written: zero them
-    dense_e = torch.zeros((B, H, W, cin_e + 4 * gc), dtype=torch.bfloat16, device=z.device)
-    dense_o = torch.zeros((B, H, W, cin_o + 4 * gc), dtype=torch.bfloat16, device=z.device)
+    dense_e = torch.zeros((B, H, W, cin_e + 4 * gc), dtype=wd, device=z.device)
+    dense_o = torch.zeros((B, H, W, cin_o + 4 * gc), dtype=wd, device=z.device)
     w_ptrs = (ctypes.c_void_p * (5 * K))()
     b_ptrs = (ctypes.c_void_p * (5 * K))()
     for k in range(K):
@@ -166,14 +169,16 @@ def _launch(packed, z):
         for i in range(5):
             w_ptrs[5 * k + i] = packed[f"w{tag}{i + 1}"][idx].data_ptr()
             b_ptrs[5 * k + i] = packed[f"b{tag}{i + 1}"][idx].data_ptr()
-    lib = _build.load("chain3s", _FN, _ARGTYPES)
-    err = lib.hcflow_chain3s_inverse(
+    fn = _FN[wd]
+    lib = _build.load("chain3s", fn, _ARGTYPES)
+    err = getattr(lib, fn)(
         z.data_ptr(), out.data_ptr(), dense_e.data_ptr(), dense_o.data_ptr(),
         ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
         packed["an_s"].data_ptr(), packed["an_b"].data_ptr(),
         B, H, W, c, gc, K, cin_e, cin_o, sp_e, sp_o,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
-    _build.check(lib, _FN, err)
-    launches += 1 + 5 * K
+    _build.check(lib, fn, err)
+    key = "f32" if wd == torch.float32 else "bf16"
+    launches_by[key] = launches_by.get(key, 0) + 1 + 5 * K
     return out, -packed["logsum"] * (H * W)

@@ -72,6 +72,32 @@ def conv_taps(x, w_tap, b=None) -> torch.Tensor:
     return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
 
 
+def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An OIHW 3x3 conv weight as the tile-conv kernels' pack (csrc/conv3x3.cuh) in
+    ``dtype``: bf16 as (9, cin, cout) ``[tap][ci][co]``; float32 K-major, (9, cout, cin)
+    ``[tap][co][ci]``, as the 3xTF32 products read it (tap = 3 * ky + kx)."""
+    cout, cin = w.shape[:2]
+    if dtype == torch.float32:
+        return w.permute(2, 3, 0, 1).reshape(9, cout, cin).float().contiguous()
+    return w.permute(2, 3, 1, 0).reshape(9, cin, cout).to(dtype).contiguous()
+
+
+def pack_dtype(ws, kernel: str) -> torch.dtype:
+    """The one dtype of a tile-conv kernel's packed weights ``ws``, bf16 or float32;
+    raises a ValueError on anything else (the kernels take one recipe a call)."""
+    dts = {w.dtype for w in ws}
+    if len(dts) != 1 or not dts <= {torch.bfloat16, torch.float32}:
+        raise ValueError(f"the {kernel} kernel takes bf16 or float32 packed weights, all of one "
+                         f"dtype, not {sorted(map(str, dts))}")
+    return dts.pop()
+
+
+def taps(w: torch.Tensor) -> torch.Tensor:
+    """A packed tile-conv weight (:func:`pack_taps`; leading axes allowed) as ``(...,
+    9, cin, cout)`` ``[tap][ci][co]``, a view."""
+    return w.transpose(-1, -2) if w.dtype == torch.float32 else w
+
+
 # ---------------------------------------------------------------------------- inits
 def _fans(shape):  # OIHW
     o, i, kh, kw = shape

@@ -59,10 +59,10 @@ def test_rrdb_kernel_matches_plain(gen, B, H, W, nf, gc):
     trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, nf, gc), gen)
     packed = rrdb.pack_rrdb(trunk[0], "bfloat16")
     x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
-    before = rrdb.launches
+    before = sum(rrdb.launches_by.values())
     got = rrdb.rrdb_apply(packed, x)
     torch.cuda.synchronize()
-    assert rrdb.launches == before + rrdb.LAUNCHES_PER_RRDB
+    assert sum(rrdb.launches_by.values()) == before + rrdb.LAUNCHES_PER_RRDB
     _close(got, rrdb.rrdb_apply_plain(packed, x))
 
 
@@ -75,10 +75,10 @@ def test_rrdb_trunk_kernel_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
     res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
     x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
     x0 = x.clone()
-    before = rrdb.trunk_launches
+    before = sum(rrdb.trunk_launches_by.values())
     got = rrdb.trunk_apply(res, x)
     torch.cuda.synchronize()
-    assert rrdb.trunk_launches == before + 1
+    assert sum(rrdb.trunk_launches_by.values()) == before + 1
     assert torch.equal(x, x0)  # the input is not written
     assert torch.equal(got, rrdb.trunk_apply(rrdb.pack_rrdb_trunk(trunk, "bfloat16"), x))
     _close(got, rrdb.trunk_apply_resident_plain(res, x))
@@ -118,10 +118,10 @@ def test_chain_kernel_matches_plain(gen, cond, c, K, H, W):
     if cond:
         u = torch.randn(2, H, W, 128, device="cuda", generator=gen)
         uc = stack.compute_u_contribs(spec, steps, u).to(torch.bfloat16).contiguous()
-    before = chain.launches
+    before = sum(chain.launches_by.values())
     got = chain.inverse_chain(packed, z, uc)
     torch.cuda.synchronize()
-    assert chain.launches == before + K
+    assert sum(chain.launches_by.values()) == before + K
     _close(got, chain.inverse_chain_plain(packed, z, uc))
 
 
@@ -143,10 +143,10 @@ def test_chain3s_kernel_matches_plain(gen, c, K, H, W):
                      gen)
     packed = chain3s.pack_inverse_chain3s(steps, "bfloat16")
     z = torch.randn(2, H, W, c, device="cuda", generator=gen)
-    before = chain3s.launches
+    before = sum(chain3s.launches_by.values())
     got, ld = chain3s.inverse_chain(packed, z)
     torch.cuda.synchronize()
-    assert chain3s.launches == before + 1 + 5 * K
+    assert sum(chain3s.launches_by.values()) == before + 1 + 5 * K
     ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
     _close(got, ref)
     assert torch.equal(ld, ld_ref)
@@ -174,16 +174,93 @@ def test_chain_kernel_widths_and_recipes(gen, cd, hid, cond, c, K, H, W):
     if cond:
         u = torch.randn(2, H, W, 128, device="cuda", generator=gen)
         uc = stack.compute_u_contribs(spec, steps, u).to(packed["w1"].dtype).contiguous()
-    before = chain.launches
+    before = sum(chain.launches_by.values())
     got = chain.inverse_chain(packed, z, uc)
     torch.cuda.synchronize()
-    assert chain.launches == before + K
+    assert sum(chain.launches_by.values()) == before + K
     ref = chain.inverse_chain_plain(packed, z, uc)
     assert torch.isfinite(got).all()
     tol = RTOL if cd else F32_RTOL
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
     p = chain.plan(2, H, W, c, hid=hid, f32=cd is None)
     assert p["blocks"] >= 1 and p["blocks_per_sm"] >= 1
+
+
+# The float32 recipe's RRDB, resident-trunk and chain3s kernels (3xTF32 products on
+# tensor cores) against their plain versions (float32, TF32 off): an error of float32's
+# order, ~2^-21 relative a product, summed over the 15 convs of an RRDB: 1e-5 of the
+# output's largest magnitude, as the float32 chain kernel.  Odd widths, gc 16 and nf 32.
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+@pytest.mark.parametrize("B,H,W", SHAPES)
+def test_rrdb_kernel_f32_matches_plain(gen, B, H, W, nf, gc):
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, nf, gc), gen)
+    packed = rrdb.pack_rrdb(trunk[0])
+    assert packed["w"][0].dtype == torch.float32
+    x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
+    before = rrdb.launches_by.get("f32", 0)
+    got = rrdb.rrdb_apply(packed, x)
+    torch.cuda.synchronize()
+    assert rrdb.launches_by["f32"] == before + rrdb.LAUNCHES_PER_RRDB
+    ref = rrdb.rrdb_apply_plain(packed, x)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21), (2, 20, 20)])
+def test_rrdb_trunk_kernel_f32_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
+    """The float32 resident trunk is bit-identical to the float32 per-RRDB kernel."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, nf, gc), gen)
+    res = rrdb.pack_rrdb_trunk(trunk, None, resident=True)
+    x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
+    before = rrdb.trunk_launches_by.get("f32", 0)
+    got = rrdb.trunk_apply(res, x)
+    torch.cuda.synchronize()
+    assert rrdb.trunk_launches_by["f32"] == before + 1
+    assert torch.equal(got, rrdb.trunk_apply(rrdb.pack_rrdb_trunk(trunk, None), x))
+    ref = rrdb.trunk_apply_resident_plain(res, x)
+    assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17), (6, 2, 21, 37)])
+def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W):
+    specs = [FlowStepSpec(in_channels=c, hidden_channels=32, flow_permutation="none",
+                          flow_coupling="Affine3shift", nn_module="DenseBlock",
+                          lr_vs_others=(k % 2 == 0)) for k in range(K)]
+    steps = _perturb([s.init(torch.Generator().manual_seed(3 + k)) for k, s in enumerate(specs)],
+                     gen)
+    packed = chain3s.pack_inverse_chain3s(steps)
+    z = torch.randn(2, H, W, c, device="cuda", generator=gen)
+    before = chain3s.launches_by.get("f32", 0)
+    got, ld = chain3s.inverse_chain(packed, z)
+    torch.cuda.synchronize()
+    assert chain3s.launches_by["f32"] == before + 1 + 5 * K
+    ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
+    assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
+    assert torch.equal(ld, ld_ref)
+
+
+def test_mixed_dtype_packs_raise(gen):
+    """The RRDB, trunk and chain3s kernels take bf16 or float32 packs, all of one
+    dtype: a pack that mixes them raises before any launch."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(9), 2, 32, 16), gen)
+    x = torch.randn(1, 8, 8, 32, device="cuda", generator=gen)
+    packed = rrdb.pack_rrdb(trunk[0])
+    packed["w"][3] = packed["w"][3].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="all of one dtype"):
+        rrdb.rrdb_apply(packed, x)
+    res = rrdb.pack_rrdb_trunk(trunk, "bfloat16", resident=True)
+    res["w"][4] = res["w"][4].float()
+    with pytest.raises(ValueError, match="all of one dtype"):
+        rrdb.trunk_apply(res, x)
+    specs = [FlowStepSpec(in_channels=12, hidden_channels=32, flow_permutation="none",
+                          flow_coupling="Affine3shift", nn_module="DenseBlock",
+                          lr_vs_others=(k % 2 == 0)) for k in range(2)]
+    pk = chain3s.pack_inverse_chain3s(
+        _perturb([s.init(torch.Generator().manual_seed(8)) for s in specs], gen))
+    pk["wo2"] = pk["wo2"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="all of one dtype"):
+        chain3s.inverse_chain(pk, torch.randn(1, 8, 8, 12, device="cuda", generator=gen))
 
 
 def test_kernel_wrappers_refuse_autograd(gen):
@@ -214,13 +291,15 @@ def test_kernel_wrappers_refuse_autograd(gen):
 
 
 # ------------------------------------------------- serving whole models on the card
-def _tiny_spec(cd, encoder_dtype=None):
-    """The topology of the tiny trained checkpoint (weights/ref_trained)."""
+def _tiny_spec(cd, encoder_dtype=None, **kw):
+    """The topology of the tiny trained checkpoint (weights/ref_trained), with the
+    changes kw makes."""
     from hcflow_tpu_torch.models import HCFlowSRSpec
 
     from _torch_port_util import TINY_CKPT
 
-    return HCFlowSRSpec.for_scale(4, compute_dtype=cd, encoder_dtype=encoder_dtype, **TINY_CKPT)
+    return HCFlowSRSpec.for_scale(4, compute_dtype=cd, encoder_dtype=encoder_dtype,
+                                  **dict(TINY_CKPT, **kw))
 
 
 # (compute_dtype, encoder_dtype): the bf16 serving recipe, the shipped training recipe
@@ -230,8 +309,8 @@ RECIPES = [("bfloat16", None), (None, "bfloat16"), (None, None)]
 
 @pytest.mark.parametrize("cd,ed", RECIPES)
 def test_precompute_inference_packs_what_the_kernels_take(gen, cd, ed):
-    """Chains packed in the coupling dtype, trunks only for bf16 encoders; the fused
-    reverse runs with the counted launches."""
+    """Chains packed in the coupling dtype, trunks in the encoder dtype (bf16 or
+    float32); the fused reverse runs with the counted launches."""
     model = _tiny_spec(cd, ed)
     params = model.init(0, device="cuda")
     pp = model.flow.precompute_inference(params, fused=True)
@@ -239,14 +318,47 @@ def test_precompute_inference_packs_what_the_kernels_take(gen, cd, ed):
     for lv in range(2):
         assert pp[f"level{lv}"]["main_fused"]["w1"].dtype == chain_dtype
         assert pp[f"level{lv}"]["cond"]["steps_fused"]["w1"].dtype == chain_dtype
-        assert ("trunk0_fused" in pp[f"level{lv}"]["cond"]) == ("bfloat16" in (cd, ed))
+        trunk_dtype = torch.bfloat16 if "bfloat16" in (cd, ed) else torch.float32
+        assert pp[f"level{lv}"]["cond"]["trunk0_fused"][0]["w"][0].dtype == trunk_dtype
     lr = torch.rand(2, 6, 7, 3, device="cuda", generator=gen)
-    chain.launches = rrdb.launches = 0
+    chain.launches_by.clear()
+    rrdb.launches_by.clear()
     out = model.reverse(pp, lr, 0.9, generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     assert out.shape == (2, 24, 28, 3) and torch.isfinite(out).all()
-    assert chain.launches == 4 * 4
-    assert rrdb.launches == (4 * rrdb.LAUNCHES_PER_RRDB * 2 if "bfloat16" in (cd, ed) else 0)
+    assert sum(chain.launches_by.values()) == 4 * 4
+    assert sum(rrdb.launches_by.values()) == 4 * rrdb.LAUNCHES_PER_RRDB * 2
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("gc", [8, 24])
+def test_trunks_at_other_widths_serve_plain(gen, cd, gc):
+    """A model whose gc passes JAX's gate but is not a width the RRDB kernels take (8,
+    24) packs no trunk on the card: its trunks run the plain path, its chains the chain
+    kernel, and the fused reverse matches the plain one."""
+    model = _tiny_spec(cd, rrdb_gc=gc)
+    params = _perturb(model.init(0, device="cuda"), gen)
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params)
+    for lv in range(2):
+        assert "trunk0_fused" not in fused[f"level{lv}"]["cond"]
+    lr = torch.rand(2, 6, 7, 3, device="cuda", generator=gen)
+    eps = [torch.randn(2, 12, 14, 6, device="cuda", generator=gen),
+           torch.randn(2, 6, 7, 21, device="cuda", generator=gen)]
+    chain.launches_by.clear()
+    rrdb.launches_by.clear()
+    with torch.no_grad():
+        got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
+        ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
+    torch.cuda.synchronize()
+    assert sum(chain.launches_by.values()) == 4 * 4 and not rrdb.launches_by
+    assert torch.isfinite(got).all()
+    d = (got - ref).abs()
+    if cd is None:
+        assert d.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert d.max().item() <= 5e-2 * ref.abs().max().item()
+        assert d.mean().item() <= 1e-2 * ref.abs().mean().item()
 
 
 @pytest.mark.parametrize("cd", ["bfloat16", None])
@@ -267,12 +379,12 @@ def test_tiny_checkpoint_served_fused(gen, cd):
     lr = torch.rand(2, 8, 8, 3, device="cuda", generator=gen)
     eps = [torch.randn(2, 16, 16, 6, device="cuda", generator=gen),
            torch.randn(2, 8, 8, 21, device="cuda", generator=gen)]
-    chain.launches = 0
+    chain.launches_by.clear()
     with torch.no_grad():
         got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
         ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
     torch.cuda.synchronize()
-    assert chain.launches == 16
+    assert sum(chain.launches_by.values()) == 16
     assert torch.isfinite(got).all()
     d = (got - ref).abs()
     if cd is None:  # float32 kernels against the float32 plain path

@@ -112,11 +112,13 @@ def test_rrdb_plain_matches_jax_trunk(cd, nf, gc, H, W):
 
 
 def test_rrdb_packing_layout():
-    """Packed weight k = 5 r + i is dense block r's conv i+1 as [tap][ci][co]."""
+    """Packed weight k = 5 r + i is dense block r's conv i+1, read as [tap][ci][co]
+    through nets.taps; a float32 pack holds it K-major, [tap][co][ci]."""
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator(), 1, 8, 4))
     packed = rrdb.pack_rrdb(trunk[0])
     assert len(packed["w"]) == 15 and len(packed["b"]) == 15
     w = trunk[0]["rdb2"]["conv3"]["w"]  # OIHW (4, 16, 3, 3)
-    assert packed["w"][7].shape == (9, 16, 4)
-    assert torch.equal(packed["w"][7][5], w[:, :, 1, 2].T)  # tap 5 = (ky 1, kx 2)
-    assert packed["w"][14].shape == (9, 24, 8)
+    assert packed["w"][7].shape == (9, 4, 16) and packed["w"][7].is_contiguous()
+    assert nets.taps(packed["w"][7]).shape == (9, 16, 4)
+    assert torch.equal(nets.taps(packed["w"][7])[5], w[:, :, 1, 2].T)  # tap 5 = (ky 1, kx 2)
+    assert nets.taps(packed["w"][14]).shape == (9, 24, 8)

@@ -55,8 +55,10 @@ def test_reverse_matches_jax(cd):
     for fused in (True, False):
         pp = model.flow.precompute_inference(params, fused=fused)
         assert ("main_fused" in pp["level0"]) == fused
-        # trunks are packed for bf16 encoders only (the RRDB kernels take bf16)
-        assert ("trunk0_fused" in pp["level1"]["cond"]) == (fused and cd == "bfloat16")
+        # trunks are packed in either recipe where JAX's fused="all" packs them: nf and
+        # gc multiples of 8 (hcflow_tpu/flow/flownet.py:374), which TINY's gc 4 is not
+        gate = TINY["rrdb_nf"] % 8 == 0 and TINY["rrdb_gc"] % 8 == 0
+        assert ("trunk0_fused" in pp["level1"]["cond"]) == (fused and gate)
         out = model.reverse(pp, lr, 0.9, eps_list=eps)
         assert out.shape == (B, 4 * LH, 4 * LW, 3)
         assert_close(out, ref, TOL[cd])
@@ -67,7 +69,8 @@ def test_reverse_sampling_heat_and_counters():
     on the CPU the kernel wrappers run their plain versions and count no launch."""
     model, params, lr, _, _ = _case("bfloat16")
     pp = model.flow.precompute_inference(params, fused=True)
-    chain.launches = rrdb.launches = 0
+    chain.launches_by.clear()
+    rrdb.launches_by.clear()
 
     def run(heat, seed):
         return model.reverse(pp, lr, heat, generator=torch.Generator().manual_seed(seed))
@@ -76,4 +79,4 @@ def test_reverse_sampling_heat_and_counters():
     a, b = run(0.9, 1), run(0.9, 2)
     assert torch.isfinite(a).all() and not torch.equal(a, b)
     assert torch.equal(a, run(0.9, 1))
-    assert chain.launches == 0 and rrdb.launches == 0
+    assert not chain.launches_by and not rrdb.launches_by

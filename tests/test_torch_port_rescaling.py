@@ -217,9 +217,12 @@ def test_chain3s_plain_matches_pallas_and_step_loop(cd, c, K):
 
 def test_chain3s_packing_layout():
     """Net inputs and conv5 outputs are zero-padded to 16 channels; the even conv5's
-    outputs go from the cross split to [shift | scale]."""
+    outputs go from the cross split to [shift | scale]; the float32 pack holds the
+    weights K-major ([tap][co][ci]), read as [tap][ci][co] through nets.taps."""
     _, _, steps = _chain(12, 3, None)
     packed = chain3s.pack_inverse_chain3s(steps)
+    assert packed["we1"].shape == (2, 9, 8, 16) and packed["we1"].is_contiguous()
+    packed = {k: nets.taps(v) if k[0] == "w" else v for k, v in packed.items()}
     assert packed["we1"].shape == (2, 9, 16, 8) and packed["wo1"].shape == (1, 9, 16, 8)
     assert packed["we2"].shape == (2, 9, 24, 8)
     assert packed["we5"].shape == (2, 9, 48, 32) and packed["wo5"].shape == (1, 9, 48, 16)
@@ -277,10 +280,11 @@ def test_reverse_matches_jax(cd):
     lr, eps = _t(ref["lr"]), [_t(e) for e in eps]
     for fused in (True, False):
         pp = model.flow.precompute_inference(params, fused=fused)
-        # chain3s and the RRDB kernels take bf16, so only the bf16 recipe packs for them
-        packs = fused and cd == "bfloat16"
-        assert ("main3s_fused" in pp["level0"]) == packs and "main_fused" not in pp["level0"]
-        assert ("trunk0_fused" in pp["level1"]["cond"]) == packs
+        # chain3s and the RRDB kernels take bf16 and float32, so both recipes pack for
+        # them, as JAX's fused="all" does for the trunks (TINY_RS's nf and gc of 8 pass
+        # its gate)
+        assert ("main3s_fused" in pp["level0"]) == fused and "main_fused" not in pp["level0"]
+        assert ("trunk0_fused" in pp["level1"]["cond"]) == fused
         assert_close(model.flow.reverse_flow(pp, lr, 1.0, eps_list=eps), ref["hr"], MODEL_TOL[cd])
         out = model.reverse(pp, lr, 1.0, eps_list=eps)
         assert out.shape == (B, HH, HW, 3)
@@ -326,7 +330,8 @@ def test_serving_protocol_heat_and_counters():
     heat 1 differs by seed; on the CPU no kernel launch is counted."""
     model, params, _, hr, _, _ = _case("bfloat16")
     pp = model.flow.precompute_inference(params, fused=True)
-    rrdb.launches = chain.launches = chain3s.launches = 0
+    for counts in (rrdb.launches_by, chain.launches_by, chain3s.launches_by):
+        counts.clear()
     lr, _ = model.forward(params, _t(hr))
     lq = quantize(lr)
     assert torch.equal(lq * 255, torch.round(lq * 255)) and (lq - lr).abs().max() <= 0.5 / 255
@@ -338,5 +343,5 @@ def test_serving_protocol_heat_and_counters():
     a, b = run(1.0, 1), run(1.0, 2)
     assert torch.isfinite(a).all() and not torch.equal(a, b) and torch.equal(a, run(1.0, 1))
     assert a.min() >= 0 and a.max() <= 1
-    assert rrdb.launches == chain.launches == chain3s.launches == 0
+    assert not (rrdb.launches_by or chain.launches_by or chain3s.launches_by)
     assert coupling.clamp_logscale(torch.tensor(1e9)) < 0.5  # the bounded prior scale

@@ -12,12 +12,14 @@ chain (K 13: the x4 SR chains, c 21 / 6 / 24 / 12, then the x8 ones, c 45 / 12 /
 48 / 24 / 12), chain3s (K 8 at 40x40 and 80x80) and conv3x3 (262, 140, 3 and 64
 channels in), and where the checkout's chip_smoke.py has them the chain kernel's other
 variants at the x4 chain shapes: float32 at hid 64 (K 13), bf16 and float32 at hid 32
-(K 4).  Each row is checked against its plain version, as chip_smoke.py checks it.  Prints one line of ms/call per ROOT in that order, then the library
-yardsticks' ms of the rows that have one (a checkout's own chip_smoke.py decides
-which), then whether each trunk was bit-identical to the per-RRDB kernel and the
-latter's ms.  ``--unchecked`` times only the per-RRDB kernel
-(gc 32 at 16x40x40 and 16x80x80) and checks nothing: for probes, variants that skip
-part of the work on purpose to show where the time goes.
+(K 4), and the float32 recipe's RRDB (gc 32 at 16x40x40 and 16x80x80), resident-trunk
+(nb 5 at 40x40 and 80x80) and chain3s (K 8) kernels.  Each row is checked against its
+plain version, as chip_smoke.py checks it.  Prints one line of ms/call per ROOT in that
+order, then the library yardsticks' ms of the rows that have one (a checkout's own
+chip_smoke.py decides which), then whether each trunk was bit-identical to the per-RRDB
+kernel and the latter's ms.  ``--unchecked`` times only the per-RRDB kernel (gc 32 at
+16x40x40 and 16x80x80) and checks nothing: for probes, variants that skip part of the
+work on purpose to show where the time goes.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import sys
 ROWS = ("rrdb gc32 40 80, rrdb gc16 40 80, trunk 20 40 80, "
         "chain x4 (L1 cond, L0 cond, L1 main, L0 main) x8 (L2 cond, L1 cond, L0 cond, L2 main, "
         "L1 main, L0 main), chain3s 40 80, conv3x3 262 140 3 64, "
-        "[chain_f32, chain_hid32, chain_hid32_f32 x4 (L1 cond, L0 cond, L1 main, L0 main)]")
+        "[chain_f32, chain_hid32, chain_hid32_f32 x4 (L1 cond, L0 cond, L1 main, L0 main)], "
+        "[rrdb_f32 gc32 40 80, rrdb_trunk_f32 40 80, chain3s_f32 40 80]")
 
 
 def run_unchecked(root: str) -> None:
@@ -90,6 +93,15 @@ def run_one(root: str) -> None:
                                              ("chain_hid32_f32", 4, 64, 32, None)):
                 rows[key] = []
                 cs._chain_rows(torch, gen, rows, K, cond_ch, x4, "ab", hid=hid, cd=cd, key=key)
+        if "rrdb_f32" in getattr(cs, "KERNELS", {}):  # the float32 recipe's tile-conv kernels
+            for key in ("rrdb_f32", "rrdb_trunk_f32", "chain3s_f32"):
+                rows[key] = []
+            cs._rrdb_rows(torch, gen, rows, 32, ((hw, 14), (2 * hw, 14)), "ab", cd=None,
+                          key="rrdb_f32")
+            cs._trunk_rows(torch, gen, rows, ((hw, 2), (2 * hw, 2)), "ab", cd=None,
+                           key="rrdb_trunk_f32")
+            cs._chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, hw), ("L0 main", 12, 2 * hw)],
+                             "ab", cd=None, key="chain3s_f32")
     flat = [r for k in rows for r in rows[k]]
     print(root, " ".join(f"{r['ms']:.4f}" for r in flat), flush=True)
     print(root, "library", " ".join(f"{r['library_ms']:.4f}" for r in flat
