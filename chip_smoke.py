@@ -310,17 +310,20 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
         library_ms = graph_time(library_fn, reps=reps)
         lib = f", library {library_ms:.4f} ms as a graph ({extra['library_eager_ms']:.4f} eager)"
     bf, f32, nbytes = work
+    tflops = (bf + f32) / ms / 1e9
     if bf:  # a bf16 row: bf16 tensor-core products, a float32 tail on the CUDA cores
         b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+        rate = f"{tflops:.1f} TFLOP/s"
     else:  # a float32 row: float32-accurate products as 3xTF32 on the tensor cores
         b_ms, b_by = bound(f32 / PEAK_3XTF32, nbytes)
         extra["bound_cuda_core_ms"] = bound(f32 / PEAK_F32, nbytes)[0]
-        lib += f", bound at the CUDA-core float32 rate {extra['bound_cuda_core_ms']:.4f} ms"
+        rate = (f"{tflops:.1f} TFLOP/s of float32 work; bound at the CUDA-core float32 rate "
+                f"{extra['bound_cuda_core_ms']:.4f} ms")
     log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}, "
-        f"{(bf + f32) / ms / 1e9:.1f} TFLOP/s), {calls} calls per {path} unit")
+        f"{rate}), {calls} calls per {path} unit")
     rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by, **extra))
+                           bound_by=b_by, tflops=tflops, **extra))
     return got
 
 

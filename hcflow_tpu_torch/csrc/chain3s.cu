@@ -30,10 +30,10 @@
 //
 // The float32 recipe (hcflow_chain3s_inverse_f32; the JAX kernel follows compute_dtype,
 // at Precision.HIGHEST in float32) runs the same launches on float32 dense buffers and
-// features, its convs conv3x3.cuh's conv_tile_f32 (3xTF32 products on mma.sync).
+// features, its convs conv3x3.cuh's conv_tile_f32 (3xTF32 products on wgmma).
 //
 // Layouts: per step k, w[5k + i] is conv i+1's weight (9, cin_i, cout_i) bf16
-// [tap][ci][co] (float32: (9, cout_i, cin_i) [tap][co][ci]), with cin_i = cin_pad + i *
+// [tap][ci][co] (float32: its TF32 planes (2, 9, cin_i / 4, cout_i, 4)), cin_i = cin_pad + i *
 // gc (zero rows for the padding) and conv5's outputs ordered [shift | scale] and
 // zero-padded; bias[5k + i] float; an_s, an_b (K, c) float with an_s = exp(-logs).
 
@@ -90,7 +90,7 @@ cudaError_t launch_coupling(const T* dense, int ctot, const T* w, const float* b
   return conv3x3::with_mt(W, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
     return conv3x3::launch<coupling_kernel<COUT, MT, T>>(
-        conv3x3::grid(B, H, W, MT), conv3x3::smem_for<COUT, T>(), stream, dense, ctot, w, bias,
+        conv3x3::grid(B, H, W, MT), conv3x3::smem_for<COUT, T, MT>(), stream, dense, ctot, w, bias,
         z, c, even, an_s, an_b, next, next_ctot, H, W);
   });
 }
@@ -189,8 +189,8 @@ int hcflow_chain3s_inverse(const float* z, float* out, bf16* dense_e, bf16* dens
                          cin_o, sp_e, sp_o, stream);
 }
 
-// The same chain in the float32 recipe (3xTF32 products): float32 dense buffers and
-// weights (9, cout_i, cin_i) [tap][co][ci].  1 + 5K launches.
+// The same chain in the float32 recipe (3xTF32 products): float32 dense buffers, the
+// weights' TF32 planes (2, 9, cin_i / 4, cout_i, 4).  1 + 5K launches.
 int hcflow_chain3s_inverse_f32(const float* z, float* out, float* dense_e, float* dense_o,
                                const float* const* w, const float* const* bias,
                                const float* an_s, const float* an_b, int B, int H, int W, int c,

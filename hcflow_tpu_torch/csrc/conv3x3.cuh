@@ -64,26 +64,29 @@
 // order as before; chain3s's coupling, which needs channels that sit in different
 // threads, stages the sums through shared memory once (stage_acc).
 //
-// The float32 recipe (conv_tile_f32: float32 dense buffers and weights, which the
-// kernels take when the weights are float pointers) computes what the plain version
-// computes under exact_f32(): float32 operands and sums, no rounding of the features.
-// The card has no float32 tensor-core product, so each product is split in three TF32
-// ones (3xTF32): x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and a*b
-// ~ hi_a*hi_b + hi_a*lo_b + lo_a*hi_b, summed in float32: about 21 bits of each
-// operand, an error of ~2^-21 relative per product (single-pass TF32: 2^-11).  It runs
-// on mma.sync m16n8k8 .tf32 with the split in registers, not on wgmma: wgmma reads
-// both operands from shared memory, so hi and lo would both have to be staged (twice
-// the stage of a float32 chunk, already twice bf16's), and its .tf32 form takes only
-// K-major operands.  The tile, the two warpgroups and their M rows are those above:
-// warp w of warpgroup g computes rows 16w..16w+15 of each of its 64-row sub-tiles,
-// all COUT columns, as n8 tiles; mma.sync's m16n8 fragment then lays out every sum
-// where wgmma's does (Acc, for_each_pair and the epilogues serve both).  The ring
-// stages 8 input channels a chunk (one k8 step a tap) as float32, pixel rows of 12
-// floats (48 bytes: ldmatrix reads 8 consecutive pixels without bank conflicts), and
-// the weights K-major from the float32 pack (9, cout, cin) [tap][co][ci], rows of 12
-// floats; ldmatrix gives A (16 pixels x 8 channels, a tap is a start address) and B
-// (two n8 tiles x 8 channels) straight as TF32 fragments, and the threads split them.
-// 2 or 3 stages a COUT (stages_f32), so that 2 blocks fit an SM.
+// The float32 recipe (conv_tile_f32: float32 dense buffers, which the kernels take when
+// the weights are float pointers) computes what the plain version computes under
+// exact_f32(): float32 operands and sums, no rounding of the features.  The card has no
+// float32 tensor-core product, so each product is split in three TF32 ones (3xTF32): x =
+// hi + lo with hi = rna(x) and lo = rna(x - hi) (TF32, to nearest, ties away from zero),
+// and a*b ~ lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, summed in float32: about 21 bits of each
+// operand, an error of ~2^-21 relative a product (single-pass TF32: 2^-11).  Each operand
+// is split once, never in the tap loop: the weights when they are packed
+// (nets.pack_tf32: a hi and a lo plane in device memory, laid out as wgmma's K-major B
+// core matrices of 8 outputs x 4 inputs, which cp.async copies unchanged), the input once
+// a stage: cp.async lands the float32 chunk as [channel group of 4][halo pixel][4
+// channels] (the bf16 layout with 4 channels to a 16-byte group, so a tap window is
+// again a start address), and each thread splits the pieces it copied itself, in place,
+// into a hi and a lo plane while the products of the chunk before run.  The products are
+// wgmma m64nNk8 .tf32 with both operands from shared memory (its .tf32 form takes only
+// K-major operands), three a k8 step in one fixed order (lo x hi, hi x lo, hi x hi; at
+// COUT 16, where a product is bound by its reads of shared memory, hi x hi and hi x lo as
+// one product twice as wide: 10% off the gc-16 RRDBs, while at COUT 32 the second
+// accumulator made the resident trunk spill), on the bf16 design's tiles and warpgroups,
+// so the accumulator fragment is wgmma's there too and Acc, for_each_pair and the
+// epilogues serve both recipes.  A stage holds CK_F32
+// = 8 input channels (A hi + lo and B hi + lo: 57.6 KB at COUT 64 on 16-wide tiles), 2
+// to 4 stages by COUT and MT (stages_f32), so that 2 blocks share an SM.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,25 +114,59 @@ __host__ __device__ constexpr int stage_bytes() { return IN_BYTES + 9 * CK * COU
 template <int COUT>
 __host__ __device__ constexpr int smem_bytes() { return STAGES * stage_bytes<COUT>(); }
 
-// The float32 (3xTF32) ring: 8 input channels a stage, rows of PITCH_F32 floats.
-constexpr int CK_F32 = 8, PITCH_F32 = 12, ROW_F32 = PITCH_F32 * 4;
-constexpr int IN_BYTES_F32 = IH * MAX_IW * ROW_F32;
-constexpr int SM_SMEM = 233472;  // shared memory of an SM; 1 KB of it reserved a block
+// The float32 (3xTF32) ring: CK_F32 input channels a stage (one k8 step a tap per 8),
+// A and B each as a hi and a lo TF32 plane; as many stages (2 to F32_STAGES) as let
+// F32_BLOCKS blocks share an SM.  A plane of A holds the tile of width 8 MT with its halo.
+constexpr int CK_F32 = 8, F32_BLOCKS = 2, F32_STAGES = 4;
+// Where COUT is at most F32_FUSE, hi x hi and hi x lo run as one product of twice the
+// width (see conv_tile_f32)
+constexpr int F32_FUSE = 16;
 template <int COUT>
-__host__ __device__ constexpr int stage_bytes_f32() { return IN_BYTES_F32 + 9 * COUT * ROW_F32; }
-// 3 stages where two blocks of them fit an SM, else 2 (COUT 64)
+__host__ __device__ constexpr bool fuse_f32() { return COUT <= F32_FUSE; }
+// B's rows (16 bytes: 4 input channels of an output) in a stage: [tap][channel group of
+// 4][COUT outputs], b_k_rows apart from one group to the next, each lo row b_lo_rows
+// after its hi row: the lo plane after the hi plane or, where fused, each group's lo rows
+// after its hi rows, so that B hi | B lo is one operand 2 COUT wide
 template <int COUT>
-__host__ __device__ constexpr int stages_f32() {
-  return 2 * (3 * stage_bytes_f32<COUT>() + 1024) <= SM_SMEM ? 3 : 2;
+__host__ __device__ constexpr int b_k_rows() { return fuse_f32<COUT>() ? 2 * COUT : COUT; }
+template <int COUT>
+__host__ __device__ constexpr int b_lo_rows() {
+  return fuse_f32<COUT>() ? COUT : 9 * CK_F32 / 4 * COUT;
 }
+constexpr int SM_SMEM = 233472;     // shared memory of an SM; 1 KB of it reserved a block
+constexpr int BLOCK_SMEM = 232448;  // the most a block may have
+template <int MT>
+__host__ __device__ constexpr int a_plane_f32() { return IH * (8 * MT + 2) * CK_F32 * 4; }
 template <int COUT>
+__host__ __device__ constexpr int b_plane_f32() { return 9 * CK_F32 * COUT * 4; }
+template <int COUT, int MT>
+__host__ __device__ constexpr int stage_bytes_f32() {
+  return 2 * a_plane_f32<MT>() + 2 * b_plane_f32<COUT>();
+}
+template <int COUT, int MT>
+__host__ __device__ constexpr int stages_f32() {
+  constexpr int sb = stage_bytes_f32<COUT, MT>();
+  int s = 2;
+  while (s < F32_STAGES && F32_BLOCKS * ((s + 1) * sb + 1024) <= SM_SMEM &&
+         (s + 1) * sb <= BLOCK_SMEM)
+    ++s;
+  return s;
+}
+template <int COUT, int MT>
 __host__ __device__ constexpr int smem_bytes_f32() {
-  return stages_f32<COUT>() * stage_bytes_f32<COUT>();
+  return stages_f32<COUT, MT>() * stage_bytes_f32<COUT, MT>();
 }
 // The dynamic shared memory of a tile-conv kernel whose dense buffers hold T
-template <int COUT, class T>
+template <int COUT, class T, int MT>
 __host__ __device__ constexpr int smem_for() {
-  return std::is_same<T, float>::value ? smem_bytes_f32<COUT>() : smem_bytes<COUT>();
+  return std::is_same<T, float>::value ? smem_bytes_f32<COUT, MT>() : smem_bytes<COUT>();
+}
+
+// The elements of one packed conv's weights as the kernels read them: bf16 (9, cin,
+// cout); float32 its two TF32 planes, (2, 9, cin / 4, cout, 4)
+template <class T>
+__host__ __device__ constexpr size_t w_elems(int cin, int cout) {
+  return size_t(std::is_same<T, float>::value ? 2 : 1) * 9 * cin * cout;
 }
 
 // fn(std::integral_constant<int, MT>()) with the sub-tile count every launcher takes
@@ -184,6 +221,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr)
                : "memory");
 }
+// The float32 chain kernel's (chain.cu) split in registers and its mma.sync products.
 // x = hi + lo, hi and lo TF32 values, the ones cvt.rna.tf32.f32 gives (round to nearest,
 // ties away from zero): hi = rna(x), lo = rna(x - hi), x - hi exact in float32.  By bit
 // arithmetic, four full-rate operations (two cvt.rna and a subtraction took 40% of the
@@ -294,6 +332,46 @@ struct Wgmma<64> {
         : "memory");
   }
 };
+
+// d += A (64 x 8, K-major) * B (8 x N, K-major), TF32 operands from shared memory (the
+// .tf32 form takes both K-major and has no transpose flags)
+template <int N>
+struct WgmmaTF32;
+
+#define CONV3X3_ACC8(i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+// REGS: the accumulator's operand list; A, B, P: the operand numbers of a, b and the
+// scale-d flag
+#define CONV3X3_WGMMA_TF32(N, REGS, A, B, P, ...)                                          \
+  template <>                                                                              \
+  struct WgmmaTF32<N> {                                                                    \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a, uint64_t b) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                          \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS ", " A    \
+                   ", " B ", p, 1, 1;\n}\n"                                                 \
+                   : __VA_ARGS__                                                           \
+                   : "l"(a), "l"(b), "r"(1)                                                \
+                   : "memory");                                                            \
+    }                                                                                      \
+  };
+
+CONV3X3_WGMMA_TF32(16, "{%0, %1, %2, %3, %4, %5, %6, %7}", "%8", "%9", "%10", CONV3X3_ACC8(0))
+CONV3X3_WGMMA_TF32(32,
+                   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}",
+                   "%16", "%17", "%18", CONV3X3_ACC8(0), CONV3X3_ACC8(8))
+CONV3X3_WGMMA_TF32(48,
+                   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                   "%16, %17, %18, %19, %20, %21, %22, %23}",
+                   "%24", "%25", "%26", CONV3X3_ACC8(0), CONV3X3_ACC8(8), CONV3X3_ACC8(16))
+CONV3X3_WGMMA_TF32(64,
+                   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+                   "%31}",
+                   "%32", "%33", "%34", CONV3X3_ACC8(0), CONV3X3_ACC8(8), CONV3X3_ACC8(16),
+                   CONV3X3_ACC8(24))
+#undef CONV3X3_WGMMA_TF32
+#undef CONV3X3_ACC8
 
 // ------------------------------------------------------------------ dense staging
 // One or two float32 values into a dense buffer of T (bf16: rounded to nearest even)
@@ -468,34 +546,69 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
   }
 }
 
-// Stage chunk c0 .. c0+7 of the tile at (x0, y0) (float32, ctot channels) and its
-// float32 weights (9, cin, COUT) [tap][co][ci] into one float32 ring stage: pixel rows
-// and weight rows of PITCH_F32 floats, zero outside the image.
-template <int COUT>
+// Stage chunk c0 .. c0+CK_F32-1 of the tile at (x0, y0) (float32, ctot channels) and its
+// weights' TF32 planes w (2, 9, cin / 4, COUT, 4) into one float32 ring stage: the input
+// into A's hi plane [channel group of 4][halo pixel][4 channels] (zero outside the
+// image; split_chunk_f32 splits it), the planes as b_k_rows and b_lo_rows lay them out.
+// Every copy is 16 bytes.
+template <int COUT, int MT>
 __device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float* src, int ctot,
                                                int c0, const float* w, int cin, int H, int W,
-                                               int IW, int x0, int y0, size_t img) {
-  const uint32_t s_in = smem_addr(stage), s_w = s_in + IN_BYTES_F32;
-  const int npx = IH * IW;
-  for (int i = threadIdx.x; i < 2 * npx; i += NTHREADS) {
-    const int part = i & 1, q = i >> 1;
+                                               int x0, int y0, size_t img) {
+  constexpr int IW = 8 * MT + 2, NPX = IH * IW, G = CK_F32 / 4;
+  const uint32_t s_a = smem_addr(stage), s_b = s_a + 2 * a_plane_f32<MT>();
+  for (int i = threadIdx.x; i < G * NPX; i += NTHREADS) {
+    const int g = i % G, q = i / G;
     const int gy = y0 - 1 + q / IW, gx = x0 - 1 + q % IW;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
     const size_t pix = img + size_t(gy) * W + gx;
-    cp_async16(s_in + q * ROW_F32 + part * 16, in ? src + pix * ctot + c0 + part * 4 : src, in);
+    cp_async16(s_a + (g * NPX + q) * 16, in ? src + pix * ctot + c0 + 4 * g : src, in);
   }
-  for (int e = threadIdx.x; e < 9 * COUT * 2; e += NTHREADS) {
-    const int row = e >> 1, part = e & 1;  // row = tap * COUT + co
-    cp_async16(s_w + row * ROW_F32 + part * 16, w + size_t(row) * cin + c0 + part * 4, true);
+  constexpr int ROWS = 9 * G * COUT;  // 16-byte rows of a plane a stage
+  for (int e = threadIdx.x; e < 2 * ROWS; e += NTHREADS) {
+    const int p = e / ROWS, r = e % ROWS, tap = r / (G * COUT), kc = r % (G * COUT);
+    const int row = r / COUT * b_k_rows<COUT>() + p * b_lo_rows<COUT>() + r % COUT;
+    cp_async16(s_b + row * 16, w + (size_t(p * 9 + tap) * cin + c0) * COUT + kc * 4, true);
   }
 }
 
-// conv_tile in float32 (3xTF32 products on mma.sync; see the top of this file): src
-// (B,H,W,ctot) float32, channels [0, cin) read (cin a multiple of 8); w (9, COUT, cin)
-// float32 [tap][co][ci].  smem holds smem_bytes_f32<COUT>(); the sums are left in acc,
-// laid out as conv_tile's.  The chunks run in conv_tile's rotated order, and chunks,
-// taps and products in one fixed order, so every kernel that calls this gives
-// bit-identical sums for the same inputs.
+// x = hi + lo as TF32 bit patterns, the low 13 bits clear: hi = rna(x), lo = rna(x - hi)
+// (x - hi exact; rna as in split_tf32), what nets.pack_tf32 gives the weights.
+__device__ __forceinline__ void tf32_planes(uint32_t& x, uint32_t& lo) {
+  const uint32_t hi = (x + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+  x = hi;
+}
+
+// Split the input of the stage that load_chunk_f32 filled into its hi and lo planes, in
+// place: each thread splits the 16-byte pieces it copied itself, so it needs only its
+// own cp.async wait, no barrier, before it.
+template <int MT>
+__device__ __forceinline__ void split_chunk_f32(unsigned char* stage) {
+  constexpr int NPX = IH * (8 * MT + 2), G = CK_F32 / 4;
+  uint4* a = reinterpret_cast<uint4*>(stage);
+  for (int i = threadIdx.x; i < G * NPX; i += NTHREADS) {
+    const int e = i % G * NPX + i / G;
+    uint4 v = a[e], lo;
+    tf32_planes(v.x, lo.x);
+    tf32_planes(v.y, lo.y);
+    tf32_planes(v.z, lo.z);
+    tf32_planes(v.w, lo.w);
+    a[e] = v;
+    a[e + a_plane_f32<MT>() / 16] = lo;
+  }
+}
+
+// conv_tile in float32, 3xTF32 on wgmma (see the top of this file): src (B,H,W,ctot)
+// float32, channels [0, cin) read (cin a multiple of CK_F32); w the weights' TF32 planes
+// (2, 9, cin / 4, COUT, 4) (nets.pack_tf32).  smem holds smem_bytes_f32<COUT, MT>(); the
+// sums are left in acc, laid out as conv_tile's.  Each k8 step takes lo x hi, hi x lo and
+// hi x hi into acc; where COUT <= F32_FUSE, it takes lo x hi into acc and hi x [B hi
+// | B lo] as one product 2 COUT wide into a second accumulator (A hi then read once a
+// step: a narrow product is bound by its reads of shared memory, not by the tensor
+// cores), and the sums are (lo x hi + hi x lo) + hi x hi.  Chunks (in conv_tile's rotated
+// order), taps, k steps and products run in one fixed order, so every kernel that calls
+// this gives bit-identical sums for the same inputs.
 template <int COUT, int MT>
 __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char* smem,
                                               const float* __restrict__ src, int ctot, int cin,
@@ -503,68 +616,96 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
                                               int y0, int image) {
   static_assert(COUT % 16 == 0 && COUT <= 64, "COUT must be 16, 32, 48 or 64");
   static_assert(MT >= 1 && MT <= MAX_MT, "MT must be 1 or 2");
-  constexpr int S = stages_f32<COUT>(), SB = stage_bytes_f32<COUT>(), IW = 8 * MT + 2;
-  const int nchunks = cin / CK_F32, wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32,
-            lane = threadIdx.x % 32;
+  static_assert(CK_F32 % 8 == 0 && smem_bytes_f32<COUT, MT>() <= BLOCK_SMEM, "float32 ring");
+  constexpr int S = stages_f32<COUT, MT>(), SB = stage_bytes_f32<COUT, MT>(), IW = 8 * MT + 2;
+  constexpr uint32_t A_PLANE = a_plane_f32<MT>();
+  constexpr uint32_t lbo_a = IH * IW * 16, sbo_a = IW * 16;  // next 4 channels, next halo row
+  constexpr uint32_t lbo_b = b_k_rows<COUT>() * 16, sbo_b = 128;  // next 4 channels, 8 outputs
+  constexpr bool FUSE = fuse_f32<COUT>();
+  float hl[MT][FUSE ? COUT : 1];  // hi x [B hi | B lo] where fused
+  // The chunk count, hidden from the optimizer: where cin is a compile-time constant (the
+  // resident trunk's convs), the chunk loop below was otherwise unrolled in full on 8-wide
+  // tiles, 20-24 copies of its 27 products, and the trunk spilled up to 2.7 KB.
+  int nchunks = cin / CK_F32;
+  asm volatile("" : "+r"(nchunks));
+  const int wg = threadIdx.x / 128;
   const size_t img = size_t(image) * H * W;
   const int tx = (W + 8 * MT - 1) / (8 * MT), ty = (H + TH - 1) / TH;
   const int first = ((image * ty + y0 / TH) * tx + x0 / (8 * MT)) % nchunks;
   auto c0 = [&](int c) { return (c + first) % nchunks * CK_F32; };
-  // this lane's ldmatrix rows.  A: M row lane % 16 of the warp's 16 (pixel row 8 g + 2 w
-  // + m / 8, column m % 8 of a sub-tile), channels 4 (lane / 16) ..; B: n row 8 (lane /
-  // 16) + lane % 8 of an n8 pair, channels 4 (lane / 8 % 2) ..
-  const int am = lane % 16;
-  const uint32_t a_off = ((8 * wg + 2 * warp + am / 8) * IW + am % 8) * ROW_F32 + lane / 16 * 16;
-  const uint32_t b_off = (lane / 16 * 8 + lane % 8) * ROW_F32 + lane / 8 % 2 * 16;
 #pragma unroll
-  for (int s = 0; s < MT; ++s)
+  for (int s = 0; s < MT; ++s) {
 #pragma unroll
     for (int j = 0; j < COUT / 2; ++j) acc.v[s][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (FUSE ? COUT : 0); ++j) hl[s][j] = 0.f;
+  }
 
   __syncthreads();  // the ring's last contents (another tile, an epilogue) are consumed
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
     if (c < nchunks)
-      load_chunk_f32<COUT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, IW, x0, y0, img);
+      load_chunk_f32<COUT, MT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0, y0, img);
     cp_async_commit();
   }
+  cp_async_wait<S - 2>();  // this thread's copies of chunk 0 have landed
+  split_chunk_f32<MT>(smem);
+  fence_proxy_async();  // its stores and copies, before wgmma reads them
 #pragma unroll 1
   for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<S - 2>();  // this thread's copies of chunk c have landed
-    __syncthreads();         // everyone's have; every warp is done with chunk c-1's stage
-    const uint32_t s_in = smem_addr(smem + c % S * SB) + a_off,
-                   s_w = smem_addr(smem + c % S * SB) + IN_BYTES_F32 + b_off;
+    __syncthreads();  // every thread has split chunk c; each warpgroup waited out chunk c-1
+    const uint32_t s_a = smem_addr(smem + c % S * SB), s_b = s_a + 2 * A_PLANE;
+    wgmma_fence();
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
-      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int s = 0; s < MT; ++s) {
-        uint32_t a[4];
-        ldsm_x4(a, s_in + (dy * IW + 8 * s + dx) * ROW_F32);
-        split_tf32(a, ah[s], al[s]);
-      }
+      for (int k = 0; k < CK_F32 / 8; ++k) {
+        const uint32_t ob = (tap * CK_F32 / 4 + 2 * k) * lbo_b;
+        const uint64_t bh = desc(s_b + ob, lbo_b, sbo_b);  // (with FUSE: B hi | B lo)
+        const uint64_t bl = desc(s_b + ob + b_lo_rows<COUT>() * 16, lbo_b, sbo_b);
 #pragma unroll
-      for (int np = 0; np < COUT / 16; ++np) {
-        uint32_t b[4], bh[4], bl[4];  // n8 tile 2 np: b[0], b[1]; 2 np + 1: b[2], b[3]
-        ldsm_x4(b, s_w + (tap * COUT + 16 * np) * ROW_F32);
-        split_tf32(b, bh, bl);
-#pragma unroll
-        for (int s = 0; s < MT; ++s)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int n = 4 * (2 * np + j);
-            mma_3xtf32(acc.v[s][n], acc.v[s][n + 1], acc.v[s][n + 2], acc.v[s][n + 3], ah[s],
-                       al[s], bh[2 * j], bh[2 * j + 1], bl[2 * j], bl[2 * j + 1]);
+        for (int s = 0; s < MT; ++s) {
+          const uint32_t oa = ((8 * wg + dy) * IW + 8 * s + dx) * 16 + 2 * k * lbo_a;
+          const uint64_t ah = desc(s_a + oa, lbo_a, sbo_a);
+          const uint64_t al = desc(s_a + A_PLANE + oa, lbo_a, sbo_a);
+          WgmmaTF32<COUT>::mma(acc.v[s], al, bh);
+          if constexpr (FUSE) {
+            WgmmaTF32<2 * COUT>::mma(hl[s], ah, bh);
+          } else {
+            WgmmaTF32<COUT>::mma(acc.v[s], ah, bl);
+            WgmmaTF32<COUT>::mma(acc.v[s], ah, bh);
           }
+        }
       }
     }
-    // refill chunk c-1's stage (every warp left it before the barrier above)
+    wgmma_commit();
+    // while the products of chunk c run: refill chunk c-1's stage, then split chunk c+1
     const int next = c + S - 1;
     if (next < nchunks)
-      load_chunk_f32<COUT>(smem + next % S * SB, src, ctot, c0(next), w, cin, H, W, IW, x0, y0,
-                           img);
+      load_chunk_f32<COUT, MT>(smem + next % S * SB, src, ctot, c0(next), w, cin, H, W, x0, y0,
+                               img);
     cp_async_commit();
+    if (c + 1 < nchunks) {
+      cp_async_wait<S - 2>();  // this thread's copies of chunk c+1 have landed
+      split_chunk_f32<MT>(smem + (c + 1) % S * SB);
+      fence_proxy_async();
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int s = 0; s < MT; ++s) {
+#pragma unroll
+      for (int j = 0; j < COUT / 2; ++j) asm volatile("" : "+f"(acc.v[s][j])::"memory");
+#pragma unroll
+      for (int j = 0; j < (FUSE ? COUT : 0); ++j) asm volatile("" : "+f"(hl[s][j])::"memory");
+    }
+  }
+  if constexpr (FUSE) {  // hl[s][j] and hl[s][j + COUT / 2]: hi x hi and hi x lo of acc[s][j]
+#pragma unroll
+    for (int s = 0; s < MT; ++s)
+#pragma unroll
+      for (int j = 0; j < COUT / 2; ++j)
+        acc.v[s][j] = acc.v[s][j] + hl[s][j + COUT / 2] + hl[s][j];
   }
 }
 
@@ -614,7 +755,7 @@ template <int COUT, int MT>
 __device__ __forceinline__ void stage_acc(const Acc<COUT, MT>& acc, float* s_acc, int H, int W,
                                           int x0, int y0, int image) {
   static_assert(TH * 8 * MT * COUT * 4 <= smem_bytes<COUT>() &&
-                    TH * 8 * MT * COUT * 4 <= smem_bytes_f32<COUT>(),
+                    TH * 8 * MT * COUT * 4 <= smem_bytes_f32<COUT, MT>(),
                 "staging must fit the ring");
   for_each_pair(acc, H, W, x0, y0, image,
                       [&](size_t, int local, int o, float v0, float v1) {
@@ -703,7 +844,7 @@ cudaError_t launch_feature(T* dense, int ctot, int cin, const T* w, const float*
                            int out_off, int B, int H, int W, cudaStream_t stream) {
   return with_mt(W, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
-    return launch<feature_kernel<COUT, MT, T>>(grid(B, H, W, MT), smem_for<COUT, T>(), stream,
+    return launch<feature_kernel<COUT, MT, T>>(grid(B, H, W, MT), smem_for<COUT, T, MT>(), stream,
                                                dense, ctot, cin, w, bias, out_off, H, W);
   });
 }

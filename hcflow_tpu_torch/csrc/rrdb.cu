@@ -1,5 +1,5 @@
 // One RRDB (3 residual dense blocks) for Hopper (sm_90a), as 3x3 convolutions on
-// the tensor cores: wgmma bf16 in the bf16 recipe, 3xTF32 mma.sync in the float32 one
+// the tensor cores: wgmma bf16 in the bf16 recipe, 3xTF32 wgmma in the float32 one
 // (float32 accumulation in both).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel, called by
@@ -24,10 +24,11 @@
 //
 // The float32 recipe (hcflow_rrdb_apply_f32; the JAX kernel runs it at
 // Precision.HIGHEST) keeps the same launches with float32 dense buffers and features
-// (no rounding), the products of conv3x3.cuh's conv_tile_f32: 3xTF32 on mma.sync, an
-// error of float32's order.  Bound: operations, at the float32 rates: 2.58 TFLOP an
-// x4 pass is 38.5 ms at the 67 TFLOP/s of float32 outside the tensor cores and 15.6 ms
-// at the 165 TFLOP/s that three TF32 products a product leave of the 495 TF32 peak.
+// (no rounding), the products of conv3x3.cuh's conv_tile_f32: 3xTF32 on wgmma, each
+// operand split once (the weights at pack time), an error of float32's order.  Bound:
+// operations, at the float32 rates: 2.58 TFLOP an x4 pass is 38.5 ms at the 67 TFLOP/s
+// of float32 outside the tensor cores and 15.6 ms at the 165 TFLOP/s that three TF32
+// products a product leave of the 495 TF32 peak.
 
 #include "conv3x3.cuh"
 
@@ -57,7 +58,7 @@ cudaError_t launch_residual(const T* dense, int ctot, const T* w, const float* b
   return conv3x3::with_mt(W, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
     return conv3x3::launch<residual_kernel<COUT, MT, T>>(
-        conv3x3::grid(B, H, W, MT), conv3x3::smem_for<COUT, T>(), stream, dense, ctot, w, bias,
+        conv3x3::grid(B, H, W, MT), conv3x3::smem_for<COUT, T, MT>(), stream, dense, ctot, w, bias,
         xres, xout, xrrdb, next, H, W);
   });
 }
@@ -127,7 +128,8 @@ int hcflow_rrdb_apply(const float* x, float* out, bf16* dense0, bf16* dense1,
 }
 
 // One RRDB, float32 recipe (3xTF32 products): as hcflow_rrdb_apply with float32 dense
-// buffers and float32 weights (9, cout_i, cin_i) [tap][co][ci].  16 launches.
+// buffers, w[r*5 + i] the weight's TF32 planes (2, 9, cin_i / 4, cout_i, 4)
+// (nets.pack_tf32: [hi, lo][tap][ci / 4][co][ci % 4]).  16 launches.
 int hcflow_rrdb_apply_f32(const float* x, float* out, float* dense0, float* dense1,
                           const float* const* w, const float* const* bias, int B, int H, int W,
                           int nf, int gc, cudaStream_t stream) {

@@ -1,6 +1,6 @@
 // A whole RRDB trunk (nb RRDBs of 3 residual dense blocks) in one cooperative launch
 // for Hopper (sm_90a), on the tensor cores (wgmma bf16 in the bf16 recipe, 3xTF32
-// mma.sync in the float32 one; float32 accumulation in both).
+// wgmma in the float32 one; float32 accumulation in both).
 //
 // Replaces the TPU kernel hcflow_tpu/ops/pallas_rdb.py (_make_kernel_trunk, called
 // through _build_call_trunk by trunk_apply when the JAX package packs the trunk as one
@@ -34,13 +34,13 @@
 // scatter-by-source layout and its bf16 RRDB base (_FIT16), VMEM workarounds.
 //
 // The float32 recipe (hcflow_rrdb_trunk_apply_f32) is the same kernel on float32 dense
-// buffers and weights, its convs conv3x3.cuh's conv_tile_f32 (bit-identical to the
-// float32 per-RRDB kernel, as the bf16 one is to its own); 88.1 KB of shared memory,
-// 2 blocks/SM.
+// buffers and the weights' TF32 planes, its convs conv3x3.cuh's conv_tile_f32
+// (bit-identical to the float32 per-RRDB kernel, as the bf16 one is to its own), 2
+// blocks/SM.
 //
 // Layouts: x, out, carry (B,H,W,nf) float32; dense0, dense1 (B,H,W,nf+4gc) bf16
-// (float32); w[i] (3nb, 9, nf+i*gc, cout_i) bf16 [block][tap][ci][co] (float32: (3nb, 9,
-// cout_i, nf+i*gc) [block][tap][co][ci]), cout_i = gc for i < 4 and nf for i = 4; b[i]
+// (float32); w[i] (3nb, 9, nf+i*gc, cout_i) bf16 [block][tap][ci][co] (float32: the TF32
+// planes (3nb, 2, 9, (nf+i*gc) / 4, cout_i, 4)), cout_i = gc for i < 4 and nf for i = 4; b[i]
 // (3nb, cout_i) float32; dense block j = 3 * rrdb + r.
 
 #include <cooperative_groups.h>
@@ -67,10 +67,10 @@ struct TrunkArgs {
   int B, H, W, nb;
 };
 
-template <int NF, int GC, class T>
+template <int NF, int GC, class T, int MT>
 constexpr int trunk_smem() {
-  return conv3x3::smem_for<GC, T>() > conv3x3::smem_for<NF, T>() ? conv3x3::smem_for<GC, T>()
-                                                                 : conv3x3::smem_for<NF, T>();
+  constexpr int gc = conv3x3::smem_for<GC, T, MT>(), nf = conv3x3::smem_for<NF, T, MT>();
+  return gc > nf ? gc : nf;
 }
 
 // MT: 8x8 sub-tiles per warpgroup (conv3x3::with_mt)
@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a
     for (int i = 0; i < 4; ++i) {
       grid.sync();  // conv i reads its predecessors' outputs, halos included
       const int cin = NF + i * GC;
-      const T* w = a.w[i] + size_t(j) * 9 * cin * GC;
+      const T* w = a.w[i] + size_t(j) * conv3x3::w_elems<T>(cin, GC);
       const float* bias = a.b[i] + size_t(j) * GC;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a
     float* xout = r == 2 ? a.out : a.carry;
     const float* xrrdb = r == 2 ? base : nullptr;
     T* next = j + 1 < blocks ? a.dense[(j + 1) % 2] : nullptr;
-    const T* w = a.w[4] + size_t(j) * 9 * CTOT * NF;
+    const T* w = a.w[4] + size_t(j) * conv3x3::w_elems<T>(CTOT, NF);
     const float* bias = a.b[4] + size_t(j) * NF;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a
 template <int NF, int GC, int MT, class T>
 cudaError_t launch_trunk(TrunkArgs<T> a, cudaStream_t stream) {
   const void* kernel = reinterpret_cast<const void*>(trunk_kernel<NF, GC, MT, T>);
-  constexpr int smem = trunk_smem<NF, GC, T>();
+  constexpr int smem = trunk_smem<NF, GC, T, MT>();
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = conv3x3::allow_smem<trunk_kernel<NF, GC, MT, T>>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -196,8 +196,8 @@ int hcflow_rrdb_trunk_apply(const float* x, float* out, float* carry, bf16* dens
   return trunk_apply(x, out, carry, dense0, dense1, w, b, B, H, W, nf, gc, nb, stream);
 }
 
-// The same trunk in the float32 recipe (3xTF32 products): float32 dense buffers and
-// weights w[i] (3nb, 9, cout_i, nf+i*gc) [block][tap][co][ci].  One cooperative launch.
+// The same trunk in the float32 recipe (3xTF32 products): float32 dense buffers, w[i] the
+// weights' TF32 planes (3nb, 2, 9, (nf+i*gc) / 4, cout_i, 4).  One cooperative launch.
 int hcflow_rrdb_trunk_apply_f32(const float* x, float* out, float* carry, float* dense0,
                                 float* dense1, const float* const* w, const float* const* b,
                                 int B, int H, int W, int nf, int gc, int nb,

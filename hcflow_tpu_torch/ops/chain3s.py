@@ -16,8 +16,9 @@ the reference's convention, and ActNorm adds ``-sum(logs) * H * W``), so it is
 computed at pack time.  In the bf16 recipe the net input and the features x1..x4 are
 rounded to bf16 as conv operands and every sum is float32, as in the TPU kernel; z
 and the coupling stay float32.  In the float32 recipe (a float32 pack) nothing is
-rounded: the kernel's products are 3xTF32 (``csrc/conv3x3.cuh``'s ``conv_tile_f32``),
-an error of float32's order, as the JAX kernel runs them at ``Precision.HIGHEST``.
+rounded: the kernel's products are 3xTF32 (``csrc/conv3x3.cuh``'s ``conv_tile_f32``,
+on the weights' TF32 planes split at pack time), an error of float32's order, as the
+JAX kernel runs them at ``Precision.HIGHEST``.
 
 On the card (``csrc/chain3s.cu``): one launch per dense-block conv plus one that
 copies z and stages the first net input, 1 + 5K per chain.  Bound: operations
@@ -50,9 +51,11 @@ def _rup16(n: int) -> int:
 def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
     """One dense block's weights by ``nets.pack_taps`` (bf16 [tap][ci][co], float32
     [tap][co][ci]) with the net input padded to 16 channels (zero rows) and conv5's
-    outputs permuted by ``perm`` and zero-padded."""
+    outputs permuted by ``perm`` and zero-padded; their biases; in float32, where every
+    conv's input width is a multiple of 4, also their TF32 planes (``nets.pack_tf32``),
+    else None."""
     pad_in = _rup16(cin) - cin
-    ws, bs = [], []
+    ws, bs, ts = [], [], []
     for i in range(1, 6):
         w, b = f[f"conv{i}"]["w"], f[f"conv{i}"]["b"]  # OIHW
         if i == 5:
@@ -63,7 +66,8 @@ def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
         w = torch.cat([w[:, :cin], w.new_zeros(w.shape[0], pad_in, 3, 3), w[:, cin:]], 1)
         ws.append(nets.pack_taps(w, nd))
         bs.append(b.float())
-    return ws, bs
+        ts.append(nets.pack_tf32(w) if nd == torch.float32 and w.shape[1] % 4 == 0 else None)
+    return ws, bs, ts
 
 
 def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
@@ -71,10 +75,11 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
 
     Stacked per parity (``e``: even k, net input z1; ``o``: odd k, net input z2),
     index k // 2: ``w{e,o}{1..5}`` (n, 9, cin_i, cout_i) in the net dtype (float32: (n,
-    9, cout_i, cin_i), K-major), ``b{e,o}{1..5}``
-    float32; the even conv5's outputs go from the even/odd "cross" split to
-    [shift | scale].  ``an_s`` = exp(-logs) and ``an_b`` (K, c); ``logsum`` = the sum
-    of every step's ActNorm logs.
+    9, cout_i, cin_i), K-major), ``b{e,o}{1..5}`` float32 and, in float32 where the
+    growth is a multiple of 4, ``t{e,o}{1..5}`` (n, 2, 9, cin_i / 4, cout_i, 4), the
+    weights' TF32 planes (``nets.pack_tf32``), which the kernel reads; the even conv5's
+    outputs go from the even/odd "cross" split to [shift | scale].  ``an_s`` =
+    exp(-logs) and ``an_b`` (K, c); ``logsum`` = the sum of every step's ActNorm logs.
     """
     nd = nets.net_dtype(compute_dtype)
     c = main[0]["actnorm"]["bias"].shape[0]
@@ -88,6 +93,8 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
         for i in range(5 if nets_k else 0):  # a one-step chain has no odd step
             packed[f"w{tag}{i + 1}"] = torch.stack([n[0][i] for n in nets_k]).contiguous()
             packed[f"b{tag}{i + 1}"] = torch.stack([n[1][i] for n in nets_k]).contiguous()
+            if nets_k[0][2][i] is not None:
+                packed[f"t{tag}{i + 1}"] = torch.stack([n[2][i] for n in nets_k]).contiguous()
     logs = torch.stack([p["actnorm"]["logs"] for p in main]).float()
     packed["an_s"] = torch.exp(-logs).contiguous()
     packed["an_b"] = torch.stack([p["actnorm"]["bias"] for p in main]).float().contiguous()
@@ -97,7 +104,7 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
 
 def _dims(packed):
     K, c = packed["an_s"].shape
-    return K, c, nets.taps(packed["we1"]).shape[3]
+    return K, c, nets.taps_shape(packed["we1"])[3]
 
 
 def inverse_chain3s_plain(packed: dict, z: torch.Tensor):
@@ -142,20 +149,40 @@ def inverse_chain(packed: dict, z: torch.Tensor):
     return _launch(packed, z)
 
 
-def _launch(packed, z):
-    K, c, gc = _dims(packed)
-    B, H, W, cz = z.shape
-    if cz != c or z.dtype != torch.float32:
-        raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
+def check_pack(packed: dict) -> tuple:
+    """The kernel's checks of a pack, which need no card: one dtype (bf16 or float32), a
+    growth the kernel takes and, in float32, every conv's TF32 planes.  Returns (dtype,
+    growth, the convs' names, the prefix of the keys whose weights the kernel reads: "w",
+    or "t" for the TF32 planes); raises a ValueError."""
+    gc = _dims(packed)[2]
     names = [f"{t}{i}" for t in "eo" for i in range(1, 6) if f"w{t}{i}" in packed]
     wd = nets.pack_dtype([packed[f"w{n}"] for n in names], "chain3s")
     if gc not in (16, 32, 64):
         raise ValueError(f"the chain3s kernel takes a growth of 16, 32 or 64, not {gc}")
-    cin_e, sp_e = nets.taps(packed["we1"]).shape[2], nets.taps(packed["we5"]).shape[3]
-    cin_o, sp_o = ((nets.taps(packed["wo1"]).shape[2], nets.taps(packed["wo5"]).shape[3])
+    if wd == torch.bfloat16:
+        return wd, gc, names, "w"
+    for n in names:
+        w, t = packed[f"w{n}"], packed.get(f"t{n}")
+        cin, cout = nets.taps_shape(w)[-2:]
+        if t is None or t.dtype != torch.float32 or tuple(t.shape) != (
+                w.shape[0], 2, 9, cin // 4, cout, 4):
+            raise ValueError(f"the float32 chain3s kernel reads conv {n}'s TF32 planes: pack "
+                             "the chain with pack_inverse_chain3s (nets.pack_tf32)")
+    return wd, gc, names, "t"
+
+
+def _launch(packed, z):
+    K, c, _ = _dims(packed)
+    B, H, W, cz = z.shape
+    if cz != c or z.dtype != torch.float32:
+        raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
+    wd, gc, names, wk = check_pack(packed)
+    cin_e, sp_e = nets.taps_shape(packed["we1"])[2], nets.taps_shape(packed["we5"])[3]
+    cin_o, sp_o = ((nets.taps_shape(packed["wo1"])[2], nets.taps_shape(packed["wo5"])[3])
                    if K > 1 else (16, 16))
     z = z.contiguous()
-    tensors = [z, packed["an_s"], packed["an_b"]] + [packed[x + n] for x in "wb" for n in names]
+    tensors = [z, packed["an_s"], packed["an_b"]]
+    tensors += [packed[x + n] for x in (wk, "b") for n in names]
     if not all(t.is_cuda and t.is_contiguous() for t in tensors):
         raise ValueError("chain3s kernel inputs must be contiguous CUDA tensors")
     out = torch.empty_like(z)
@@ -167,7 +194,7 @@ def _launch(packed, z):
     for k in range(K):
         tag, idx = "eo"[k % 2], k // 2
         for i in range(5):
-            w_ptrs[5 * k + i] = packed[f"w{tag}{i + 1}"][idx].data_ptr()
+            w_ptrs[5 * k + i] = packed[f"{wk}{tag}{i + 1}"][idx].data_ptr()
             b_ptrs[5 * k + i] = packed[f"b{tag}{i + 1}"][idx].data_ptr()
     fn = _FN[wd]
     lib = _build.load("chain3s", fn, _ARGTYPES)

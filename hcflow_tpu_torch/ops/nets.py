@@ -74,12 +74,31 @@ def conv_taps(x, w_tap, b=None) -> torch.Tensor:
 
 def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """An OIHW 3x3 conv weight as the tile-conv kernels' pack (csrc/conv3x3.cuh) in
-    ``dtype``: bf16 as (9, cin, cout) ``[tap][ci][co]``; float32 K-major, (9, cout, cin)
-    ``[tap][co][ci]``, as the 3xTF32 products read it (tap = 3 * ky + kx)."""
+    ``dtype``: bf16 as (9, cin, cout) ``[tap][ci][co]``, which the bf16 kernels read;
+    float32 K-major, (9, cout, cin) ``[tap][co][ci]``, which the plain versions read (the
+    float32 kernels read its TF32 planes, :func:`pack_tf32`) (tap = 3 * ky + kx)."""
     cout, cin = w.shape[:2]
     if dtype == torch.float32:
         return w.permute(2, 3, 0, 1).reshape(9, cout, cin).float().contiguous()
     return w.permute(2, 3, 1, 0).reshape(9, cin, cout).to(dtype).contiguous()
+
+
+def pack_tf32(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW 3x3 conv weight (cin a multiple of 4) split once into the two TF32 planes
+    that the float32 tile conv's 3xTF32 products read as B (csrc/conv3x3.cuh): hi =
+    rna(w), lo = rna(w - hi), rna rounding to TF32 to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``) and clearing the low 13 bits; w - hi is exact, and hi + lo
+    lies within 2^-21 of w relative.  Laid out as wgmma's K-major core matrices of 8
+    outputs x 4 inputs (16-byte rows), which the kernels copy unchanged: ``(2, 9, cin //
+    4, cout, 4)`` float32 ``[hi, lo][tap][ci // 4][co][ci % 4]``."""
+    cout, cin = w.shape[:2]
+    t = w.detach().float().permute(2, 3, 1, 0).reshape(9, cin // 4, 4, cout).transpose(2, 3)
+
+    def rna(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(t)
+    return torch.stack([hi, rna(t - hi)])
 
 
 def pack_dtype(ws, kernel: str) -> torch.dtype:
@@ -96,6 +115,13 @@ def taps(w: torch.Tensor) -> torch.Tensor:
     """A packed tile-conv weight (:func:`pack_taps`; leading axes allowed) as ``(...,
     9, cin, cout)`` ``[tap][ci][co]``, a view."""
     return w.transpose(-1, -2) if w.dtype == torch.float32 else w
+
+
+def taps_shape(w: torch.Tensor) -> tuple:
+    """``taps(w).shape`` as a tuple, without making the view (the kernel wrappers check
+    every packed weight on every call)."""
+    s = tuple(w.shape)
+    return s[:-2] + (s[-1], s[-2]) if w.dtype == torch.float32 else s
 
 
 # ---------------------------------------------------------------------------- inits

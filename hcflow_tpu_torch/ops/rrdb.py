@@ -33,10 +33,12 @@ per-RRDB kernel's.
 
 The float32 recipe runs the same launches on float32 dense buffers, every product in
 3xTF32 (``csrc/conv3x3.cuh``'s ``conv_tile_f32``: each operand split into two TF32
-values on ``mma.sync``, an error of float32's order; no single-pass TF32).  Its pack
-holds the weights K-major, ``(9, cout, cin)`` ``[tap][co][ci]``, as the TF32 products
-read B (``nets.pack_taps``); ``nets.taps`` gives either pack's weight as ``(9, cin,
-cout)``.
+values, three ``wgmma`` TF32 products, an error of float32's order; no single-pass
+TF32).  The weights are split once, at pack time: a float32 pack holds the float32
+weights K-major, ``(9, cout, cin)`` ``[tap][co][ci]`` (``nets.pack_taps``, which the
+plain version reads; ``nets.taps`` gives either pack's weight as ``(9, cin, cout)``),
+and their hi and lo TF32 planes (``nets.pack_tf32``), which the kernels read; the
+wrappers raise on a float32 pack without them (:func:`check_pack`).
 """
 
 from __future__ import annotations
@@ -79,36 +81,37 @@ def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
 
     ``w``: 15 weights in the net dtype by ``nets.pack_taps`` (bf16 (9, cin, cout),
     float32 (9, cout, cin)), dense block r's conv i+1 at index 5 r + i; ``b``: the 15
-    biases, f32.
+    biases, f32; in float32 also ``tf32``: the 15 weights' TF32 planes by
+    ``nets.pack_tf32`` ((2, 9, cin / 4, cout, 4)), which the kernel reads.
     """
     nd = nets.net_dtype(compute_dtype)
-    ws, bs = [], []
-    for r in (1, 2, 3):
-        for i in range(1, 6):
-            conv = rrdb[f"rdb{r}"][f"conv{i}"]
-            ws.append(nets.pack_taps(conv["w"], nd))
-            bs.append(conv["b"].float().contiguous())
-    return {"w": ws, "b": bs}
+    convs = [rrdb[f"rdb{r}"][f"conv{i}"] for r in (1, 2, 3) for i in range(1, 6)]
+    packed = {"w": [nets.pack_taps(c["w"], nd) for c in convs],
+              "b": [c["b"].float().contiguous() for c in convs]}
+    if nd == torch.float32:
+        packed["tf32"] = [nets.pack_tf32(c["w"]) for c in convs]
+    return packed
 
 
 def pack_rrdb_trunk(trunk: list, compute_dtype=None, resident: bool = False):
     """Pack a trunk (a list of RRDB params): a list of :func:`pack_rrdb` dicts for the
     per-RRDB kernel, or with ``resident`` one stacked dict for the resident-trunk
     kernel (the JAX package's packing under ``HCFLOW_RDB_TRUNK=1``): ``w[i]`` (3 nb,
-    9, nf + i gc, cout_i) (float32: (3 nb, 9, cout_i, nf + i gc)) and ``b[i]`` (3 nb,
-    cout_i) hold conv i+1 of dense block j = 3 * rrdb + r at row j."""
+    9, nf + i gc, cout_i) (float32: (3 nb, 9, cout_i, nf + i gc)), ``b[i]`` (3 nb,
+    cout_i) and, in float32, ``tf32[i]`` (3 nb, 2, 9, (nf + i gc) / 4, cout_i, 4) hold
+    conv i+1 of dense block j = 3 * rrdb + r at row j."""
     packs = [pack_rrdb(p, compute_dtype) for p in trunk]
     if not resident:
         return packs
     return {k: [torch.stack([p[k][5 * r + i] for p in packs for r in range(3)])
-                for i in range(5)] for k in ("w", "b")}
+                for i in range(5)] for k in packs[0]}
 
 
 def rrdb_slices(packed: dict) -> list:
     """A resident-trunk pack as the per-RRDB packs it stacks."""
     nb = packed["b"][0].shape[0] // 3
     return [{k: [packed[k][i][3 * n + r] for r in range(3) for i in range(5)]
-             for k in ("w", "b")} for n in range(nb)]
+             for k in packed} for n in range(nb)]
 
 
 def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
@@ -134,34 +137,58 @@ def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
     return x * 0.2 + x_in
 
 
+def _check_tf32(packed: dict, kernel: str, lead: tuple) -> list:
+    """The TF32 planes of a float32 pack (``nets.pack_tf32``, rows ``lead`` stacked in
+    front), which the float32 kernel reads in place of the float32 weights; raises a
+    ValueError where they are missing or do not match the weights."""
+    planes = packed.get("tf32")
+    if planes is None or len(planes) != len(packed["w"]):
+        raise ValueError(f"the float32 {kernel} kernel reads the weights' TF32 planes: pack "
+                         "the weights with pack_rrdb / pack_rrdb_trunk (nets.pack_tf32)")
+    for w, t in zip(packed["w"], planes):
+        cin, cout = nets.taps_shape(w)[-2:]
+        if t.dtype != torch.float32 or tuple(t.shape) != (*lead, 2, 9, cin // 4, cout, 4):
+            raise ValueError(f"TF32 planes of shape {tuple(t.shape)} for a weight of shape "
+                             f"{tuple(w.shape)}")
+    return planes
+
+
+def check_pack(packed: dict, nf: int) -> tuple:
+    """The per-RRDB kernel's checks of a pack for an input of nf channels, which need no
+    card: one dtype (bf16 or float32), widths the kernel takes, every shape, and a
+    float32 pack's TF32 planes.  Returns (dtype, gc, the weights the kernel reads);
+    raises a ValueError."""
+    wd = nets.pack_dtype(packed["w"], "RRDB")
+    gc = nets.taps_shape(packed["w"][0])[2]
+    if nf not in WIDTHS or gc not in WIDTHS:
+        raise ValueError(f"the RRDB kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
+    for k, w in enumerate(packed["w"]):
+        cout = gc if k % 5 < 4 else nf
+        shape = nets.taps_shape(w)
+        if shape != (9, nf + k % 5 * gc, cout) or packed["b"][k].shape != (cout,):
+            raise ValueError(f"packed conv {k} has shape {tuple(w.shape)}")
+    return wd, gc, _check_tf32(packed, "RRDB", ()) if wd == torch.float32 else packed["w"]
+
+
 def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     """One RRDB on NHWC float32 x.  A CPU tensor takes the plain version; a CUDA
-    tensor the kernel (bf16 or float32 pack).  Either raises under autograd when an
-    input requires grad."""
+    tensor the kernel (bf16 or float32 pack), or it raises (:func:`check_pack`).  Either
+    raises under autograd when an input requires grad."""
     _build.refuse_grad("RRDB", x, packed)
     if not x.is_cuda:
         return rrdb_apply_plain(packed, x)
     B, H, W, nf = x.shape
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32, got {x.dtype}")
-    wd = nets.pack_dtype(packed["w"], "RRDB")
-    gc = nets.taps(packed["w"][0]).shape[2]
-    if nf not in WIDTHS or gc not in WIDTHS:
-        raise ValueError(f"the RRDB kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
-    tensors = packed["w"] + packed["b"]
-    for k, w in enumerate(packed["w"]):
-        cout = gc if k % 5 < 4 else nf
-        shape = tuple(nets.taps(w).shape)
-        if shape != (9, nf + k % 5 * gc, cout) or packed["b"][k].shape != (cout,):
-            raise ValueError(f"packed conv {k} has shape {tuple(w.shape)}")
-    if not all(t.is_cuda and t.is_contiguous() for t in tensors):
+    wd, gc, ws = check_pack(packed, nf)
+    if not all(t.is_cuda and t.is_contiguous() for t in ws + packed["b"]):
         raise ValueError("RRDB kernel weights must be contiguous CUDA tensors")
     # the two dense-block buffers: (B, H, W, nf + 4 gc) in the weights' dtype each
     dense = [torch.empty((B, H, W, nf + 4 * gc), dtype=wd, device=x.device) for _ in range(2)]
     out = torch.empty_like(x)
     fn = _FN[wd]
     lib = _build.load("rrdb", fn, _ARGTYPES)
-    w_ptrs = (ctypes.c_void_p * 15)(*(w.data_ptr() for w in packed["w"]))
+    w_ptrs = (ctypes.c_void_p * 15)(*(w.data_ptr() for w in ws))
     b_ptrs = (ctypes.c_void_p * 15)(*(b.data_ptr() for b in packed["b"]))
     err = getattr(lib, fn)(
         x.data_ptr(), out.data_ptr(), dense[0].data_ptr(), dense[1].data_ptr(),
@@ -183,37 +210,47 @@ def trunk_apply_resident_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
-    """A whole trunk, packed by ``pack_rrdb_trunk(..., resident=True)`` (bf16 or
-    float32), on NHWC float32 x.  A CPU tensor takes the plain version; a CUDA tensor the
-    resident-trunk kernel (one cooperative launch), or it raises.  Either raises under
-    autograd when an input requires grad."""
-    _build.refuse_grad("RRDB trunk", x, packed)
-    if not x.is_cuda:
-        return trunk_apply_resident_plain(packed, x)
-    B, H, W, nf = x.shape
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous float32, got {x.dtype}")
+def check_trunk_pack(packed: dict, nf: int) -> tuple:
+    """The resident-trunk kernel's checks of a stacked pack for an input of nf channels,
+    which need no card (as :func:`check_pack`).  Returns (dtype, gc, nb, the weights the
+    kernel reads); raises a ValueError."""
     wd = nets.pack_dtype(packed["w"], "RRDB trunk")
-    gc = nets.taps(packed["w"][0]).shape[3]
+    gc = nets.taps_shape(packed["w"][0])[3]
     nb = packed["b"][0].shape[0] // 3
     if nf not in WIDTHS or gc not in WIDTHS:
         raise ValueError(f"the RRDB trunk kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
     for i in range(5):
         cout = gc if i < 4 else nf
         w, b = packed["w"][i], packed["b"][i]
-        shape = tuple(nets.taps(w).shape)
+        shape = nets.taps_shape(w)
         if shape != (3 * nb, 9, nf + i * gc, cout) or tuple(b.shape) != (3 * nb, cout):
             raise ValueError(f"packed conv {i + 1} has shape {tuple(w.shape)}, {tuple(b.shape)}")
         if b.dtype != torch.float32:
             raise ValueError("the RRDB trunk kernel takes float32 biases")
-        if not (w.is_cuda and b.is_cuda and w.is_contiguous() and b.is_contiguous()):
-            raise ValueError("RRDB trunk kernel weights must be contiguous CUDA tensors")
+    ws = _check_tf32(packed, "RRDB trunk", (3 * nb,)) if wd == torch.float32 else packed["w"]
+    return wd, gc, nb, ws
+
+
+def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
+    """A whole trunk, packed by ``pack_rrdb_trunk(..., resident=True)`` (bf16 or
+    float32), on NHWC float32 x.  A CPU tensor takes the plain version; a CUDA tensor the
+    resident-trunk kernel (one cooperative launch), or it raises
+    (:func:`check_trunk_pack`).  Either raises under autograd when an input requires
+    grad."""
+    _build.refuse_grad("RRDB trunk", x, packed)
+    if not x.is_cuda:
+        return trunk_apply_resident_plain(packed, x)
+    B, H, W, nf = x.shape
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32, got {x.dtype}")
+    wd, gc, nb, ws = check_trunk_pack(packed, nf)
+    if not all(t.is_cuda and t.is_contiguous() for t in ws + packed["b"]):
+        raise ValueError("RRDB trunk kernel weights must be contiguous CUDA tensors")
     out, carry = torch.empty_like(x), torch.empty_like(x)
     dense = [torch.empty((B, H, W, nf + 4 * gc), dtype=wd, device=x.device) for _ in range(2)]
     fn = _TRUNK_FN[wd]
     lib = _build.load("rrdb_trunk", fn, _TRUNK_ARGTYPES)
-    w_ptrs = (ctypes.c_void_p * 5)(*(w.data_ptr() for w in packed["w"]))
+    w_ptrs = (ctypes.c_void_p * 5)(*(w.data_ptr() for w in ws))
     b_ptrs = (ctypes.c_void_p * 5)(*(b.data_ptr() for b in packed["b"]))
     err = getattr(lib, fn)(
         x.data_ptr(), out.data_ptr(), carry.data_ptr(), dense[0].data_ptr(),

@@ -207,9 +207,10 @@ def test_rrdb_kernel_f32_matches_plain(gen, B, H, W, nf, gc):
 
 
 @pytest.mark.parametrize("nf,gc", WIDTHS)
-@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21), (2, 20, 20)])
+@pytest.mark.parametrize("B,H,W", [(2, 8, 16), (3, 13, 21), (2, 20, 20), (1, 80, 80)])
 def test_rrdb_trunk_kernel_f32_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
-    """The float32 resident trunk is bit-identical to the float32 per-RRDB kernel."""
+    """The float32 resident trunk is bit-identical to the float32 per-RRDB kernel, also
+    at 80x80 (16-wide tiles, the x8 model's largest level)."""
     trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, nf, gc), gen)
     res = rrdb.pack_rrdb_trunk(trunk, None, resident=True)
     x = torch.randn(B, H, W, nf, device="cuda", generator=gen)
@@ -222,7 +223,10 @@ def test_rrdb_trunk_kernel_f32_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
     assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17), (6, 2, 21, 37)])
+# conv5 of COUT 16 (c 6, 12: the odd steps), 32 (c 12) and 48 (c 24), on 8- and 16-wide
+# tiles, ragged in H and W
+@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17), (6, 2, 21, 37),
+                                     (24, 2, 20, 20), (24, 2, 9, 32)])
 def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W):
     specs = [FlowStepSpec(in_channels=c, hidden_channels=32, flow_permutation="none",
                           flow_coupling="Affine3shift", nn_module="DenseBlock",
@@ -238,6 +242,28 @@ def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W):
     ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
     assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
     assert torch.equal(ld, ld_ref)
+
+
+def test_float32_packs_without_tf32_planes_raise(gen):
+    """The float32 kernels read the weights' TF32 planes: a float32 pack without them
+    raises before any launch, and launches nothing."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(9), 2, 32, 16), gen)
+    x = torch.randn(1, 8, 8, 32, device="cuda", generator=gen)
+    before = dict(rrdb.launches_by), dict(rrdb.trunk_launches_by), dict(chain3s.launches_by)
+    for pk, fn in ((rrdb.pack_rrdb(trunk[0]), rrdb.rrdb_apply),
+                   (rrdb.pack_rrdb_trunk(trunk, resident=True), rrdb.trunk_apply)):
+        del pk["tf32"]
+        with pytest.raises(ValueError, match="TF32 planes"):
+            fn(pk, x)
+    specs = [FlowStepSpec(in_channels=12, hidden_channels=32, flow_permutation="none",
+                          flow_coupling="Affine3shift", nn_module="DenseBlock",
+                          lr_vs_others=(k % 2 == 0)) for k in range(2)]
+    pk = chain3s.pack_inverse_chain3s(
+        _perturb([s.init(torch.Generator().manual_seed(8)) for s in specs], gen))
+    del pk["to3"]
+    with pytest.raises(ValueError, match="TF32 planes"):
+        chain3s.inverse_chain(pk, torch.randn(1, 8, 8, 12, device="cuda", generator=gen))
+    assert (rrdb.launches_by, rrdb.trunk_launches_by, chain3s.launches_by) == before
 
 
 def test_mixed_dtype_packs_raise(gen):

@@ -252,3 +252,93 @@ def test_3xtf32_product_matches_float64(M, K, N):
     err1 = (single - ref).abs().max().item()
     assert err <= 2e-6 * scale, err / scale
     assert err1 >= 1e-4 * scale, err1 / scale  # single-pass TF32 is not float32's accuracy
+
+
+# ------------------------------------------------- the weights split once at pack time
+def _ties(shape, seed):
+    """float32 weights of shape ``shape``, a quarter of them exactly half a TF32 ulp above
+    a TF32 value (ties, both signs), which rna rounds away from zero."""
+    w = torch.from_numpy(randn(seed, shape) * 0.05)
+    base = tf32_rna(w)
+    tie = (base.double() + torch.sign(base.double()) * 2.0 ** (
+        torch.floor(torch.log2(base.abs().double())) - 11)).float()
+    mask = torch.from_numpy(np.random.default_rng(seed + 1).uniform(size=shape) < 0.25)
+    return torch.where(mask, tie, w)
+
+
+def _planes_oihw(planes: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """pack_tf32's (2, 9, cin / 4, cout, 4) planes read back as two OIHW weights."""
+    return planes.permute(0, 3, 2, 4, 1).reshape(2, cout, cin, 3, 3)
+
+
+@pytest.mark.parametrize("cout,cin", [(32, 64), (64, 192), (16, 16), (48, 144)])
+def test_tf32_planes_round_to_nearest_ties_away(cout, cin):
+    """nets.pack_tf32: hi = rna(w) and lo = rna(w - hi) bit for bit against tf32_rna, the
+    low 13 bits of both clear; hi + lo within 2^-21 of w relative."""
+    w = _ties((cout, cin, 3, 3), cout + cin)
+    planes = nets.pack_tf32(w)
+    assert planes.shape == (2, 9, cin // 4, cout, 4) and planes.dtype == torch.float32
+    assert planes.is_contiguous()
+    hi, lo = _planes_oihw(planes, cout, cin)
+    assert torch.equal(hi.view(torch.int32), tf32_rna(w).view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), tf32_rna(w - tf32_rna(w)).view(torch.int32))
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert (err <= 2.0 ** -21 * w.double().abs()).all()
+
+
+def test_tf32_planes_are_wgmma_k_major_core_matrices():
+    """The planes' layout, element by element: [hi, lo][tap][ci // 4][co][ci % 4], so that
+    8 consecutive outputs x 4 inputs are one 128-byte core matrix (16 bytes a row)."""
+    w = torch.from_numpy(randn(6, (24, 40, 3, 3)))  # OIHW, cout 24, cin 40
+    planes = nets.pack_tf32(w)
+    hi = tf32_rna(w)
+    for co, ci, ky, kx in ((0, 0, 0, 0), (5, 13, 1, 2), (23, 39, 2, 2), (8, 4, 2, 0)):
+        assert planes[0, 3 * ky + kx, ci // 4, co, ci % 4] == hi[co, ci, ky, kx]
+    flat = planes[0].reshape(9, 10, 3, 8, 4)  # [tap][k group][8-output group][8][4]
+    assert torch.equal(flat[4, 2, 1], hi[8:16, 8:12, 1, 1])  # one core matrix, centre tap
+
+
+@pytest.mark.parametrize("M,cin,N", [(256, 64, 32), (256, 192, 64), (160, 64, 32)])
+def test_3xtf32_product_from_the_planes_matches_float64(M, cin, N):
+    """A conv-shaped product (M pixels x K = 9 taps x cin, N outputs) from the pre-split
+    planes in the kernels' order (lo x hi, hi x lo, hi x hi; A split as the kernels split a
+    stage): the same sums as product_3xtf32, within its float64 bound."""
+    a = torch.from_numpy(randn(1, (M, 9 * cin)))
+    w = torch.from_numpy((randn(2, (N, cin, 3, 3)) / np.sqrt(9 * cin)).astype(np.float32))
+    b = w.permute(2, 3, 1, 0).reshape(9 * cin, N)  # [tap][ci][co], K = tap * cin + ci
+    planes = nets.pack_tf32(w)
+    bh, bl = (p.permute(0, 1, 3, 2).reshape(9 * cin, N) for p in planes)
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    got = al @ bh + ah @ bl + ah @ bh
+    assert torch.equal(got, product_3xtf32(a, b))
+    ref = a.double() @ b.double()
+    assert (got.double() - ref).abs().max().item() <= 2e-6 * ref.abs().max().item()
+
+
+def test_float32_packs_without_tf32_planes_fail_the_kernel_checks():
+    """The CUDA wrappers' pack checks, which run before any launch and need no card: a
+    float32 pack without its TF32 planes (or with planes of another shape) raises; a
+    complete pack gives the planes as the weights the kernel reads, a bf16 pack its
+    weights."""
+    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(2), 2, 32, 16))
+    per, res = rrdb.pack_rrdb(trunk[0]), rrdb.pack_rrdb_trunk(trunk, resident=True)
+    assert rrdb.check_pack(per, 32)[2] is per["tf32"]
+    assert rrdb.check_trunk_pack(res, 32)[3] is res["tf32"]
+    bf = rrdb.pack_rrdb(trunk[0], "bfloat16")
+    assert "tf32" not in bf and rrdb.check_pack(bf, 32)[2] is bf["w"]
+    bad = dict(per, tf32=per["tf32"][:14] + [per["tf32"][14][:, :, :-1]])
+    for pk, check in ((dict(per, tf32=None), rrdb.check_pack), (bad, rrdb.check_pack),
+                      ({k: v for k, v in res.items() if k != "tf32"}, rrdb.check_trunk_pack)):
+        with pytest.raises(ValueError, match="TF32 planes"):
+            check(pk, 32)
+    model = HCFlowRescalingSpec.default_x4(**dict(TINY_RS, hidden_channels=16))
+    main = perturb(model.init(0, device="cpu")["level0"]["main"])
+    packed = chain3s.pack_inverse_chain3s(main)
+    assert chain3s.check_pack(packed)[3] == "t"
+    assert packed["te2"].shape[1:] == (2, 9, (16 + 16) // 4, 16, 4)  # [step][plane]...
+    assert chain3s.check_pack(chain3s.pack_inverse_chain3s(main, "bfloat16"))[3] == "w"
+    del packed["to5"]
+    with pytest.raises(ValueError, match="TF32 planes"):
+        chain3s.check_pack(packed)

@@ -10,8 +10,8 @@ passes after warm-up, the median), the serving passes at full width and batch 16
 random weights from seed 0, fused with ``precompute_inference(fused=True)``: in the bf16
 recipe the x4 SR reverse (40x40 -> 160x160, heat 0.9), the x4 rescaling upscale and
 downscale (160x160, heat 1.0) and the x8 SR reverse with resident trunks (20x20 ->
-160x160, heat 0.8); in the float32 recipe (no compute_dtype) the x4 SR reverse and
-the x4 rescaling upscale.  Prints one line of ms per ROOT, the passes in that order.
+160x160, heat 0.8); in the float32 recipe (no compute_dtype) the x4 SR reverse,
+the x4 rescaling upscale and the x8 SR reverse with resident trunks.  Prints one line of ms per ROOT, the passes in that order.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import subprocess
 import sys
 
 PASSES = ("x4 bf16", "upscale bf16", "downscale bf16", "x8 bf16 resident", "x4 f32",
-          "upscale f32")
+          "upscale f32", "x8 f32 resident")
 
 
 def run_one(root: str) -> None:
@@ -62,7 +62,7 @@ def run_one(root: str) -> None:
 
     times = [sr(4, cs.LR_HW, 0.9, "bfloat16"), *rescaling("bfloat16"),
              sr(8, cs.X8_LR_HW, 0.8, "bfloat16", resident_trunk=True), sr(4, cs.LR_HW, 0.9, None),
-             rescaling(None)[0]]
+             rescaling(None)[0], sr(8, cs.X8_LR_HW, 0.8, None, resident_trunk=True)]
     print(root, " ".join(f"{t:.3f}" for t in times), flush=True)
 
 
