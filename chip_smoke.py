@@ -4,9 +4,9 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases:
 
-1. print the card's name and power limit; build the five CUDA kernels from
-   hcflow_tpu_torch/csrc with nvcc (sm_90a, in parallel) and print their ptxas
-   register, spill and wgmma lines and the build time;
+1. print the card's name and power limit and whether PyYAML, OpenCV and Pillow import;
+   build the five CUDA kernels from hcflow_tpu_torch/csrc with nvcc (sm_90a, in
+   parallel) and print their ptxas register, spill and wgmma lines and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at every shape of
    the main paths, with bf16 weights perturbed from a seed, and time both: the x4 SR
    path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
@@ -63,15 +63,32 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    4 and the x8 SR model of phase 5 (resident trunks), each as its bf16 phase checks
    it, the kernel path within 1e-4 x max |plain| of the plain path: the float32 RRDB,
    resident-trunk and chain3s kernels (3xTF32 products) and the float32 chain kernel;
-9. print the kernels' JSON line, the card line, then the JSON status line last.
+9. the serving entry points at full width in the float32 recipe (the shipped test
+   configs set no compute_dtype), on synthetic PNG datasets written to a temp directory:
+   cli.test.main on configs/test_SR_DF2K_4X_HCFlow.yml (4 GT/LQ pairs of HR 1024x768
+   and an LQ-only LR of 127x93), configs/test_SR_CelebA_8X_HCFlow.yml (8 pairs of HR
+   160x160 and an LQ-only LR of 24x20) and configs/test_Rescaling_DF2K_4X_HCFlow.yml
+   (the x4 pairs), random init (no released weights are in the repo), and on the tiny
+   trained checkpoint (weights/ref_trained/tiny_x4_parity.yml + tiny_x4_400_G.pth): each
+   option file a copy with only the dataroots (and the LQ-only set), path.root and
+   pretrain_model_G changed; every average finite, the saved file names, the exact
+   launches of the float32 RRDB, chain and chain3s kernels; the seconds per image per
+   heat and the device's busy share (torch.profiler).  Then the x4 Evaluator at heat 0
+   on perturbed weights on the kernel path against the plain path (SR images within
+   1e-4 x max |plain|, PSNR within 0.05 dB), and Predictor("general") on an LR of
+   510x339, tiled at max_tile 128 (shape, range, launches, ms per image);
+10. print the kernels' JSON line, the card line, then the JSON status line last.
 
-Phase 2 also holds the variants against their plain version: the chain kernel's float32
-one at hid 64 at the shapes of phase 6's serving, bf16 and float32 at hid 32 at phase
-7's; the float32 RRDB kernel at phases 3, 4 and 7's shapes, the float32 resident trunk
-at phase 5's and chain3s in float32 at phase 4's (1e-5 x max |plain|), each timed
-beside its float32 library sequence (cuDNN with TF32 off) as one CUDA graph.  A
-float32 row's bound_ms is at the 3xTF32 tensor-core rate, the rate its kernel's products
-run at; bound_cuda_core_ms gives the same work at the CUDA-core float32 rate.
+Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
+levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
+so the kernels line's units do not change), and the variants against their plain
+version: the chain kernel's float32 one at hid 64 at the shapes of phase 6's serving,
+bf16 and float32 at hid 32 at phase 7's; the float32 RRDB kernel at phases 3, 4 and
+7's shapes, the float32 resident trunk at phase 5's and chain3s in float32 at phase
+4's (1e-5 x max |plain|), each timed beside its float32 library sequence (cuDNN with
+TF32 off) as one CUDA graph. A float32 row's bound_ms is at the 3xTF32 tensor-core
+rate, the rate its kernel's products run at; bound_cuda_core_ms gives the same work at
+the CUDA-core float32 rate.
 
 Any failed check raises, and the script exits non-zero without the status line.
 Weights are random, perturbed so that the zero-initialised layers (coupling conv3s
@@ -139,10 +156,35 @@ TRAIN_ITERS = 3
 # coupling width 32, RRDB nb 2, nf 32, gc 16
 TINY_CKPT = dict(K=(8, 8), after_splitoff=(4, 4), rrdb_nb=(2, 2), rrdb_nf=32, rrdb_gc=16,
                  hidden_channels=32, so_hidden_channels=32)
+# phase 9: synthetic datasets for the serving entry points, image sizes as (H, W).  4
+# GT/LQ pairs of HR 768x1024 for the x4 SR and x4 rescaling test configs, 8 of HR
+# 160x160 for the x8 one (the CelebA-8X test images' size), one LQ-only image on each SR
+# config at a ragged size; the Predictor on a DIV2K-sized LR (about 510x339), which it
+# tiles at max_tile 128.
+SERVE_X4_HR, SERVE_X4_PAIRS = (768, 1024), 4
+SERVE_X8_HR, SERVE_X8_PAIRS = (160, 160), 8
+SERVE_REAL_X4, SERVE_REAL_X8 = (93, 127), (20, 24)
+PREDICT_LR, PREDICT_TILE = (339, 510), 128
+# the kernel path's Evaluator against the plain path's at heat 0: PSNR within 0.05 dB
+SERVE_PSNR_TOL = 0.05
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _io_modules():
+    """Whether the readers the serving entry points use import: PyYAML (option files),
+    OpenCV (PNG) and Pillow."""
+    import importlib
+
+    found = []
+    for name in ("yaml", "cv2", "PIL"):
+        try:
+            found.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError:
+            found.append(f"{name} not installed")
+    return ", ".join(found)
 
 
 def card_line():
@@ -327,6 +369,11 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
     return got
 
 
+def _bhw(hw):
+    """(B, H, W) of a row: a side (square, at batch BATCH) or (B, H, W) itself."""
+    return (BATCH, hw, hw) if isinstance(hw, int) else hw
+
+
 def _library_trunk(torch, trunk, cd="bfloat16"):
     """A trunk's params on the card, for the library yardstick: nets.apply_rrdb(_trunk)
     in the recipe cd (bf16: cuDNN bf16 convs, the conv weights cast to bf16; None:
@@ -349,13 +396,14 @@ def _rrdb_rows(torch, gen, rows, gc, shapes, path, nf=64, cd="bfloat16", key="rr
     packed = _to(rrdb.pack_rrdb(trunk[0], cd), DEV)
     lib = _library_trunk(torch, trunk, cd)[0]
     for hw, calls in shapes:
-        x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
-        flops, nbytes = rrdb_work(BATCH, hw, hw, nf, gc, 2 if cd else 4)
-        _row(rows, key, f"{key} nf {nf} gc {gc} {BATCH}x{hw}x{hw}x{nf}",
+        B, H, W = _bhw(hw)
+        x = torch.randn(B, H, W, nf, device=DEV, generator=gen)
+        flops, nbytes = rrdb_work(B, H, W, nf, gc, 2 if cd else 4)
+        _row(rows, key, f"{key} nf {nf} gc {gc} {B}x{H}x{W}x{nf}",
              lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
              (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
              library_fn=lambda: nets.apply_rrdb(lib, x, cd), library_seq=True,
-             rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[BATCH, hw, hw, nf], gc=gc)
+             rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[B, H, W, nf], gc=gc)
 
 
 def _trunk_rows(torch, gen, rows, shapes, path, cd="bfloat16", key="rrdb_trunk"):
@@ -415,7 +463,8 @@ def _conv_rows(torch, gen, rows, shapes, path):
              relu=relu)
 
 
-def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16", key="chain"):
+def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16", key="chain",
+                calls=1):
     """The chain kernel at coupling width hid in the recipe cd (bf16, or float32 for
     None) against its plain version, each row with the kernel's tile plan and the
     recipe's step loop (FlowStepSpec.inverse_hoisted / inverse over the K steps: cuDNN
@@ -433,10 +482,11 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
         steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
         steps = _to(stack.precompute_invconv(perturb(steps, gen)), DEV)
         pk = chain.pack_inverse_chain(steps, cd, padded=True)
-        z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
+        B, H, W = _bhw(hw)
+        z = torch.randn(B, H, W, c, device=DEV, generator=gen)
         uc = ucf = None
         if cond:
-            u = torch.randn(BATCH, hw, hw, cond_ch, device=DEV, generator=gen)
+            u = torch.randn(B, H, W, cond_ch, device=DEV, generator=gen)
             ucf = stack.compute_u_contribs(spec, steps, u)
             uc = ucf.to(pk["w1"].dtype).contiguous()
 
@@ -447,17 +497,17 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
                          if ucf is not None else spec.inverse(steps[k], z))[0]
             return z
 
-        plan = chain.plan(BATCH, hw, hw, c, hid=hid, f32=f32)
+        plan = chain.plan(B, H, W, c, hid=hid, f32=f32)
         log(f"  {key} {name}: {plan['th']}x{plan['tw']} tiles, {plan['blocks']} blocks, "
             f"{plan['blocks_per_sm']} per SM, {plan['smem']} bytes of shared memory a block")
-        _row(rows, key, f"{key} {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}",
              lambda: chain.inverse_chain(pk, z, uc), lambda: chain.inverse_chain_plain(pk, z, uc),
-             chain_work(BATCH, hw, hw, c, hid, K, cond, f32), 20, path, 1, library_fn=library,
-             library_seq=True, rtol=F32_RTOL if f32 else KERNEL_RTOL, shape=[BATCH, hw, hw, c],
+             chain_work(B, H, W, c, hid, K, cond, f32), 20, path, calls, library_fn=library,
+             library_seq=True, rtol=F32_RTOL if f32 else KERNEL_RTOL, shape=[B, H, W, c],
              chain=name, K=K, hid=hid, plan=plan)
 
 
-def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s"):
+def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s", calls=1):
     """chain3s in the recipe cd against its plain version, beside its step loop
     (FlowStepSpec.inverse over the K steps in the same recipe; float32 with TF32 off)
     as one CUDA graph."""
@@ -473,7 +523,8 @@ def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s
         g = torch.Generator().manual_seed(13)
         steps = _to(perturb([s.init(g) for s in specs], gen), DEV)
         pk = chain3s.pack_inverse_chain3s(steps, cd)
-        z = torch.randn(BATCH, hw, hw, c, device=DEV, generator=gen)
+        B, H, W = _bhw(hw)
+        z = torch.randn(B, H, W, c, device=DEV, generator=gen)
 
         def library(z=z, steps=steps, specs=specs):
             with nets.exact_f32() if cd is None else contextlib.nullcontext():
@@ -481,11 +532,11 @@ def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s
                     z = specs[k].inverse(steps[k], z)[0]
             return z
 
-        _row(rows, key, f"{key} {name} {BATCH}x{hw}x{hw}x{c} K={K}",
+        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}",
              lambda: chain3s.inverse_chain(pk, z), lambda: chain3s.inverse_chain3s_plain(pk, z),
-             chain3s_work(BATCH, hw, hw, c, gc, K, f32=cd is None), 10, path, 1,
+             chain3s_work(B, H, W, c, gc, K, f32=cd is None), 10, path, calls,
              library_fn=library, library_seq=True, rtol=KERNEL_RTOL if cd else F32_RTOL,
-             shape=[BATCH, hw, hw, c], chain=name, K=K)
+             shape=[B, H, W, c], chain=name, K=K)
 
 
 def phase_kernels(torch, gen):
@@ -540,7 +591,44 @@ def phase_kernels(torch, gen):
                 key="rrdb_trunk_f32")
     _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, LR_HW), ("L0 main", 12, 2 * LR_HW)],
                   "rescaling_f32", cd=None, key="chain3s_f32")
+    log("  serving entry points (phase 9, float32 recipe): the shapes the CLIs give the "
+        "kernels (batch 1 at each image's size, the tiled batch of 8), checked, not in the "
+        "units above")
+    _serving_rows(torch, gen, rows)
     return rows
+
+
+def _serving_rows(torch, gen, rows):
+    """The float32 kernels at phase 9's shapes, calls_per_pass 0: an x4 image's levels
+    (LR 192x256 and its double), the ragged LQ-only image (LR 93x127), the Predictor's
+    tiles (8 x 128x128 LR), the x8 LQ-only image (LR 20x24) and the tiny checkpoint's
+    hid-32 chains."""
+    h, w = SERVE_X4_HR[0] // SCALE, SERVE_X4_HR[1] // SCALE
+    lv1, lv0 = (1, h, w), (1, 2 * h, 2 * w)
+    odd1, odd0 = (1, *SERVE_REAL_X4), (1, 2 * SERVE_REAL_X4[0], 2 * SERVE_REAL_X4[1])
+    tile1, tile0 = (8, 128, 128), (8, 256, 256)
+    x8_2, x8_0 = (1, *SERVE_REAL_X8), (1, 4 * SERVE_REAL_X8[0], 4 * SERVE_REAL_X8[1])
+    shapes = [(s, 0) for s in (lv1, lv0, odd1, odd0, tile1, tile0, x8_2, x8_0)]
+    _rrdb_rows(torch, gen, rows, 32, shapes, "serve", cd=None, key="rrdb_f32")
+    _rrdb_rows(torch, gen, rows, 16, [(lv1, 0), (lv0, 0)], "serve", cd=None, key="rrdb_f32")
+    _rrdb_rows(torch, gen, rows, 16, [(lv1, 0), (lv0, 0)], "serve", nf=32, cd=None,
+               key="rrdb_f32")
+    _chain_rows(torch, gen, rows, 13, 128, [("L1 cond", True, 21, lv1), ("L0 cond", True, 6, lv0),
+                                            ("L1 main", False, 24, lv1),
+                                            ("L0 main", False, 12, lv0),
+                                            ("L1 cond", True, 21, odd1),
+                                            ("L0 main", False, 12, odd0),
+                                            ("L1 main", False, 24, tile1),
+                                            ("L0 cond", True, 6, tile0),
+                                            ("L2 cond", True, 45, x8_2),
+                                            ("L0 main", False, 12, x8_0)],
+                "serve", cd=None, key="chain_f32", calls=0)
+    _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, lv1), ("L0 cond", True, 6, lv0)],
+                "serve", cd=None, key="chain_f32", calls=0)
+    _chain_rows(torch, gen, rows, 4, 64, [("L1 cond", True, 21, lv1), ("L0 main", False, 12, lv0)],
+                "serve", hid=32, cd=None, key="chain_hid32_f32", calls=0)
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, lv1), ("L0 main", 12, lv0)], "serve",
+                  cd=None, key="chain3s_f32", calls=0)
 
 
 def _counts():
@@ -1033,6 +1121,320 @@ def phase_tiny(torch, gen):
     return out
 
 
+def _write_pairs(np, root, n, hr_hw, scale, rng):
+    """n smooth synthetic GT/LQ PNG pairs under root/HR and root/LR (LR by the port's
+    MATLAB bicubic); returns their names."""
+    from hcflow_tpu_torch.data.imresize import imresize
+    from hcflow_tpu_torch.data.util import save_img
+
+    for d in ("HR", "LR"):
+        (root / d).mkdir(parents=True)
+    names = []
+    for i in range(n):
+        hr = _smooth_image(np, rng, *hr_hw)
+        save_img(str(root / "HR" / f"{i:02d}.png"), hr)
+        save_img(str(root / "LR" / f"{i:02d}.png"), np.clip(imresize(hr, 1 / scale), 0, 1))
+        names.append(f"{i:02d}")
+    return names
+
+
+def _smooth_image(np, rng, h, w):
+    """A smooth random image in [0, 1] (8x8 blocks of random colours, smoothed by a
+    bicubic round trip, plus fine noise), float32 HWC."""
+    from hcflow_tpu_torch.data.imresize import imresize
+
+    lo = rng.uniform(0.05, 0.95, (-(-h // 8), -(-w // 8), 3))
+    img = imresize(lo, 8.0)[:h, :w]
+    return np.clip(img + 0.02 * rng.standard_normal(img.shape), 0, 1).astype(np.float32)
+
+
+def _serve_option_file(path, src, root, datasets, ckpt=None, **changes):
+    """An option file from src with its datasets' dataroots (and any LQ-only set),
+    path.root and pretrain_model_G changed; nothing else of src."""
+    import yaml
+
+    with open(src) as f:
+        opt = yaml.safe_load(f)
+    opt["datasets"] = datasets
+    opt["path"] = {**(opt.get("path") or {}), "root": str(root), "pretrain_model_G": ckpt}
+    opt.update(changes)
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return str(path)
+
+
+def _serve(torch, name, opt_path, expected, files):
+    """cli.test.main on opt_path on the card, the launches counted from 0: every
+    average finite, the saved files (dataset -> names), the exact launches
+    (expected); the Evaluator's seconds per image per heat and the device's busy
+    share of them (torch.profiler)."""
+    import os
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hcflow_tpu_torch.cli import evaluate, test
+    from hcflow_tpu_torch.utils.config import parse
+
+    runs, run = [], evaluate.Evaluator.run
+
+    def timed(self, loader, generator, real_image=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, loader, generator, real_image)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, images=out["n_images"],
+                         heats=len(self.heats), real=real_image))
+        return out
+
+    evaluate.Evaluator.run = timed
+    try:
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = test.main(["--opt", opt_path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        evaluate.Evaluator.run = run
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e6
+    if not busy:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    eval_s = sum(r["s"] for r in runs)
+    log(f"  {name}: cli.test.main {wall:.2f} s, of which the Evaluator {eval_s:.2f} s; device "
+        f"busy {busy:.3f} s = {busy / eval_s:.4f} of the Evaluator's time")
+    for (ds, avg), r in zip(res.items(), runs):  # main runs the datasets in this order
+        per = r["s"] / (r["images"] * r["heats"])
+        r.update(dataset=ds, s_per_image_heat=per)
+        log(f"    [{ds}] {r['images']} images x {r['heats']} heats: {per:.3f} s per image per "
+            f"heat{' (LQ only: the reverse, no metrics)' if r['real'] else ''}; averages "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(avg.items())))
+        bad = [k for k, v in avg.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} [{ds}]: non-finite averages {bad}")
+    results_root = parse(opt_path, is_train=False)["path"]["results_root"]
+    for ds, want in files.items():
+        got = sorted(os.listdir(os.path.join(results_root, ds)))
+        if got != sorted(want):
+            raise AssertionError(f"{name} [{ds}]: saved {got}, expected {sorted(want)}")
+    log(f"    saved images as expected ({sum(len(v) for v in files.values())} files)")
+    _expect_launches(name, launches, expected)
+    return dict(results=res, runs=runs, wall_s=wall, eval_s=eval_s, busy_s=busy,
+                busy_share=busy / eval_s, launches=launches)
+
+
+def _expect_launches(name, launches, expected):
+    log(f"    launches {launches}")
+    want = _per_request(**expected)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+
+def _sr_files(names, heats, n_sample=1):
+    return [f"SR_{n}_{h:.1f}_{s}.png" for n in names for h in heats for s in range(n_sample)]
+
+
+def _host_breakdown(np, root):
+    """ms on the host of what the Evaluator does for one x4 GT image outside the model,
+    each once, on the first pair under root and a stand-in SR: decoding the pair, the
+    LR metrics (once an image), and a heat's HR metrics, bicubic downscales (bicHR), their
+    metrics and the PNG write."""
+    from hcflow_tpu_torch.data.imresize import imresize
+    from hcflow_tpu_torch.data.util import read_img, save_img
+    from hcflow_tpu_torch.utils.metrics import calculate_psnr_ssim
+
+    ms = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    gt, lr = timed("decode the GT and LQ PNGs", lambda: (read_img(str(root / "HR/00.png")),
+                                                          read_img(str(root / "LR/00.png"))))
+    sr = np.clip(gt + 0.05 * np.random.default_rng(0).standard_normal(gt.shape), 0, 1)
+    timed("LR metrics", lambda: calculate_psnr_ssim(lr, np.clip(lr + 0.01, 0, 1), 0))
+    timed("HR metrics (PSNR, SSIM, +Y)", lambda: calculate_psnr_ssim(gt, sr, SCALE))
+    bic = timed("bicHR: 2 bicubic downscales", lambda: (imresize(gt, 1 / SCALE),
+                                                         imresize(sr, 1 / SCALE)))
+    timed("bicHR metrics", lambda: calculate_psnr_ssim(*bic, 0))
+    timed("save the SR PNG", lambda: save_img(str(root / "host.png"), sr))
+    per_heat = sum(v for k, v in ms.items() if k not in ("decode the GT and LQ PNGs",
+                                                         "LR metrics"))
+    log(f"  host work of an x4 image outside the model ({gt.shape[1]}x{gt.shape[0]}): "
+        + "; ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f"; a heat's share {per_heat:.1f} ms")
+    return dict(ms, per_heat=per_heat)
+
+
+def phase_serving(torch, gen):
+    """The serving entry points on the card at full width, float32 recipe: cli.test.main
+    on the shipped x4 SR, x8 SR and x4 rescaling test configs and on the tiny trained
+    checkpoint, the kernel path's Evaluator against the plain path's, the tiled
+    Predictor."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from hcflow_tpu_torch.cli.evaluate import Evaluator
+    from hcflow_tpu_torch.cli.predict import Predictor
+    from hcflow_tpu_torch.data import DataLoader, create_dataset
+    from hcflow_tpu_torch.data.util import read_img, save_img
+    from hcflow_tpu_torch.utils import config
+
+    repo = Path(__file__).resolve().parent
+    rng = np.random.default_rng(9)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        x4 = _write_pairs(np, tmp / "x4", SERVE_X4_PAIRS, SERVE_X4_HR, SCALE, rng)
+        x8 = _write_pairs(np, tmp / "x8", SERVE_X8_PAIRS, SERVE_X8_HR, X8_SCALE, rng)
+        for d, hw in (("real_x4", SERVE_REAL_X4), ("real_x8", SERVE_REAL_X8)):
+            (tmp / d).mkdir()
+            save_img(str(tmp / d / "odd.png"), _smooth_image(np, rng, *hw))
+        log(f"  datasets written in {time.perf_counter() - t0:.1f} s: {SERVE_X4_PAIRS} pairs of "
+            f"HR {SERVE_X4_HR[1]}x{SERVE_X4_HR[0]}, {SERVE_X8_PAIRS} of HR {SERVE_X8_HR[1]}x"
+            f"{SERVE_X8_HR[0]}, LQ-only {SERVE_REAL_X4[1]}x{SERVE_REAL_X4[0]} and "
+            f"{SERVE_REAL_X8[1]}x{SERVE_REAL_X8[0]} (W x H)")
+
+        def pairs(name, d):
+            return {"name": name, "mode": "GTLQ", "dataroot_GT": str(tmp / d / "HR"),
+                    "dataroot_LQ": str(tmp / d / "LR")}
+
+        def real(d):
+            return {"name": d, "mode": "LQ", "dataroot_LQ": str(tmp / d)}
+
+        # x4 SR: per GT image the forward and a reverse a heat, per LQ image a reverse a
+        # heat; a pass: 28 RRDBs of 16 launches, 4 chains of 13 steps
+        heats = [0.0, 0.9]
+        opt = _serve_option_file(tmp / "x4.yml", repo / "configs/test_SR_DF2K_4X_HCFlow.yml", tmp,
+                                 {"test_1": pairs("x4", "x4"), "test_2": real("real_x4")})
+        n, r = len(x4), 1
+        log("  x4 SR, configs/test_SR_DF2K_4X_HCFlow.yml (random init: no released weights)")
+        out["x4"] = _serve(torch, "x4 SR", opt, dict(
+            rrdb_f32=28 * 16 * (n * (1 + len(heats)) + r * len(heats)),
+            chain_f32=4 * 13 * len(heats) * (n + r)),
+            {"x4": _sr_files(x4, heats), "real_x4": _sr_files(["odd"], heats)})
+
+        out["x4_host_ms"] = _host_breakdown(np, tmp / "x4")
+
+        # x8 SR (per-RRDB kernels, as test.main packs): 30 RRDBs, 6 chains of 13 steps
+        heats = [0.0, 0.8]
+        opt = _serve_option_file(tmp / "x8.yml", repo / "configs/test_SR_CelebA_8X_HCFlow.yml",
+                                 tmp, {"test_1": pairs("x8", "x8"), "test_2": real("real_x8")})
+        n = len(x8)
+        log("  x8 SR, configs/test_SR_CelebA_8X_HCFlow.yml (random init)")
+        out["x8"] = _serve(torch, "x8 SR", opt, dict(
+            rrdb_f32=30 * 16 * (n * (1 + len(heats)) + r * len(heats)),
+            chain_f32=6 * 13 * len(heats) * (n + r)),
+            {"x8": _sr_files(x8, heats), "real_x8": _sr_files(["odd"], heats)})
+
+        # x4 rescaling: per image the downscale (6 RRDBs) and the upscale (6 RRDBs, 2
+        # split-off chains of 6 steps, 2 main chains of 1 + 5 x 8 launches), heat 1.0
+        opt = _serve_option_file(tmp / "rs.yml", repo / "configs/test_Rescaling_DF2K_4X_HCFlow.yml",
+                                 tmp, {"test_1": pairs("rs", "x4")})
+        n = len(x4)
+        log("  x4 rescaling, configs/test_Rescaling_DF2K_4X_HCFlow.yml (random init)")
+        out["rescaling"] = _serve(torch, "x4 rescaling", opt, dict(
+            rrdb_f32=2 * 6 * 16 * n, chain_f32=2 * 6 * n, chain3s_f32=2 * 41 * n),
+            {"rs": _sr_files(x4, [1.0])})
+
+        # the tiny trained checkpoint: 8 RRDBs a pass, 4 chains of 4 steps at hid 32
+        opt = _serve_option_file(tmp / "tiny.yml", repo / "weights/ref_trained/tiny_x4_parity.yml",
+                                 tmp, {"test_1": pairs("tiny", "x4")},
+                                 ckpt=str(repo / "weights/ref_trained/tiny_x4_400_G.pth"))
+        log("  the tiny trained checkpoint, weights/ref_trained/tiny_x4_parity.yml + "
+            "tiny_x4_400_G.pth")
+        out["tiny"] = _serve(torch, "tiny checkpoint", opt, dict(
+            rrdb_f32=8 * 16 * 2 * n, chain_hid32_f32=4 * 4 * n), {"tiny": _sr_files(x4, [0.0])})
+
+        # the kernel path's Evaluator against the plain path's, perturbed full-width x4
+        log("  x4 SR Evaluator at heat 0, perturbed weights: kernel path against plain path")
+        x4_opt = config.parse(str(repo / "configs/test_SR_DF2K_4X_HCFlow.yml"), is_train=False)
+        model = config.model_spec_from_opt(x4_opt)
+        params = perturb(model.init(0, device=DEV), gen)
+
+        class Capture(Evaluator):
+            def sample(self, *args):
+                srs = super().sample(*args)
+                self.srs.append(srs)
+                return srs
+
+        evs = {}
+        for path, fused in (("kernel", True), ("plain", False)):
+            ev = Capture(model, model.flow.precompute_inference(params, fused=fused), [0.0])
+            ev.srs = []
+            t0 = time.perf_counter()
+            avg = ev.run(DataLoader(create_dataset({**pairs("x4", "x4"), "phase": "test",
+                                                     "scale": SCALE, "n_max": 2})),
+                         torch.Generator(device=DEV).manual_seed(1))
+            torch.cuda.synchronize()
+            evs[path] = (avg, ev.srs, time.perf_counter() - t0)
+        errs = [check_rel(f"image {i} SR, kernel path vs plain path", torch.from_numpy(a),
+                          torch.from_numpy(b), F32_PATH_RTOL)
+                for i, (a, b) in enumerate(zip(evs["kernel"][1], evs["plain"][1]))]
+        d_psnr = {k: abs(evs["kernel"][0][k] - evs["plain"][0][k])
+                  for k in ("psnr@0.0", "psnr_y@0.0", "bic_psnr@0.0")}
+        log(f"  PSNR kernel path {evs['kernel'][0]['psnr@0.0']:.4f} dB, plain "
+            f"{evs['plain'][0]['psnr@0.0']:.4f}; |difference| {d_psnr} (tolerance "
+            f"{SERVE_PSNR_TOL} dB); Evaluator {evs['kernel'][2]:.2f} s (kernel path) and "
+            f"{evs['plain'][2]:.2f} s (plain path) for 2 images")
+        if max(d_psnr.values()) > SERVE_PSNR_TOL:
+            raise AssertionError("the kernel path's PSNR disagrees with the plain path's")
+        out["paths"] = dict(max_abs=errs, d_psnr=d_psnr, kernel_s=evs["kernel"][2],
+                            plain_s=evs["plain"][2])
+
+        # the Predictor ('general': the x4 test config, random init) on a DIV2K-sized LR
+        log(f"  Predictor('general') on an LR of {PREDICT_LR[1]}x{PREDICT_LR[0]}, max_tile "
+            f"{PREDICT_TILE}")
+
+        class Recording(Predictor):
+            def reverse(self, params, lr, heat, generator):
+                sr = super().reverse(params, lr, heat, generator)
+                self.seen.append((lr.shape, sr.shape, float(sr.min()), float(sr.max()),
+                                  bool(np.isfinite(sr).all())))
+                return sr
+
+        pred = Recording("general")
+        pred.seen = []
+        save_img(str(tmp / "div2k.png"), _smooth_image(np, rng, *PREDICT_LR))
+        pred.predict(str(tmp / "div2k.png"), str(tmp / "warm.png"), max_tile=PREDICT_TILE)
+        ph, pw = PREDICT_LR[0] + PREDICT_LR[0] % 2, PREDICT_LR[1] + PREDICT_LR[1] % 2
+        stride = PREDICT_TILE - 16
+        tiles = math.ceil((ph - 16) / stride) * math.ceil((pw - 16) / stride)
+        batches = math.ceil(tiles / 8)
+        pred.seen, times = [], []
+        _reset_counts()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = pred.predict(str(tmp / "div2k.png"), str(tmp / f"sr{i}.png"),
+                                max_tile=PREDICT_TILE)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = _counts()
+        sr = read_img(path)
+        want = (PREDICT_LR[0] * SCALE, PREDICT_LR[1] * SCALE, 3)
+        log(f"    {tiles} tiles in {batches} batches of 8 a request; output {sr.shape}; "
+            f"reverse outputs {pred.seen[0][:2]}, min {min(s[2] for s in pred.seen):.4f}, "
+            f"max {max(s[3] for s in pred.seen):.4f}; ms per image {statistics.median(times):.1f} "
+            f"(median of 3: {', '.join(f'{t:.1f}' for t in times)})")
+        if sr.shape != want:
+            raise AssertionError(f"Predictor: output {sr.shape}, expected {want}")
+        if len(pred.seen) != 3 * batches or not all(
+                s[1] == (8, PREDICT_TILE * SCALE, PREDICT_TILE * SCALE, 3) and s[4]
+                and 0 <= s[2] and s[3] <= 1 for s in pred.seen):
+            raise AssertionError(f"Predictor: reverse outputs {pred.seen}")
+        _expect_launches("Predictor", launches, dict(rrdb_f32=28 * 16 * batches * 3,
+                                                     chain_f32=4 * 13 * batches * 3))
+        out["predict"] = dict(ms=times, tiles=tiles, batches=batches, launches=launches)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -1117,7 +1519,8 @@ def main(argv=None):
         return 1
 
     card = card_line()
-    log(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"{_io_modules()}")
     t0 = time.perf_counter()
     reports = _build.build()
     build_s = time.perf_counter() - t0
@@ -1161,19 +1564,24 @@ def main(argv=None):
     log("  x8 SR (configs/test_SR_CelebA_8X_HCFlow.yml's topology), resident trunks")
     sr8_f32 = phase_sr(torch, gen, X8_SCALE, X8_LR_HW, X8_HEAT,
                        _per_request(rrdb_trunk_f32=6, chain_f32=6 * 13), resident=True, cd=None)
+    log("phase 9: the serving entry points (cli.test.main, the Evaluator, the tiled Predictor) "
+        "at full width, float32 recipe")
+    serve = phase_serving(torch, gen)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
                                   "tiny_f32": tiny["float32"]["launches"],
                                   "sr_f32": sr_f32["launches"],
                                   "rescaling_f32": rs_f32["launches"],
-                                  "sr8_f32": sr8_f32["launches"]})
+                                  "sr8_f32": sr8_f32["launches"],
+                                  **{f"serve_{k}": serve[k]["launches"]
+                                     for k in ("x4", "x8", "rescaling", "tiny", "predict")}})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
-                       "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32}, f,
-                      indent=1)
+                       "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
+                       "serve": serve}, f, indent=1, default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

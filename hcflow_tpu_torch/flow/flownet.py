@@ -260,7 +260,7 @@ class FlowNetSpec:
 
     # --------------------------------------------------------------- inference prep
     def precompute_inference(self, params: dict, fused: bool = False,
-                             resident_trunk: bool = False) -> dict:
+                             resident_trunk: bool = False, trunks: bool = True) -> dict:
         """Attach the invconv inverses for serving; with ``fused`` also pack, for the
         serving path on the card, what the card's kernels take, as the JAX package's
         ``precompute_inference(fused="all")`` packs (hcflow_tpu/flow/flownet.py:297):
@@ -283,7 +283,8 @@ class FlowNetSpec:
         accuracy), and the shipped training recipe (bf16 encoders, float32 couplings)
         float32 chain packs and bf16 trunk packs.  A chain pack at a width the kernel
         does not take (hid other than 32 or 64) still reaches its wrapper, which raises
-        on the card.  Training params never carry
+        on the card.  ``trunks=False`` packs the chains only, the counterpart of the JAX
+        package's ``fused=True``.  Training params never carry
         packs (no kernel has a backward pass)."""
         new = {}
         for lv in self.levels:
@@ -303,7 +304,7 @@ class FlowNetSpec:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
                                                                    padded=True)
                 dev = cond["conv_first"]["w"].device
-                if rrdb.packs_trunk(so.rrdb_nf, so.rrdb_gc, dev):
+                if trunks and rrdb.packs_trunk(so.rrdb_nf, so.rrdb_gc, dev):
                     for trunk in ("trunk0", "trunk1"):
                         cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(
                             cond[trunk], so.encoder_compute_dtype, resident=resident_trunk)

@@ -25,7 +25,8 @@ def device_for(device) -> torch.device:
     """``device`` as a torch.device; raises for CUDA on a machine without it."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: pass device='cpu' to run on the CPU")
+        raise RuntimeError("CUDA is not available: pass device='cpu' (--cpu on the command "
+                           "line) to run on the CPU")
     return device
 
 

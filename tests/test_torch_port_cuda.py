@@ -11,6 +11,7 @@ in another order, so a feature rounded to bf16 can land one bf16 step (2^-8
 relative) apart and carry on, damped; 1e-3 of the output's largest magnitude.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -418,3 +419,94 @@ def test_tiny_checkpoint_served_fused(gen, cd):
     else:  # as chip_smoke.py holds the bf16 kernel path against the plain path
         assert d.max().item() <= 5e-2 * ref.abs().max().item()
         assert d.mean().item() <= 1e-2 * ref.abs().mean().item()
+
+
+def _write_pairs(root, n, hr_hw, scale):
+    """n smooth synthetic GT/LQ PNG pairs (LR by MATLAB bicubic) under root/HR, root/LR."""
+    from hcflow_tpu_torch.data.imresize import imresize
+    from hcflow_tpu_torch.data.util import save_img
+
+    rng = np.random.default_rng(0)
+    for d in ("HR", "LR"):
+        (root / d).mkdir(parents=True)
+    for i in range(n):
+        h, w = hr_hw
+        hr = np.kron(rng.uniform(0.1, 0.9, (h // 8, w // 8, 3)), np.ones((8, 8, 1)))
+        hr = (hr + 0.02 * rng.standard_normal(hr.shape)).clip(0, 1).astype(np.float32)
+        save_img(str(root / "HR" / f"{i}.png"), hr)
+        save_img(str(root / "LR" / f"{i}.png"), np.clip(imresize(hr, 1 / scale), 0, 1))
+    return {"mode": "GTLQ", "phase": "test", "scale": scale, "name": "pairs",
+            "dataroot_GT": str(root / "HR"), "dataroot_LQ": str(root / "LR")}
+
+
+def test_evaluator_kernel_path_matches_plain_path(gen, tmp_path):
+    """The tiny checkpoint's Evaluator at heat 0 in the float32 recipe (the shipped test
+    configs') on packed params (the float32 RRDB and chain kernels, in the forward's
+    encoders too) against the plain params, on 2 pairs of HR 104x88: the SR images within
+    the float32 path limit, 1e-4 x max |plain|, PSNR within 0.05 dB, the NLL (the same
+    noise: one seed) within 1e-3 relative."""
+    from pathlib import Path
+
+    from hcflow_tpu_torch.cli.evaluate import Evaluator
+    from hcflow_tpu_torch.data import DataLoader, create_dataset
+    from hcflow_tpu_torch.utils.checkpoint import load_any
+
+    pth = Path(__file__).resolve().parents[1] / "weights/ref_trained/tiny_x4_400_G.pth"
+    model = _tiny_spec(None)
+    params = load_any(str(pth), model.flow, device="cuda")
+    dopt = _write_pairs(tmp_path, 2, (104, 88), 4)
+
+    class Capture(Evaluator):
+        def sample(self, *args):
+            out = super().sample(*args)
+            self.srs.append(out)
+            return out
+
+    runs = []
+    for fused in (True, False):
+        ev = Capture(model, model.flow.precompute_inference(params, fused=fused), [0.0])
+        ev.srs = []
+        rrdb.launches_by.clear()
+        chain.launches_by.clear()
+        res = ev.run(DataLoader(create_dataset(dopt)), torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        # per image: the forward's and the reverse's 2 x 2 x 2 RRDBs, 16 launches each;
+        # the reverse's 4 chains of 4 steps
+        launches = (sum(rrdb.launches_by.values()), sum(chain.launches_by.values()))
+        assert launches == ((2 * 2 * 128, 2 * 16) if fused else (0, 0))
+        runs.append((res, ev.srs))
+    (got, got_srs), (ref, ref_srs) = runs
+    assert sorted(got) == sorted(ref)
+    for a, b in zip(got_srs, ref_srs):
+        d = np.abs(a - b).max()
+        assert d <= 1e-4 * np.abs(b).max(), d
+    for k in ("psnr@0.0", "psnr_y@0.0", "bic_psnr@0.0"):
+        assert abs(got[k] - ref[k]) <= 0.05, k
+    assert abs(got["nll"] - ref["nll"]) <= 1e-3 * abs(ref["nll"])
+
+
+def test_predictor_kernel_path_matches_plain_path(gen, tmp_path):
+    """Predictor on the tiny checkpoint (float32 recipe), tiled (an LR of 61x57 over
+    max_tile 32: 9 tiles, two batches of 8), fused "all" against "off": the SR within a
+    level of the 8-bit grid."""
+    from pathlib import Path
+
+    from hcflow_tpu_torch.cli.predict import Predictor
+    from hcflow_tpu_torch.data.util import read_img, save_img
+
+    root = Path(__file__).resolve().parents[1]
+    img = np.random.default_rng(3).random((61, 57, 3)).astype(np.float32)
+    save_img(str(tmp_path / "lr.png"), img)
+    outs = []
+    for fused in ("all", "off"):
+        pred = Predictor(opt_path=str(root / "weights/ref_trained/tiny_x4_parity.yml"),
+                         checkpoint=str(root / "weights/ref_trained/tiny_x4_400_G.pth"),
+                         fused=fused)
+        rrdb.launches_by.clear()
+        out = pred.predict(str(tmp_path / "lr.png"), str(tmp_path / f"{fused}.png"), heat=0.0,
+                           max_tile=32)
+        assert sum(rrdb.launches_by.values()) == (2 * 128 if fused == "all" else 0)
+        outs.append(read_img(out))
+    assert outs[0].shape == (244, 228, 3)
+    d = np.abs(outs[0] - outs[1])
+    assert d.max() <= 1 / 255 + 1e-6 and (d > 0).mean() <= 0.01
