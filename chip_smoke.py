@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -77,7 +77,23 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    on perturbed weights on the kernel path against the plain path (SR images within
    1e-4 x max |plain|, PSNR within 0.05 dB), and Predictor("general") on an LR of
    510x339, tiled at max_tile 128 (shape, range, launches, ms per image);
-10. print the kernels' JSON line, the card line, then the JSON status line last.
+10. the training entry point at full width (cli.train.main, on the card), on
+   synthetic data made by the port's prepare_data in a temp directory (LRHR_PKL crops
+   of GT 160 at x4 and x8, GT/LQ .npy pairs, 2 validation pairs of HR 256x256), on
+   copies of the shipped training configs with only the dataroots, path.root,
+   pretrain_model_G, logger.save_checkpoint_freq (2), train.val_freq (4) and
+   logger.print_freq (1) changed, each change printed: HCFlow (NLL, the ActNorm
+   calibration window), HCFlow+ from its latest_G.ckpt and again with --max_steps 6
+   (auto-resume from 4.state), HCFlow++ from that (train.feature_fallback random,
+   D_init_iters 1), rescaling and x8, 4 iterations each; every loss finite, the params
+   moved, the G step, the checkpoints and their retention, the written latest_G.ckpt
+   equal to the trained params through load_any, each validation through the bf16 RRDB
+   and the float32 chain (and chain3s) kernels with exact launches and finite averages,
+   the kernel path's validation against the plain path's (HCFlow+ params; 2e-3 x max
+   |plain|, 5e-4 x mean |plain|, PSNR within 2e-4 dB), and a control that must break
+   each of those limits (one level's two trunk packs exchanged); ms per pass
+   kind (CUDA events, after the first), s per validation, peak memory per run;
+11. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
@@ -167,6 +183,28 @@ SERVE_REAL_X4, SERVE_REAL_X8 = (93, 127), (20, 24)
 PREDICT_LR, PREDICT_TILE = (339, 510), 128
 # the kernel path's Evaluator against the plain path's at heat 0: PSNR within 0.05 dB
 SERVE_PSNR_TOL = 0.05
+# phase 10: the training entry point on copies of the shipped training configs, 4
+# iterations a run (HCFlow+ resumed to 6), a checkpoint every 2, validation at the last;
+# LRHR_PKL crops of GT 160 from 4 synthetic 320x320 images (8 crops each, x4 and x8 LRs),
+# GT/LQ .npy pairs of the same size for rescaling, 2 validation pairs of HR 256x256
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_SAVE_FREQ = 4, 6, 2
+TRAIN_SRC_IMAGES, TRAIN_SRC_HW, TRAIN_CROPS, TRAIN_GT = 4, (320, 320), 8, 160
+TRAIN_VAL_PAIRS, TRAIN_VAL_HR = 2, (256, 256)
+# The HCFlow+ validation (bf16 encoders, float32 couplings), SR images in [0, 1]: the
+# kernel path against the plain path.  The bf16 RRDB kernel sums in float32 in another
+# order than the plain trunks; an encoder feature lands one bf16 step apart at a few
+# pixels and the float32 couplings carry it, damped.  Measured on an H100 80GB HBM3 at
+# 700 W in five runs: max abs 4.1e-4 - 6.5e-4 (max |plain| 1.0), mean abs 5.6e-5 (mean
+# |plain| 0.475), PSNR 2.0e-5 - 6.2e-5 dB apart.  A control, the kernel path with
+# trunk0's and trunk1's packs exchanged in one level, read 6.9e-3 - 7.0e-3, 9.7e-4 -
+# 9.8e-4 and 7.2e-4 - 7.9e-4 dB: on 8 iterations from a random init the encoder moves
+# the SR image little.  Each limit sits 3-4x above the sound readings and 3.5-4x below
+# the control's, and the control must break every one of them.
+TRAIN_VAL_MAX_RTOL, TRAIN_VAL_MEAN_RTOL, TRAIN_VAL_PSNR_TOL = 2e-3, 5e-4, 2e-4
+# the step factories of cli/train.py and the pass each one's steps make
+TRAIN_PASSES = {"make_sr_nll_step": "nll", "make_sr_pixel_step": "pixel",
+                "make_sr_feagan_step": "feagan", "make_d_step": "D",
+                "make_rescaling_step": "rescaling"}
 
 
 def log(msg):
@@ -595,6 +633,9 @@ def phase_kernels(torch, gen):
         "kernels (batch 1 at each image's size, the tiled batch of 8), checked, not in the "
         "units above")
     _serving_rows(torch, gen, rows)
+    log("  training entry point (phase 10): the validations' shapes (bf16 RRDBs, float32 "
+        "chains and chain3s), checked, not in the units above")
+    _train_cli_rows(torch, gen, rows)
     return rows
 
 
@@ -628,6 +669,29 @@ def _serving_rows(torch, gen, rows):
     _chain_rows(torch, gen, rows, 4, 64, [("L1 cond", True, 21, lv1), ("L0 main", False, 12, lv0)],
                 "serve", hid=32, cd=None, key="chain_hid32_f32", calls=0)
     _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, lv1), ("L0 main", 12, lv0)], "serve",
+                  cd=None, key="chain3s_f32", calls=0)
+
+
+def _train_cli_rows(torch, gen, rows):
+    """The kernels at phase 10's validation shapes, calls_per_pass 0: HR 256x256 at x4
+    (LR 64: the forward at batch 1, the reverse at n_sample 3) and x8 (LR 32), bf16
+    RRDBs (the training configs' bf16 encoders), float32 chains and chain3s."""
+    lr4, lr8 = TRAIN_VAL_HR[0] // SCALE, TRAIN_VAL_HR[0] // X8_SCALE
+    sizes = sorted({lr4, 2 * lr4, lr8, 2 * lr8, 4 * lr8})
+    _rrdb_rows(torch, gen, rows, 32, [((b, h, h), 0) for h in sizes for b in (1, 3)], "train_cli")
+    _rrdb_rows(torch, gen, rows, 16, [((1, h, h), 0) for h in (lr4, 2 * lr4)], "train_cli")
+    _chain_rows(torch, gen, rows, 13, 128, [("L1 cond", True, 21, (3, lr4, lr4)),
+                                            ("L0 cond", True, 6, (3, 2 * lr4, 2 * lr4)),
+                                            ("L1 main", False, 24, (3, lr4, lr4)),
+                                            ("L0 main", False, 12, (3, 2 * lr4, 2 * lr4)),
+                                            ("L2 cond", True, 45, (3, lr8, lr8)),
+                                            ("L2 main", False, 48, (3, lr8, lr8))],
+                "train_cli", cd=None, key="chain_f32", calls=0)
+    _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, (1, lr4, lr4)),
+                                          ("L0 cond", True, 6, (1, 2 * lr4, 2 * lr4))],
+                "train_cli", cd=None, key="chain_f32", calls=0)
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, (1, lr4, lr4)),
+                                        ("L0 main", 12, (1, 2 * lr4, 2 * lr4))], "train_cli",
                   cd=None, key="chain3s_f32", calls=0)
 
 
@@ -1435,6 +1499,339 @@ def phase_serving(torch, gen):
     return out
 
 
+# ------------------------------------------------------------ phase 10: training
+def _train_data(np, root, rng):
+    """Phase 10's datasets under root, made by the port's prepare_data from smooth
+    synthetic PNGs (LR by the port's MATLAB bicubic): LRHR_PKL crops of GT 160 with x4
+    and x8 LRs (pkl/), GT/LQ .npy pairs of HR 320 x 320 (npy/, the rescaling config's
+    GTLQnpy mode) and 2-pair GT/LQ validation sets of HR 256 x 256 at x4 and x8."""
+    from hcflow_tpu_torch.cli import prepare_data
+    from hcflow_tpu_torch.data.imresize import imresize
+    from hcflow_tpu_torch.data.util import save_img
+
+    for d in ("src", "png/HR", "png/LR"):
+        (root / d).mkdir(parents=True)
+    for i in range(TRAIN_SRC_IMAGES):
+        save_img(str(root / "src" / f"{i}.png"), _smooth_image(np, rng, *TRAIN_SRC_HW))
+        hr = _smooth_image(np, rng, *TRAIN_SRC_HW)
+        save_img(str(root / "png/HR" / f"{i}.png"), hr)
+        save_img(str(root / "png/LR" / f"{i}.png"), np.clip(imresize(hr, 1 / SCALE), 0, 1))
+    crops = prepare_data.prepare_pkl(str(root / "src"), str(root / "pkl"),
+                                     crops_per_image=TRAIN_CROPS, crop_size=TRAIN_GT,
+                                     scales=(SCALE, X8_SCALE))
+    for d in ("HR", "LR"):
+        prepare_data.png2npy(str(root / "png" / d), str(root / "npy" / d))
+    for scale in (SCALE, X8_SCALE):
+        _write_pairs(np, root / f"val_x{scale}", TRAIN_VAL_PAIRS, TRAIN_VAL_HR, scale, rng)
+    return crops
+
+
+def _train_option_file(path, src, root, changes):
+    """A copy of the shipped training config src with the keys of ``changes`` (dotted
+    paths) set, printing each one changed; nothing else of src changes."""
+    import yaml
+
+    with open(src) as f:
+        opt = yaml.safe_load(f)
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        d = opt
+        for k in parents:
+            d = d.setdefault(k, {})
+        log(f"    {key}: {d.get(leaf)!r} -> {value!r}")
+        d[leaf] = value
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return str(path)
+
+
+def _train_run(torch, name, opt_path, max_steps, val_launches, start_params=None):
+    """cli.train.main on opt_path on the card, its steps, calibration and validation
+    wrapped to time them (CUDA events) and check their losses finite, and the launches
+    of each validation held to val_launches.  Returns the final state and the records."""
+    from hcflow_tpu_torch.cli import train
+    from hcflow_tpu_torch.models.hcflow_sr import HCFlowSRSpec
+    from hcflow_tpu_torch.train.trainer import tree_leaves
+
+    passes = []  # (kind, start event, end event)
+    vals = []
+    saved = {k: getattr(train, k) for k in (*TRAIN_PASSES, "Evaluator")}
+    calibrate = HCFlowSRSpec.calibrate
+
+    def timed(kind, fn):
+        def step(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            passes.append((kind, ev))
+            metrics = out[-1] if isinstance(out, tuple) else {}
+            for key, v in metrics.items():
+                if key != "grads" and not torch.isfinite(v).all():
+                    raise AssertionError(f"{name}: {kind} pass gave a non-finite {key}")
+            return out
+
+        return step
+
+    for factory, kind in TRAIN_PASSES.items():
+        setattr(train, factory, lambda *a, _f=saved[factory], _k=kind, **k: timed(_k, _f(*a, **k)))
+
+    class Evaluator(saved["Evaluator"]):
+        def run(self, *a, **k):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().run(*a, **k)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            launches = {k_: v - before[k_] for k_, v in _counts().items()}
+            bad = [k_ for k_, v in out.items() if not math.isfinite(v)]
+            log(f"    validation: {s:.2f} s for {out['n_images']} images; launches {launches}; "
+                + ", ".join(f"{k_} {v:.4f}" for k_, v in sorted(out.items())))
+            if bad:
+                raise AssertionError(f"{name}: non-finite validation averages {bad}")
+            _expect_launches(f"{name} validation", launches, val_launches)
+            vals.append(dict(s=s, averages=out, launches=launches))
+            return out
+
+    train.Evaluator = Evaluator
+    HCFlowSRSpec.calibrate = timed("calibrate", calibrate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = train.main(["--opt", opt_path, "--max_steps", str(max_steps)])
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            setattr(train, k, v)
+        HCFlowSRSpec.calibrate = calibrate
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    by_kind = {}
+    for i, (kind, ev) in enumerate(passes):
+        by_kind.setdefault(kind, []).append(ev[0].elapsed_time(ev[1]))
+    # ms per pass kind after its first call (the first one builds cuDNN's plans)
+    ms = {k: statistics.mean(v[1:]) if len(v) > 1 else None for k, v in by_kind.items()}
+    leaves = [t.detach() for t in tree_leaves(state.params)]
+    if not all(torch.isfinite(t).all() for t in leaves):
+        raise AssertionError(f"{name}: non-finite params after training")
+    moved = None
+    if start_params is not None:
+        moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(start_params), leaves)
+                    ) / len(leaves)
+        if moved < 0.9:
+            raise AssertionError(f"{name}: only {moved:.3f} of the param tensors moved")
+    log(f"  {name}: {wall:.1f} s of main; ms per pass after the first: "
+        + ", ".join(f"{k} {v:.1f}" if v is not None else f"{k} (once)" for k, v in ms.items())
+        + f" (calls {', '.join(f'{k} {len(v)}' for k, v in by_kind.items())}); "
+        f"G step {state.step}; peak memory {peak:.2f} GB"
+        + ("" if moved is None else f"; {moved:.3f} of the param tensors moved"))
+    return state, dict(wall_s=wall, pass_ms=ms, pass_times_ms=by_kind, peak_mem_gb=peak,
+                       validations=vals, g_step=state.step, moved=moved)
+
+
+def _expect_files(name, exp, models, states):
+    import os
+
+    got = (sorted(os.listdir(exp / "models")), sorted(os.listdir(exp / "training_state")))
+    if got != (sorted(models), sorted(states)):
+        raise AssertionError(f"{name}: checkpoints {got}, expected {models} and {states}")
+    log(f"    checkpoints: {got[0]} and {got[1]}, as the options ask")
+
+
+def phase_train_cli(torch, gen):
+    """The training entry point at full width on the shipped training configs: the
+    HCFlow -> HCFlow+ (and an auto-resume) -> HCFlow++ chain, rescaling, x8."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from hcflow_tpu_torch.cli.evaluate import Evaluator
+    from hcflow_tpu_torch.data import create_dataloader, create_dataset
+    from hcflow_tpu_torch.train import trainer
+    from hcflow_tpu_torch.utils import checkpoint, config
+
+    repo = Path(__file__).resolve().parent
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        crops = _train_data(np, tmp / "data", np.random.default_rng(10))
+        log(f"  datasets written in {time.perf_counter() - t0:.1f} s: {crops}; GT/LQ .npy "
+            f"pairs of HR {TRAIN_SRC_HW[1]}x{TRAIN_SRC_HW[0]}; validation {TRAIN_VAL_PAIRS} "
+            f"pairs of HR {TRAIN_VAL_HR[1]}x{TRAIN_VAL_HR[0]} at x{SCALE} and x{X8_SCALE}")
+        data = tmp / "data"
+        root = tmp / "runs"
+
+        def changes(scale, pretrain=None, mode="pkl", **more):
+            val = data / f"val_x{scale}"
+            train_roots = ({"datasets.train.dataroot_GT": str(data / "pkl/tr.pklv4"),
+                            "datasets.train.dataroot_LQ": str(data / f"pkl/tr_X{scale}.pklv4")}
+                           if mode == "pkl" else
+                           {"datasets.train.dataroot_GT": str(data / "npy/HR"),
+                            "datasets.train.dataroot_LQ": str(data / "npy/LR")})
+            return {**train_roots, "datasets.val.dataroot_GT": str(val / "HR"),
+                    "datasets.val.dataroot_LQ": str(val / "LR"), "path.root": str(root),
+                    "path.pretrain_model_G": pretrain,
+                    "logger.save_checkpoint_freq": TRAIN_SAVE_FREQ,
+                    "train.val_freq": TRAIN_STEPS, "logger.print_freq": 1, **more}
+
+        def opt_file(tag, src, ch):
+            log(f"  {tag}: configs/{src}, changed keys:")
+            return _train_option_file(tmp / f"{tag}.yml", repo / "configs" / src, root, ch)
+
+        def exp_dir(opt_path):
+            return Path(config.parse(opt_path)["path"]["experiments_root"])
+
+        n_val, n_sample = TRAIN_VAL_PAIRS, 3
+        heats = 2
+        # a validation: per image the forward and n_sample reverses a heat; x4 SR: 28 RRDBs
+        # of 16 launches (bf16 encoders) and 4 float32 chains of 13 steps a reverse
+        sr_val = dict(rrdb=28 * 16 * n_val * (1 + heats), chain_f32=4 * 13 * n_val * heats)
+        x8_val = dict(rrdb=30 * 16 * n_val * (1 + heats), chain_f32=6 * 13 * n_val * heats)
+        # rescaling (n_sample 1): the downscale 6 RRDBs, the upscale 6 RRDBs, 2 split-off
+        # chains of 6 steps, 2 main chains of 1 + 5 x 8 launches
+        rs_val = dict(rrdb=6 * 16 * n_val * (1 + heats), chain_f32=2 * 6 * n_val * heats,
+                      chain3s_f32=2 * 41 * n_val * heats)
+        _reset_counts()
+
+        # 1. HCFlow (NLL only; act_norm_start_step 100: calibration every iteration)
+        log("  run 1: HCFlow, NLL only, from the init (ActNorm calibration window active)")
+        opt1 = opt_file("hcflow", "train_SR_DF2K_4X_HCFlow.yml", changes(SCALE))
+        spec = config.model_spec_from_opt(config.parse(opt1))
+        state, out["hcflow"] = _train_run(torch, "HCFlow", opt1, TRAIN_STEPS, sr_val,
+                                          spec.init(0, device=DEV))
+        exp1 = exp_dir(opt1)
+        _expect_files("HCFlow", exp1, ["2_G.ckpt", "4_G.ckpt", "latest_G.ckpt"],
+                      ["2.state", "4.state"])
+        if state.step != TRAIN_STEPS or len(out["hcflow"]["pass_times_ms"]["calibrate"]) != 4:
+            raise AssertionError(f"HCFlow: G step {state.step}, expected {TRAIN_STEPS}, and "
+                                 "a calibration every iteration")
+
+        # 2. HCFlow+ from run 1's latest_G.ckpt, then resumed to step 6
+        log("  run 2: HCFlow+ from run 1's latest_G.ckpt")
+        pre2 = str(exp1 / "models/latest_G.ckpt")
+        opt2 = opt_file("hcflow_plus", "train_SR_DF2K_4X_HCFlow+.yml", changes(SCALE, pre2))
+        state, out["hcflow_plus"] = _train_run(torch, "HCFlow+", opt2, TRAIN_STEPS, sr_val,
+                                               checkpoint.load_any(pre2, spec.flow, device=DEV))
+        log("  run 2b: HCFlow+ again with --max_steps 6: resume_state auto from 4.state")
+        state, out["hcflow_plus_resumed"] = _train_run(torch, "HCFlow+ resumed", opt2,
+                                                       TRAIN_RESUME_STEPS, sr_val)
+        exp2 = exp_dir(opt2)
+        # retention keeps the newest 2 of the *_G.ckpt names, latest_G.ckpt among them,
+        # as the JAX package's loop does once a run has ended
+        _expect_files("HCFlow+ resumed", exp2, ["6_G.ckpt", "latest_G.ckpt"],
+                      ["4.state", "6.state"])
+        passes = out["hcflow_plus_resumed"]["pass_times_ms"]
+        if state.step != TRAIN_RESUME_STEPS or len(passes["nll"]) != 2:
+            raise AssertionError(f"HCFlow+ resumed: G step {state.step} after "
+                                 f"{len(passes['nll'])} NLL passes, expected 6 after 2")
+        served = checkpoint.load_any(str(exp2 / "models/latest_G.ckpt"), spec.flow, device=DEV)
+        same = all(torch.equal(a, b.detach()) for a, b in zip(trainer.tree_leaves(served),
+                                                               trainer.tree_leaves(state.params)))
+        log(f"    latest_G.ckpt through load_any equals the trained params exactly: {same}")
+        if not same:
+            raise AssertionError("HCFlow+: the written latest_G.ckpt differs from the params")
+        trained_plus = trainer.detached(state.params)
+
+        # 3. HCFlow++ from run 2's latest_G.ckpt
+        log("  run 3: HCFlow++ from run 2's latest_G.ckpt (random-feature perceptual loss, "
+            "D_init_iters 1)")
+        opt3 = opt_file("hcflow_plusplus", "train_SR_DF2K_4X_HCFlow++.yml",
+                        changes(SCALE, str(exp2 / "models/latest_G.ckpt"),
+                                **{"train.feature_fallback": "random", "train.D_init_iters": 1}))
+        state, out["hcflow_plusplus"] = _train_run(torch, "HCFlow++", opt3, TRAIN_STEPS, sr_val,
+                                                   served)
+        passes = out["hcflow_plusplus"]["pass_times_ms"]
+        if (state.step != TRAIN_STEPS - 1 or len(passes["D"]) != TRAIN_STEPS
+                or len(passes["feagan"]) != TRAIN_STEPS - 1):
+            raise AssertionError(f"HCFlow++: G step {state.step}, passes "
+                                 f"{ {k: len(v) for k, v in passes.items()} }")
+        _expect_files("HCFlow++", exp_dir(opt3), ["2_G.ckpt", "4_G.ckpt", "latest_G.ckpt"],
+                      ["2.state", "4.state"])
+
+        # 4. rescaling, from the init
+        log("  run 4: rescaling, from the init")
+        opt4 = opt_file("rescaling", "train_Rescaling_DF2K_4X_HCFlow.yml",
+                        changes(SCALE, mode="npy"))
+        rspec = config.model_spec_from_opt(config.parse(opt4))
+        state, out["rescaling"] = _train_run(torch, "rescaling", opt4, TRAIN_STEPS, rs_val,
+                                             rspec.init(0, device=DEV))
+        if state.step != TRAIN_STEPS:
+            raise AssertionError(f"rescaling: G step {state.step}")
+
+        # 5. x8 (CelebA-8X), from the init
+        log("  run 5: x8 SR (CelebA-8X), from the init")
+        opt5 = opt_file("x8", "train_SR_CelebA_8X_HCFlow.yml", changes(X8_SCALE))
+        x8spec = config.model_spec_from_opt(config.parse(opt5))
+        state, out["x8"] = _train_run(torch, "x8 SR", opt5, TRAIN_STEPS, x8_val,
+                                      x8spec.init(0, device=DEV))
+        if state.step != TRAIN_STEPS:
+            raise AssertionError(f"x8 SR: G step {state.step}")
+        torch.cuda.synchronize()
+        launches = _counts()
+        log(f"  launches in phase 10 (every validation): {launches}")
+
+        # the kernel path's validation against the plain path's: the HCFlow+ params
+        log("  HCFlow+ trained params: the Evaluator on the kernel path against the plain "
+            "path, heat 0")
+        vopt = config.parse(opt2)["datasets"]["val"]
+
+        class Capture(Evaluator):
+            def sample(self, *args):
+                srs = super().sample(*args)
+                self.srs.append(srs)
+                return srs
+
+        def validate(p):
+            ev = Capture(spec, p, [0.0], device=DEV)
+            ev.srs = []
+            avg = ev.run(create_dataloader(create_dataset({**vopt, "phase": "val"}),
+                                           {**vopt, "phase": "val"}),
+                         torch.Generator(device=DEV).manual_seed(1))
+            return avg["psnr@0.0"], ev.srs
+
+        with torch.no_grad():
+            packed = spec.flow.precompute_inference(trained_plus, fused=True)
+            plain = spec.flow.precompute_inference(trained_plus, fused=False)
+            # the control: one level's two trunk packs exchanged, as a packing fault would
+            wrong = dict(packed, level1=dict(packed["level1"]))
+            cond = wrong["level1"]["cond"] = dict(packed["level1"]["cond"])
+            cond["trunk0_fused"], cond["trunk1_fused"] = cond["trunk1_fused"], cond["trunk0_fused"]
+        (psnr_k, srs_k), (psnr_p, srs_p), (psnr_w, srs_w) = (validate(p)
+                                                             for p in (packed, plain, wrong))
+        paths = {}
+        for name, srs, psnr in (("kernel path", srs_k, psnr_k), ("control", srs_w, psnr_w)):
+            a, b = np.stack(srs), np.stack(srs_p)
+            d = np.abs(a - b)
+            r = dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                     max_ref=float(np.abs(b).max()), mean_ref=float(np.abs(b).mean()),
+                     d_psnr=abs(psnr - psnr_p))
+            r["within"] = dict(max=r["max_abs"] <= TRAIN_VAL_MAX_RTOL * r["max_ref"],
+                               mean=r["mean_abs"] <= TRAIN_VAL_MEAN_RTOL * r["mean_ref"],
+                               psnr=r["d_psnr"] <= TRAIN_VAL_PSNR_TOL)
+            log(f"    {name} vs plain path, {len(srs)} images: max abs {r['max_abs']:.3e} of "
+                f"max |plain| {r['max_ref']:.3e} (tol {TRAIN_VAL_MAX_RTOL:g} x), mean abs "
+                f"{r['mean_abs']:.3e} of mean |plain| {r['mean_ref']:.3e} (tol "
+                f"{TRAIN_VAL_MEAN_RTOL:g} x), PSNR {psnr:.5f} dB against {psnr_p:.5f}, "
+                f"|difference| {r['d_psnr']:.2e} dB (tol {TRAIN_VAL_PSNR_TOL:g}); "
+                f"within: {r['within']}")
+            paths[name.split()[0]] = r
+        if not all(paths["kernel"]["within"].values()):
+            raise AssertionError("the kernel path's validation disagrees with the plain path's")
+        if any(paths["control"]["within"].values()):
+            raise AssertionError("the control (trunk packs exchanged) passed a validation "
+                                 "limit: that limit cannot see a packing fault")
+        out["paths"] = paths
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 10 took {wall:.1f} s")
+    out.update(launches=launches, wall_s=wall)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -1567,6 +1964,9 @@ def main(argv=None):
     log("phase 9: the serving entry points (cli.test.main, the Evaluator, the tiled Predictor) "
         "at full width, float32 recipe")
     serve = phase_serving(torch, gen)
+    log("phase 10: the training entry point (cli.train.main) at full width on the shipped "
+        "training configs")
+    train_cli = phase_train_cli(torch, gen)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -1575,13 +1975,14 @@ def main(argv=None):
                                   "rescaling_f32": rs_f32["launches"],
                                   "sr8_f32": sr8_f32["launches"],
                                   **{f"serve_{k}": serve[k]["launches"]
-                                     for k in ("x4", "x8", "rescaling", "tiny", "predict")}})
+                                     for k in ("x4", "x8", "rescaling", "tiny", "predict")},
+                                  "train_cli": train_cli["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
-                       "serve": serve}, f, indent=1, default=str)
+                       "serve": serve, "train_cli": train_cli}, f, indent=1, default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

@@ -1,5 +1,5 @@
 """Params in this package's layout from the JAX package's params or from a reference
-PyTorch checkpoint (``.pth`` state_dict).
+PyTorch checkpoint (``.pth`` state_dict), and back to the JAX package's layout.
 
 The JAX package keeps conv weights HWIO, stacks the K steps of a chain and the nb
 RRDBs of a trunk along a leading axis (for ``lax.scan``), and nests dicts; the
@@ -13,6 +13,12 @@ A reference state_dict names its tensors by module path (``flow.layers.<i>.actno
 ``hcflow_tpu/utils/convert.py`` (``convert_flownet``, ``convert_invconv``), a copy kept
 here so that no JAX is needed: conv weights stay OIHW, ActNorm bias/logs (1,C,1,1) and
 Conv2dZeros logs (C,1,1) become (C,), a ``module.`` prefix is stripped.
+
+:func:`params_to_jax` is the inverse of :func:`params_from_jax`: numpy in the JAX
+package's layout, what the training checkpoints (``<iter>_G.ckpt``) hold so that both
+packages serve them.  :func:`heads_from_jax` / :func:`heads_to_jax` carry the VGG19
+feature and discriminator params across (4-D conv weights HWIO <-> OIHW, linear
+weights as they are).
 """
 
 from __future__ import annotations
@@ -76,6 +82,81 @@ def params_from_jax(tree: dict, spec, device="cuda") -> dict:
         if lv.cond_spec.n_flow_step > 0:
             cond["steps"] = _unstack(c["steps"], device)
         out[f"level{lv.level}"] = {"main": _steps(lp["main"], device), "cond": cond}
+    return out
+
+
+def heads_from_jax(tree: dict, device="cuda") -> dict:
+    """VGG19 feature or discriminator params of the JAX package (numpy) on ``device``."""
+    return _convert(tree, device_for(device))
+
+
+def _to_numpy(tree, key=None):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v, k) for k, v in tree.items()}
+    a = tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    return a.transpose(2, 3, 1, 0) if key == "w" and a.ndim == 4 else a  # OIHW -> HWIO
+
+
+def heads_to_jax(tree: dict) -> dict:
+    """VGG19 feature or discriminator params as the JAX package's numpy tree."""
+    return _to_numpy(tree)
+
+
+def load_npz(path: str, device="cuda"):
+    """Head params (VGG19, LPIPS) from the JAX package's ``.npz`` layout ("<name>/<leaf>"
+    arrays, HWIO convs) on ``device``, convs OIHW; None when the file is absent."""
+    try:
+        data = np.load(path)
+    except (FileNotFoundError, OSError):
+        return None
+    return _convert(_unflatten(data), device_for(device))
+
+
+def _unflatten(data) -> dict:
+    tree: dict = {}
+    for k in data.files:
+        name, leaf = k.rsplit("/", 1)
+        tree.setdefault(name, {})[leaf] = np.asarray(data[k], np.float32)
+    return tree
+
+
+def save_npz(path: str, params: dict) -> None:
+    """Head params in the JAX package's ``.npz`` layout, which both packages read."""
+    np.savez(path, **{f"{name}/{leaf}": a for name, sub in heads_to_jax(params).items()
+                      for leaf, a in sub.items()})
+
+
+def _stack(per: list):
+    """Per-entry trees stacked along a new leading axis (the JAX package's scan layout)."""
+    if isinstance(per[0], dict):
+        return {k: _stack([p[k] for p in per]) for k in per[0]}
+    return np.stack(per)
+
+
+def params_to_jax(params: dict, spec) -> dict:
+    """This package's params for ``spec`` (an ``HCFlowSRSpec``, ``HCFlowRescalingSpec``
+    or ``FlowNetSpec``) as the JAX package's ``FlowNetSpec.init`` layout, numpy: conv
+    weights HWIO, every chain and trunk stacked along a leading axis, except the
+    rescaling main chains (steps of different shapes), which stay lists.  Derived
+    entries (invconv inverses, packed kernel weights) are dropped."""
+    def step(p):  # a step's invconv keeps its weight, not its precomputed inverse
+        return _to_numpy({**p, "invconv": {"weight": p["invconv"]["weight"]}}
+                         if "invconv" in p else p)
+
+    flow = getattr(spec, "flow", spec)
+    out = {}
+    for lv in flow.levels:
+        lp = params[f"level{lv.level}"]
+        main = [step(p) for p in lp["main"]]
+        if not lv.alternate_lrvsothers:
+            main = _stack(main) if main else []
+        c = lp["cond"]
+        cond = {k: _to_numpy(c[k]) for k in ("conv_first", "trunk_conv1", "f")}
+        for name in ("trunk0", "trunk1"):
+            cond[name] = _stack([_to_numpy(r) for r in c[name]])
+        if lv.cond_spec.n_flow_step > 0:
+            cond["steps"] = _stack([step(p) for p in c["steps"]])
+        out[f"level{lv.level}"] = {"main": main, "cond": cond}
     return out
 
 

@@ -1,10 +1,12 @@
-"""Top-level HCFlow rescaling model: HR <-> (LR, whitened latents), serving direction.
+"""Top-level HCFlow rescaling model: HR <-> (LR, whitened latents), no NLL.
 
 Rescaling serving is the eval protocol of the JAX package (``cli/evaluate.py``): the
 forward downscales HR to an LR image (clamped to [0, 1]) plus one whitened latent
 per level; the LR is quantized to 8 bits (:func:`quantize`); the reverse
 reconstructs HR from that LR at temperature eps_std (1.0 in the shipped test
-config), sampling the latents or taking them explicitly.  Training is not ported.
+config), sampling the latents or taking them explicitly.  Training
+(``train/trainer.py`` ``make_rescaling_step``) runs both directions with
+``grad=True``; ``calibrate`` is the data-dependent ActNorm init on a real batch.
 """
 
 from __future__ import annotations
@@ -46,19 +48,26 @@ class HCFlowRescalingSpec:
         device = device_for(device)
         return to_device(self.flow.init(torch.Generator().manual_seed(seed)), device)
 
-    @torch.no_grad()
-    def forward(self, params: dict, hr: torch.Tensor):
-        """HR -> (LR clamped to [0, 1], [whitened latent per level]); NHWC."""
-        z, fake_zs = self.flow.normal_flow(params, hr)
-        return z.clamp(0.0, 1.0), fake_zs
+    def forward(self, params: dict, hr: torch.Tensor, grad: bool = False):
+        """HR -> (LR clamped to [0, 1], [whitened latent per level]); NHWC.  Serving
+        runs without autograd; ``grad=True`` records the graph (the training step)."""
+        with torch.set_grad_enabled(grad):
+            z, fake_zs = self.flow.normal_flow(params, hr)
+            return z.clamp(0.0, 1.0), fake_zs
 
-    @torch.no_grad()
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
-                eps_list=None) -> torch.Tensor:
+                eps_list=None, grad: bool = False) -> torch.Tensor:
         """LR -> HR at temperature eps_std; NHWC, clamped to [0, 1].
 
         ``generator`` draws the latents (a generator on lr's device); ``eps_list``
-        gives them explicitly instead, one whitened latent per level.
+        gives them explicitly instead, one whitened latent per level.  ``grad=True``
+        records the graph (the training step's inverse leg).
         """
-        hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
-        return hr.clamp(0.0, 1.0)
+        with torch.set_grad_enabled(grad):
+            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
+            return hr.clamp(0.0, 1.0)
+
+    @torch.no_grad()
+    def calibrate(self, params: dict, hr: torch.Tensor) -> dict:
+        """The one-time data-dependent ActNorm init on a real batch; returns new params."""
+        return self.flow.calibrate(params, hr)[0]

@@ -9,19 +9,21 @@ sum over stages.
 
 Params: ``conv{i}`` {"w" OIHW, "b"} and ``lin{i}`` {"w" (C,)}.  :func:`load` reads the
 ``.npz`` the JAX package's ``save_npz`` writes (HWIO conv weights); it returns None
-when the file is absent, and callers then skip LPIPS.  The learned weights are not in
-the repository.  The convs run in float32 without TF32 (``nets.exact_f32``).
+when the file is absent, and callers then skip LPIPS.  :func:`convert_lpips_torch`
+reads an ``lpips.LPIPS(net='alex')`` state_dict and :func:`save_npz` writes that
+``.npz`` (``cli/convert.py lpips``).  The learned weights are not in the repository.
+The convs run in float32 without TF32 (``nets.exact_f32``).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import convert
 from ..ops import nets
+from .hcflow_sr import device_for
 
 # AlexNet feature config: (out_ch, kernel, stride, padding), with maxpool after 0,1
 _ALEX = (
@@ -69,7 +71,7 @@ def lpips_distance(params: dict, img0: torch.Tensor, img1: torch.Tensor) -> torc
     return total
 
 
-def random_params(seed: int = 0, device="cpu") -> dict:
+def random_params(seed: int = 0, device="cuda") -> dict:
     """Deterministic He-init random AlexNet LPIPS, the documented substitute when the
     learned weights are unavailable (as the JAX package's ``random_params``, from a
     torch generator: its values differ from JAX's).
@@ -80,6 +82,7 @@ def random_params(seed: int = 0, device="cpu") -> dict:
     must label the metric distinctly (``lpips_rand``): values are NOT comparable to
     true LPIPS numbers.
     """
+    device = device_for(device)
     g = torch.Generator().manual_seed(seed)
     params = {}
     cin = 3
@@ -92,20 +95,40 @@ def random_params(seed: int = 0, device="cpu") -> dict:
     return params
 
 
-def load(path: str, device="cpu") -> Optional[dict]:
-    """Load converted LPIPS weights (the JAX package's ``.npz``: HWIO convs); None if
-    the file is absent."""
-    try:
-        data = np.load(path)
-    except (FileNotFoundError, OSError):
-        return None
-    params: dict = {}
-    for k in data.files:
-        name, leaf = k.rsplit("/", 1)
-        a = np.asarray(data[k], np.float32)
-        if a.ndim == 4:  # HWIO -> OIHW
-            a = a.transpose(3, 2, 0, 1)
-        params.setdefault(name, {})[leaf] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+# converted weights in the JAX package's .npz layout (HWIO convs): None when absent
+load = convert.load_npz
+save_npz = convert.save_npz
+
+
+# the torchvision AlexNet feature index of each conv stage, under the two key layouts
+# of lpips.LPIPS(net='alex') state_dicts
+_ALEX_KEYS = ((("slice1", 0), 0), (("slice2", 3), 3), (("slice3", 6), 6), (("slice4", 8), 8),
+              (("slice5", 10), 10))
+
+
+def convert_lpips_torch(sd, device="cuda") -> dict:
+    """An ``lpips.LPIPS(net='alex')`` state_dict (net.slice{1..5}.<idx>.weight/bias or
+    net.features.<idx>.*, and lin{0..4}.model.1.weight or lins.{i}.model.1.weight) as
+    params (OIHW convs) on ``device``."""
+    device = device_for(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
+
+    params = {}
+    for i, ((sl, idx), fidx) in enumerate(_ALEX_KEYS):
+        for key in (f"net.{sl}.{idx}.weight", f"net.features.{fidx}.weight"):
+            if key in sd:
+                params[f"conv{i}"] = {"w": t(sd[key]), "b": t(sd[key.replace("weight", "bias")])}
+                break
+        else:
+            raise KeyError(f"missing alexnet conv {i}")
+        for key in (f"lin{i}.model.1.weight", f"lins.{i}.model.1.weight"):
+            if key in sd:
+                params[f"lin{i}"] = {"w": t(sd[key]).reshape(-1)}
+                break
+        else:
+            raise KeyError(f"missing lpips lin{i}")
     return params
 
 

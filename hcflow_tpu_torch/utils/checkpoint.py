@@ -13,6 +13,20 @@ state_dict (``convert.params_from_state_dict``) or from a pickled ``.ckpt`` that
 JAX package wrote (numpy in JAX's layout, converted by ``convert.params_from_jax``); a
 tree with a ``"params"`` key (what the JAX package's train and convert CLIs save) is
 unwrapped first.
+
+Training writes (``cli/train.py``):
+
+- ``<iter>_G.ckpt`` and ``latest_G.ckpt`` in the JAX package's format,
+  ``{"params": convert.params_to_jax(...), "step": n}`` pickled
+  (:func:`save_model`), so that both packages' ``load_any`` and ``cli/test.py`` serve
+  a model the port trained;
+- ``<iter>.state`` in the port's own layout (:func:`save_training_state`), numpy
+  leaves: ``step``, ``params`` (this package's layout), ``opt_state`` (``count``,
+  ``mu``, ``nu``, the non-finite counters), ``d_params``, ``d_opt_state``, ``epoch``.
+  The JAX package's ``.state`` holds optax's state instead; reading one raises.
+
+Every write is synchronous and atomic (a temporary file renamed into place), so
+:func:`wait_for_saves` has nothing to wait for.
 """
 
 from __future__ import annotations
@@ -23,9 +37,13 @@ import re
 import shutil
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from .. import convert
+from ..models.hcflow_sr import device_for
+
+STATE_FORMAT = "hcflow_tpu_torch training state v1"
 
 
 def _to_numpy(tree):
@@ -45,6 +63,53 @@ def save_checkpoint(path: str, tree: Any) -> None:
     with open(tmp, "wb") as f:
         pickle.dump(_to_numpy(tree), f, protocol=4)
     os.replace(tmp, path)
+
+
+def wait_for_saves() -> None:
+    """Nothing to wait for: every write here is synchronous."""
+
+
+def save_model(path: str, params: dict, spec, step: int) -> None:
+    """A model checkpoint in the JAX package's format, which both packages serve."""
+    save_checkpoint(path, {"params": convert.params_to_jax(params, spec), "step": np.asarray(step)})
+
+
+def save_training_state(path: str, step: int, params, opt_state: dict, d_params=None,
+                        d_opt_state=None, epoch: int = 0) -> None:
+    """The state that ``resume_state: auto`` restores, in the port's layout."""
+    save_checkpoint(path, {"format": STATE_FORMAT, "step": step, "params": params,
+                           "opt_state": opt_state, "d_params": d_params,
+                           "d_opt_state": d_opt_state, "epoch": epoch})
+
+
+def _from_numpy(tree, device, leaf_grad: bool):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, device, leaf_grad) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_from_numpy(v, device, leaf_grad) for v in tree]
+    if isinstance(tree, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+        return t.requires_grad_(True) if leaf_grad else t
+    return tree
+
+
+def load_training_state(path: str, device="cuda") -> dict:
+    """A ``.state`` written by :func:`save_training_state`, tensors on ``device``:
+    params (and d_params) as leaves that require grad, as ``init_state`` makes them.
+    Raises on the JAX package's ``.state`` (optax's optimizer state)."""
+    device = device_for(device)
+    tree = load_checkpoint(path)
+    if not isinstance(tree, dict) or tree.get("format") != STATE_FORMAT:
+        raise ValueError(
+            f"{path} is not a training state of this package (format {STATE_FORMAT!r}); a "
+            "JAX package .state holds optax's optimizer state, which the port does not read: "
+            "resume from its <iter>_G.ckpt through path.pretrain_model_G instead")
+    out = dict(tree)
+    for k in ("params", "d_params"):
+        out[k] = _from_numpy(tree[k], device, True)
+    for k in ("opt_state", "d_opt_state"):
+        out[k] = _from_numpy(tree[k], device, False)
+    return out
 
 
 def load_checkpoint(path: str) -> Any:

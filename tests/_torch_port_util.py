@@ -8,6 +8,7 @@ its own layout by :func:`to_jax`.
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 # The TINY topology of tests/test_pallas_chain.py: every module of the x4 SR
@@ -257,3 +258,173 @@ def check_steps(scale, cd, ed):
     assert state.step == 0 and state.opt_state["count"] == 1
     for p in trainer.tree_leaves(state.params):
         assert p.requires_grad and p.is_leaf and torch.isfinite(p).all()
+
+
+# -------------------------------------------- the ++ heads and the rescaling step
+# Shared by tests/test_torch_port_heads.py and tests/test_torch_port_rescaling_train.py:
+# HR 64 x 64 (the VGG discriminator's input halves five times), batch 2.
+HEAD_B, HEAD_HW = 2, 64
+
+
+def head_data(seed):
+    """(hr, lr): a smooth HR batch (8 x 8 blocks plus fine noise) and its 4 x 4 mean."""
+    B, HW = HEAD_B, HEAD_HW
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.1, 0.9, (B, HW // 8, HW // 8, 3))
+    hr = np.clip(np.kron(lo, np.ones((1, 8, 8, 1))) + 0.02 * rng.standard_normal((B, HW, HW, 3)),
+                 0, 1).astype(np.float32)
+    return hr, hr.reshape(B, HW // 4, 4, HW // 4, 4, 3).mean((2, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def vgg_params():
+    """The port's random VGG19 features and the same weights in the JAX package's layout."""
+    from hcflow_tpu_torch.convert import heads_to_jax
+    from hcflow_tpu_torch.models import vgg
+
+    p = vgg.random_features(seed=0, device="cpu")
+    return heads_to_jax(p), p
+
+
+def patchgan():
+    """(port spec, JAX spec, port params, JAX params) of the G steps' adversarial head:
+    a PatchGAN, whose BatchNorms see batch x 56 x 56 maps.  (The VGG discriminator's
+    last BatchNorms see 2 x 2 maps at HR 64; see tests/test_torch_port_heads.py
+    ``test_d_step_matches_jax`` for why its gradient is not held against JAX.)"""
+    from hcflow_tpu.models import discriminators as jdisc
+    from hcflow_tpu_torch.convert import heads_to_jax
+    from hcflow_tpu_torch.models import discriminators
+
+    spec = discriminators.PatchGANDiscriminatorSpec(ndf=8, n_layers=2)
+    d = spec.init(2, device="cpu")
+    return spec, jdisc.PatchGANDiscriminatorSpec(ndf=8, n_layers=2), d, heads_to_jax(d)
+
+
+def jax_update(p, g, advance):
+    """The params ``p`` after one update by gradient ``g`` from a fresh state by the JAX
+    package's optimizer (traceable)."""
+    from hcflow_tpu.train import schedules as jschedules
+    from hcflow_tpu.train import trainer as jtrainer
+
+    jtx = jtrainer.make_optimizer(TRAIN_OPT, jschedules.schedule_from_opt(TRAIN_OPT))
+    return jtrainer._apply(jtx, jtrainer.init_state(p, jtx), g, advance).params
+
+
+def with_jax_update(loss, advance):
+    """fn(p, *rest) -> (aux, grads, params after one update from a fresh state by the
+    JAX package's optimizer), for ``loss(p, *rest) -> (total, aux)``."""
+    import jax
+
+    def fn(p, *rest):
+        (_, aux), g = jax.value_and_grad(loss, has_aux=True)(p, *rest)
+        return aux, g, jax_update(p, g, advance)
+
+    return fn
+
+
+def check_update(model, state, jnew, jgrads, tol, lr=TRAIN_OPT["lr_G"]):
+    """The params after one update against JAX's.  Adam's first update is lr * g / (|g|
+    + eps), about lr * sign(g): where the two gradients are held equal (|g| above the
+    gradient tolerance) the signs agree and so must the params; below it a sign may
+    differ, and the params by at most 2 lr."""
+    import jax
+
+    from hcflow_tpu_torch.convert import params_from_jax
+    from hcflow_tpu_torch.train import trainer
+
+    def tree(t):
+        return trainer.tree_leaves(params_from_jax(jax.tree.map(np.asarray, t), model,
+                                                   device="cpu"))
+
+    ref, grads, got = tree(jnew), tree(jgrads), trainer.tree_leaves(state.params)
+    assert len(ref) == len(got) == len(grads)
+    for i, (a, b, g) in enumerate(zip(got, ref, grads)):
+        a = a.detach()
+        sure = g.abs() > tol * max(1.0, float(g.abs().max()))
+        if sure.any():
+            close_scaled(a[sure], b[sure].numpy(), tol, f"param leaf {i} after the update")
+        assert float((a - b).abs().max()) <= 2 * lr * (1 + 1e-3), f"param leaf {i}"
+
+
+# ----------------------------------------------------------- the training entry point
+# Shared by tests/test_torch_port_train_loop.py and tests/test_torch_port_train_cli.py:
+# the shipped training configs at a small topology on synthetic data.
+TRAIN_FD = dict(K=3, hidden_channels=8)
+TRAIN_SO = dict(after_flowstep=[1, 1], hidden_channels=8, RRDB_nb=[1, 1], RRDB_nf=8, RRDB_gc=8)
+
+
+def smooth_image(rng, h, w):
+    """A smooth random HWC image in [0, 1]: 8 x 8 blocks by bicubic, plus fine noise."""
+    from hcflow_tpu_torch.data.imresize import imresize
+
+    lo = rng.uniform(0.05, 0.95, (-(-h // 8), -(-w // 8), 3))
+    return np.clip(imresize(lo, 8.0)[:h, :w] + 0.02 * rng.standard_normal((h, w, 3)), 0, 1
+                   ).astype(np.float32)
+
+
+def train_data(root):
+    """Synthetic training data under root: LRHR_PKL crops (GT 32, x4) by the port's
+    prepare_data pkl from two 64 x 64 PNGs under src/, GT/LQ .npy pairs under npy/ by
+    its png2npy, one GT/LQ validation pair of HR 64 x 64 under val/."""
+    from hcflow_tpu_torch.cli import prepare_data
+    from hcflow_tpu_torch.data.imresize import imresize
+    from hcflow_tpu_torch.data.util import save_img
+
+    rng = np.random.default_rng(0)
+    for d in ("src", "val/HR", "val/LR", "png/HR", "png/LR"):
+        (root / d).mkdir(parents=True)
+    for i in range(2):
+        save_img(str(root / "src" / f"{i}.png"), smooth_image(rng, 64, 64))
+    prepare_data.prepare_pkl(str(root / "src"), str(root / "pkl"), crops_per_image=3,
+                             crop_size=32, scales=(4,))
+    for d, n in (("val", 1), ("png", 3)):
+        for i in range(n):
+            hr = smooth_image(rng, 64, 64)
+            save_img(str(root / d / "HR" / f"{i}.png"), hr)
+            save_img(str(root / d / "LR" / f"{i}.png"), np.clip(imresize(hr, 0.25), 0, 1))
+    for d in ("HR", "LR"):
+        prepare_data.png2npy(str(root / "png" / d), str(root / "npy" / d))
+    return root
+
+
+def train_option_file(path, src, data, root, **train_opt):
+    """A copy of the shipped training config configs/<src> at the small topology,
+    float32 nets (XLA on the CPU runs bf16 convs slowly; the loop does not depend on
+    the recipe), batch 2, GT 32, on train_data's files, writing under root, a
+    checkpoint and a progress line every iteration; ``train_opt`` updates its train
+    section."""
+    import yaml
+
+    from pathlib import Path
+
+    opt = yaml.safe_load((Path(__file__).resolve().parents[1] / "configs" / src).read_text())
+    fd = opt["network_G"]["flowDownsampler"]
+    fd.update(TRAIN_FD)
+    fd["splitOff"].update(TRAIN_SO)
+    opt["network_G"].pop("encoder_dtype", None)
+    tr = opt["datasets"]["train"]
+    if tr["mode"] == "GTLQnpy":
+        tr.update(dataroot_GT=str(data / "npy/HR"), dataroot_LQ=str(data / "npy/LR"))
+    else:
+        tr.update(dataroot_GT=str(data / "pkl/tr.pklv4"), dataroot_LQ=str(data / "pkl/tr_X4.pklv4"))
+    tr.update(batch_size=2, GT_size=32, n_workers=0)
+    opt["datasets"]["val"].update(dataroot_GT=str(data / "val/HR"),
+                                  dataroot_LQ=str(data / "val/LR"))
+    opt["path"].update(root=str(root), pretrain_model_G=None)
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=1)
+    opt["val"].update(heats=[0.0], n_sample=1)
+    opt["use_tb_logger"] = False
+    opt["train"].update(train_opt)
+    path.write_text(yaml.safe_dump(opt))
+    return str(path)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two torch threads for a module's tests (imported by a test module, it applies to
+    it): the suite runs test files in parallel processes, and the default of one thread
+    a core spins idle threads against the other processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

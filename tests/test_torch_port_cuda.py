@@ -510,3 +510,52 @@ def test_predictor_kernel_path_matches_plain_path(gen, tmp_path):
     assert outs[0].shape == (244, 228, 3)
     d = np.abs(outs[0] - outs[1])
     assert d.max() <= 1 / 255 + 1e-6 and (d > 0).mean() <= 0.01
+
+
+def test_train_cli_on_the_card_validates_through_the_kernels(gen, tmp_path):
+    """cli.train.main on the card: 2 iterations of the HCFlow+ recipe (bf16 encoders,
+    float32 couplings) at widths the kernels take (coupling width 32, RRDB nf 32 / gc
+    16), then its validation on the packed params: the bf16 RRDB kernel and the float32
+    chain kernel at hid 32, with exact launches, finite averages."""
+    import math
+    from pathlib import Path
+
+    import yaml
+
+    from _torch_port_util import train_data, train_option_file
+    from hcflow_tpu_torch.cli import train
+
+    data = train_data(tmp_path / "data")
+    opt = Path(train_option_file(tmp_path / "opt.yml", "train_SR_DF2K_4X_HCFlow+.yml", data,
+                                 tmp_path / "run", val_freq=2))
+    o = yaml.safe_load(opt.read_text())
+    o["network_G"]["encoder_dtype"] = "bfloat16"
+    o["network_G"]["flowDownsampler"].update(K=4, hidden_channels=32)
+    o["network_G"]["flowDownsampler"]["splitOff"].update(
+        after_flowstep=[2, 2], hidden_channels=32, RRDB_nb=[1, 1], RRDB_nf=32, RRDB_gc=16)
+    opt.write_text(yaml.safe_dump(o))
+    results = []
+    run = train.Evaluator.run
+
+    def recording(self, *a, **k):
+        rrdb.launches_by.clear()
+        chain.launches_by.clear()
+        out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        results.append((out, dict(rrdb.launches_by), dict(chain.launches_by)))
+        return out
+
+    train.Evaluator.run = recording
+    try:
+        state = train.main(["--opt", str(opt), "--max_steps", "2"])
+    finally:
+        train.Evaluator.run = run
+    assert state.step == 2
+    assert all(t.is_cuda and torch.isfinite(t).all() for t in
+               [p for lv in state.params.values() for p in lv["cond"]["conv_first"].values()])
+    (avg, rrdb_launches, chain_launches), = results
+    assert all(math.isfinite(v) for v in avg.values())
+    # one image of HR 64: the forward and one reverse at heat 0, 4 RRDBs of 16 launches
+    # each; the reverse's 4 chains of 2 steps
+    assert rrdb_launches == {"bf16": 2 * 4 * 16}
+    assert chain_launches == {"f32 hid 32": 4 * 2}

@@ -220,7 +220,7 @@ def test_lpips_matches_jax(tmp_path):
     jp = jlpips.random_params(seed=0)
     path = str(tmp_path / "alex.npz")
     jlpips.save_npz(path, jp)
-    params = lpips.load(path)
+    params = lpips.load(path, device="cpu")
     assert params["conv0"]["w"].shape == (64, 3, 11, 11)
     rng = np.random.default_rng(5)
     a = rng.random((2, 72, 80, 3)).astype(np.float32) * 2 - 1
@@ -232,13 +232,13 @@ def test_lpips_matches_jax(tmp_path):
     m, jm = lpips.make_metric(params), jlpips.make_metric(jp)
     x, y = (a[0] + 1) / 2, (b[0] + 1) / 2
     assert abs(m(x, y) - jm(x, y)) <= 1e-5 and m(x, x) == 0.0
-    assert lpips.load(str(tmp_path / "missing.npz")) is None
+    assert lpips.load(str(tmp_path / "missing.npz"), device="cpu") is None
 
 
 def test_lpips_random_params():
-    p = lpips.random_params(seed=0)
+    p = lpips.random_params(seed=0, device="cpu")
     assert [p[f"conv{i}"]["w"].shape[0] for i in range(5)] == [64, 192, 384, 256, 256]
     assert all(torch.allclose(p[f"lin{i}"]["w"].sum(), torch.tensor(1.0)) for i in range(5))
-    assert torch.equal(p["conv2"]["w"], lpips.random_params(seed=0)["conv2"]["w"])
+    assert torch.equal(p["conv2"]["w"], lpips.random_params(seed=0, device="cpu")["conv2"]["w"])
     x = torch.rand(1, 64, 64, 3) * 2 - 1
     assert float(lpips.lpips_distance(p, x, -x)[0]) > 0
