@@ -93,7 +93,27 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    |plain|, 5e-4 x mean |plain|, PSNR within 2e-4 dB), and a control that must break
    each of those limits (one level's two trunk packs exchanged); ms per pass
    kind (CUDA events, after the first), s per validation, peak memory per run;
-11. print the kernels' JSON line, the card line, then the JSON status line last.
+11. data-parallel training, train.remat_steps and the flow-op inventory at full width:
+   (a) a copy of phase 10's HCFlow+ config (from the init) trained for 4 iterations as
+   one process and as world 1 on NCCL under torch.distributed.run, side by side, each a
+   subprocess of this script (``--train-rank``) under
+   torch.use_deterministic_algorithms: the params after every pass, the written
+   latest_G.ckpt and 4.state equal bit for bit (an op without a deterministic CUDA
+   version would be named, and the pair then held within 2 lr iterations); (b) the
+   same config as 2 ranks on the one card over gloo (RANK 0 / 1, LOCAL_RANK 0, a global
+   batch of 16, 8 a rank): the ranks' params bit-identical after every pass, only rank
+   0 writing checkpoints and validating, ms per pass and peak memory per rank; then
+   dryrun_multigpu(2) (two SR NLL steps, an HCFlow++ iteration, a rescaling step: each
+   pass's all-reduced gradient within 1e-4 x max |g| of the one-process pass on the
+   global batch, the D loss within 1e-5); (c) the x4 NLL step at full width with and
+   without remat_steps: gradients within 1e-5 x max |g|, TF32 off in every conv's
+   backward and in the recomputed convs, both peak memories; (d) the x4 SR model with
+   flow_permutation shuffle and a reverse split-off permutation in the bf16 recipe,
+   served fused: 28 RRDBs (448 launches) a pass through the RRDB kernel and no chain
+   kernel launch (a permuted chain serves on the plain path), the kernel path within
+   phase 3's limits of the plain path, the NLL forward finite; the validations' and
+   (d)'s launches count in the kernels line;
+12. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
@@ -201,6 +221,9 @@ TRAIN_VAL_PAIRS, TRAIN_VAL_HR = 2, (256, 256)
 # the SR image little.  Each limit sits 3-4x above the sound readings and 3.5-4x below
 # the control's, and the control must break every one of them.
 TRAIN_VAL_MAX_RTOL, TRAIN_VAL_MEAN_RTOL, TRAIN_VAL_PSNR_TOL = 2e-3, 5e-4, 2e-4
+# phase 11: what torch.use_deterministic_algorithms(True, warn_only=True) says of an op
+# without a deterministic CUDA version
+PAR_NONDET = "does not have a deterministic implementation"
 # the step factories of cli/train.py and the pass each one's steps make
 TRAIN_PASSES = {"make_sr_nll_step": "nll", "make_sr_pixel_step": "pixel",
                 "make_sr_feagan_step": "feagan", "make_d_step": "D",
@@ -235,13 +258,16 @@ def card_line():
 
 def perturb(tree, generator, scale=0.1):
     """Noise on every weight: a conv weight gets scale/sqrt(fan_in) * N(0,1), any other
-    tensor 0.02 * N(0,1).  The relative size keeps the 4 x 7 RRDBs from blowing up."""
+    float tensor 0.02 * N(0,1).  The relative size keeps the 4 x 7 RRDBs from blowing
+    up."""
     import torch
 
     if isinstance(tree, dict):
         return {k: perturb(v, generator, scale) for k, v in tree.items()}
     if isinstance(tree, list):
         return [perturb(v, generator, scale) for v in tree]
+    if not tree.is_floating_point():  # a permutation's indices
+        return tree
     std = scale / math.sqrt(tree[0].numel()) if tree.ndim == 4 else 0.02
     noise = torch.randn(tree.shape, generator=generator, device=generator.device)
     return tree + std * noise.to(tree.device)
@@ -976,13 +1002,16 @@ def _smooth_batch(torch, gen, hw):
 
 
 def _tf32_probe(torch, nets):
-    """Wrap nets.conv2d so that the backward of every conv records the TF32 flags it
-    runs under; returns (the records, a function that removes the wrapper)."""
-    seen, conv2d = [], nets.conv2d
+    """Wrap nets.conv2d so that every conv records the TF32 flags its caller runs it
+    under (forward, recomputations in the backward pass included) and its backward the
+    flags it runs under; returns (the backward records, the forward records, a
+    function that removes the wrapper)."""
+    seen, fwd, conv2d = [], [], nets.conv2d
 
     class Probe(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x):
+            fwd.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
             return x.view_as(x)
 
         @staticmethod
@@ -995,7 +1024,7 @@ def _tf32_probe(torch, nets):
     def undo():
         nets.conv2d = conv2d
 
-    return seen, undo
+    return seen, fwd, undo
 
 
 def phase_train(torch, gen):
@@ -1032,7 +1061,7 @@ def phase_train(torch, gen):
         else:  # the first iteration: TF32 allowed outside the steps, probed inside
             prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
             torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-            seen, undo = _tf32_probe(torch, nets)
+            seen, _, undo = _tf32_probe(torch, nets)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         state, m = nll_step(state, hr, lr, generator=gen)
@@ -1545,6 +1574,23 @@ def _train_option_file(path, src, root, changes):
     return str(path)
 
 
+def _train_changes(data, root, scale, pretrain=None, mode="pkl", **more):
+    """The keys phase 10 and 11 change in a shipped training config: the dataroots of
+    ``_train_data``'s files (LRHR_PKL crops, or the .npy pairs), path.root, the
+    pretrained G, a checkpoint every TRAIN_SAVE_FREQ, validation at TRAIN_STEPS, a
+    progress line every iteration, and ``more``."""
+    val = data / f"val_x{scale}"
+    train_roots = ({"datasets.train.dataroot_GT": str(data / "pkl/tr.pklv4"),
+                    "datasets.train.dataroot_LQ": str(data / f"pkl/tr_X{scale}.pklv4")}
+                   if mode == "pkl" else
+                   {"datasets.train.dataroot_GT": str(data / "npy/HR"),
+                    "datasets.train.dataroot_LQ": str(data / "npy/LR")})
+    return {**train_roots, "datasets.val.dataroot_GT": str(val / "HR"),
+            "datasets.val.dataroot_LQ": str(val / "LR"), "path.root": str(root),
+            "path.pretrain_model_G": pretrain, "logger.save_checkpoint_freq": TRAIN_SAVE_FREQ,
+            "train.val_freq": TRAIN_STEPS, "logger.print_freq": 1, **more}
+
+
 def _train_run(torch, name, opt_path, max_steps, val_launches, start_params=None):
     """cli.train.main on opt_path on the card, its steps, calibration and validation
     wrapped to time them (CUDA events) and check their losses finite, and the launches
@@ -1667,17 +1713,7 @@ def phase_train_cli(torch, gen):
         root = tmp / "runs"
 
         def changes(scale, pretrain=None, mode="pkl", **more):
-            val = data / f"val_x{scale}"
-            train_roots = ({"datasets.train.dataroot_GT": str(data / "pkl/tr.pklv4"),
-                            "datasets.train.dataroot_LQ": str(data / f"pkl/tr_X{scale}.pklv4")}
-                           if mode == "pkl" else
-                           {"datasets.train.dataroot_GT": str(data / "npy/HR"),
-                            "datasets.train.dataroot_LQ": str(data / "npy/LR")})
-            return {**train_roots, "datasets.val.dataroot_GT": str(val / "HR"),
-                    "datasets.val.dataroot_LQ": str(val / "LR"), "path.root": str(root),
-                    "path.pretrain_model_G": pretrain,
-                    "logger.save_checkpoint_freq": TRAIN_SAVE_FREQ,
-                    "train.val_freq": TRAIN_STEPS, "logger.print_freq": 1, **more}
+            return _train_changes(data, root, scale, pretrain, mode, **more)
 
         def opt_file(tag, src, ch):
             log(f"  {tag}: configs/{src}, changed keys:")
@@ -1832,6 +1868,351 @@ def phase_train_cli(torch, gen):
     return out
 
 
+# -------------------------------------- phase 11: data parallelism, remat, inventory
+def _train_rank(out, argv):
+    """One process of phase 11's training runs (``chip_smoke.py --train-rank OUT <cli.train
+    arguments>``, alone, under the launcher or as one of the ranks phase 11 starts):
+    cli.train.main under torch.use_deterministic_algorithms(True, warn_only=True), its
+    passes timed (CUDA events) and the params' digest taken after each, its checkpoint
+    writes and the kernels' launches recorded; writes them to OUT as JSON."""
+    import os
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from hcflow_tpu_torch.cli import train
+    from hcflow_tpu_torch.parallel.dryrun import digest
+
+    rec = {"rank": int(os.environ.get("RANK", 0)), "passes": [], "digests": [], "saves": []}
+    saved = {k: getattr(train, k) for k in (*TRAIN_PASSES, "save_model", "save_training_state")}
+
+    def timed(kind, fn):
+        def step(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out_ = fn(*a, **k)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec["passes"].append((kind, ev[0].elapsed_time(ev[1])))
+            rec["digests"].append((kind, digest(out_[0].params)))
+            return out_
+
+        return step
+
+    def recorded(fn):
+        def save(path, *a, **k):
+            rec["saves"].append(os.path.basename(path))
+            return fn(path, *a, **k)
+
+        return save
+
+    for factory, kind in TRAIN_PASSES.items():
+        setattr(train, factory, lambda *a, _f=saved[factory], _k=kind, **k: timed(_k, _f(*a, **k)))
+    train.save_model, train.save_training_state = (recorded(saved["save_model"]),
+                                                   recorded(saved["save_training_state"]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.reset_peak_memory_stats()
+        state = train.main(argv)
+        torch.cuda.synchronize()
+    rec.update(step=state.step, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=_counts(), world=int(os.environ.get("WORLD_SIZE", 1)),
+               nondeterministic=sorted({str(w.message).split(" does not have")[0]
+                                        for w in caught if PAR_NONDET in str(w.message)}))
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _pass_ms(rec):
+    """ms per pass kind after its first call."""
+    by = {}
+    for kind, ms in rec["passes"]:
+        by.setdefault(kind, []).append(ms)
+    return {k: statistics.mean(v[1:]) if len(v) > 1 else v[0] for k, v in by.items()}
+
+
+def _launch_ranks(cmds, envs, logs, timeout=600):
+    """Start the commands side by side (stdout and stderr to the log files), wait for all,
+    raise with a log's tail if one fails; every process ends before this returns."""
+    import os
+
+    procs = []
+    try:
+        for cmd, env, log_path in zip(cmds, envs, logs):
+            with open(log_path, "w") as f:
+                procs.append(subprocess.Popen(cmd, env={**os.environ, **env}, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log_path in zip(procs, logs):
+        if p.returncode != 0:
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"{' '.join(map(str, p.args))} exited {p.returncode}:\n{tail}")
+
+
+def phase_parallel(torch, gen):
+    """Data-parallel training (world 1 on NCCL against one process, 2 ranks on the one card
+    over gloo, dryrun_multigpu(2)), train.remat_steps at full width and the flow-op
+    inventory's x4 SR model at full width on the kernel path."""
+    t_phase = time.perf_counter()
+    launches = _per_request()
+    out = _ddp(torch, launches)
+    out["remat"] = _remat(torch, gen)
+    out["inventory"] = _inventory(torch, gen, launches)
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 11 took {wall:.1f} s; launches {launches}")
+    out.update(launches=launches, wall_s=wall)
+    return out
+
+
+def _ddp(torch, launches):
+    """Phase 11 (a), (b) and the dry run; adds the runs' kernel launches to launches."""
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from hcflow_tpu_torch.parallel.dryrun import dryrun_multigpu, free_port
+    from hcflow_tpu_torch.train import trainer
+    from hcflow_tpu_torch.utils import checkpoint, config
+
+    repo = Path(__file__).resolve().parent
+    me = str(repo / "chip_smoke.py")
+    out = {}
+    n_val, heats = TRAIN_VAL_PAIRS, 2
+    sr_val = _per_request(rrdb=28 * 16 * n_val * (1 + heats), chain_f32=4 * 13 * n_val * heats)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        _train_data(np, data, np.random.default_rng(11))
+        base = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8", "OMP_NUM_THREADS": "1",
+                "PYTHONPATH": str(repo)}
+
+        def opt_file(tag):
+            log(f"  {tag}: configs/train_SR_DF2K_4X_HCFlow+.yml, changed keys:")
+            return _train_option_file(tmp / f"{tag}.yml",
+                                      repo / "configs" / "train_SR_DF2K_4X_HCFlow+.yml", None,
+                                      _train_changes(data, tmp / tag, SCALE))
+
+        def rank_args(tag, rank=0, *more):
+            return ["--train-rank", str(tmp / f"{tag}{rank}.json"), "--opt", str(tmp / f"{tag}.yml"),
+                    "--max_steps", str(TRAIN_STEPS), *more]
+
+        def read(tag, rank=0):
+            with open(tmp / f"{tag}{rank}.json") as f:
+                rec = json.load(f)
+            for k in launches:
+                launches[k] += rec["launches"][k]
+            return rec
+
+        def leaves(path, spec):
+            return trainer.tree_leaves(checkpoint.load_any(str(path), spec.flow, device=DEV))
+
+        # (a) world 1 on NCCL under the launcher against one process
+        log("  (a) HCFlow+ at full width, one process and world 1 on NCCL under "
+            "torch.distributed.run, deterministic algorithms")
+        for tag in ("single", "world1"):
+            opt_file(tag)
+        # side by side on the card: each run's results do not depend on the other, its
+        # pass times do (the card and the host are shared)
+        t0 = time.perf_counter()
+        _launch_ranks([[sys.executable, me, *rank_args("single")],
+                       [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                        "--master_port", str(free_port()), me, *rank_args("world1")]],
+                      [base, base], [tmp / "single.log", tmp / "world1.log"])
+        single, world1 = read("single"), read("world1")
+        log(f"    both runs side by side {time.perf_counter() - t0:.1f} s, from the start of the "
+            "processes")
+        spec = config.model_spec_from_opt(config.parse(str(tmp / "single.yml")))
+
+        def exp(tag):
+            return Path(config.parse(str(tmp / f"{tag}.yml"))["path"]["experiments_root"])
+        nondet = sorted(set(single["nondeterministic"]) | set(world1["nondeterministic"]))
+        a, b = (leaves(exp(t) / "models/latest_G.ckpt", spec) for t in ("single", "world1"))
+        sa, sb = (trainer.tree_leaves(checkpoint.load_training_state(
+            str(exp(t) / f"training_state/{TRAIN_STEPS}.state"), device=DEV)["params"])
+            for t in ("single", "world1"))
+        diff = max(max((x - y).abs().max().item() for x, y in zip(a, b)),
+                   max((x - y).abs().max().item() for x, y in zip(sa, sb)))
+        bitwise = diff == 0 and single["digests"] == world1["digests"]
+        bound = 2 * TRAIN_OPT["lr_G"] * TRAIN_STEPS
+        log(f"    ops without a deterministic CUDA version: {nondet or 'none'}; latest_G.ckpt and "
+            f"{TRAIN_STEPS}.state params: max abs difference {diff:.3e}; digests after every "
+            f"pass equal: {single['digests'] == world1['digests']}")
+        if nondet and not diff <= bound:
+            raise AssertionError(f"world 1 differs from one process by {diff} > 2 lr iterations")
+        if not nondet and not bitwise:
+            raise AssertionError("world 1 on NCCL differs from one process")
+        for name, rec in (("one process", single), ("world 1", world1)):
+            log(f"    {name}: ms per pass {_pass_ms(rec)}; peak {rec['peak_mem_gb']:.2f} GB; "
+                f"saves {rec['saves']}; validation launches {rec['launches']}")
+            _expect_launches(f"(a) {name} validation", rec["launches"], sr_val)
+        out["world1"] = dict(bitwise=bitwise, max_abs_diff=diff, nondeterministic=nondet,
+                             single_ms=_pass_ms(single), world1_ms=_pass_ms(world1),
+                             single_peak_gb=single["peak_mem_gb"],
+                             world1_peak_gb=world1["peak_mem_gb"])
+
+        # (b) 2 ranks on the one card over gloo
+        log("  (b) HCFlow+ at full width, 2 ranks on the one card over gloo (global batch 16, "
+            "8 a rank)")
+        opt_file("world2")
+        port = free_port()
+        t0 = time.perf_counter()
+        _launch_ranks([[sys.executable, me, *rank_args("world2", r, "--dist_backend", "gloo")]
+                       for r in (0, 1)],
+                      [{**base, "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                        "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)} for r in (0, 1)],
+                      [tmp / f"world2_{r}.log" for r in (0, 1)])
+        ranks = [read("world2", r) for r in (0, 1)]
+        log(f"    both ranks {time.perf_counter() - t0:.1f} s")
+        for rec in ranks:
+            log(f"    rank {rec['rank']}: ms per pass {_pass_ms(rec)}; peak "
+                f"{rec['peak_mem_gb']:.2f} GB; saves {rec['saves']}; G step {rec['step']}")
+        want = ["2_G.ckpt", "2.state", "4_G.ckpt", "4.state", "latest_G.ckpt"]
+        if ranks[0]["saves"] != want or ranks[1]["saves"]:
+            raise AssertionError(f"checkpoint writes {[r['saves'] for r in ranks]}: rank 0 "
+                                 f"should write {want}, rank 1 nothing")
+        if ranks[0]["digests"] != ranks[1]["digests"] or len(ranks[0]["digests"]) != 2 * TRAIN_STEPS:
+            raise AssertionError("the ranks' params differ after a pass")
+        if [r["step"] for r in ranks] != [TRAIN_STEPS] * 2:
+            raise AssertionError(f"G steps {[r['step'] for r in ranks]}")
+        _expect_launches("(b) rank 0 validation", ranks[0]["launches"], sr_val)
+        _expect_launches("(b) rank 1 (no validation)", ranks[1]["launches"], _per_request())
+        c = leaves(exp("world2") / "models/latest_G.ckpt", spec)
+        drift = max((x - y).abs().max().item() for x, y in zip(a, c))
+        log(f"    params bit-identical on both ranks after each of the {2 * TRAIN_STEPS} passes; "
+            f"only rank 0 wrote checkpoints and validated; against the one-process run: max abs "
+            f"{drift:.3e} (2 lr iterations = {bound:g})")
+        out["world2"] = dict(ms=[_pass_ms(r) for r in ranks], peak_gb=[r["peak_mem_gb"] for r in ranks],
+                             drift_vs_single=drift)
+
+        # dryrun_multigpu(2): each pass kind's all-reduced gradient against one process
+        t0 = time.perf_counter()
+        rep = dryrun_multigpu(2)
+        log(f"  dryrun_multigpu(2) on the card (gloo, {time.perf_counter() - t0:.1f} s): "
+            + ", ".join(f"{k} {v['rel']:.2e}" for k, v in rep["passes"].items())
+            + f" x max |g| (tol 1e-4); D loss rel {rep['d_loss']['rel']:.2e} (tol 1e-5); "
+            f"params equal on both ranks after every pass: {rep['digests_equal']}")
+        out["dryrun"] = {k: rep[k] for k in ("passes", "d_loss", "digests_equal", "calibrate_equal")}
+    return out
+
+
+def _remat(torch, gen):
+    """Phase 11 (c): train.remat_steps on the x4 NLL step at full width."""
+    import dataclasses
+
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+    from hcflow_tpu_torch.ops import nets
+    from hcflow_tpu_torch.train import schedules, trainer
+
+    log("  (c) remat_steps: the x4 NLL step at full width (bf16 encoders), with and without")
+    model = HCFlowSRSpec.for_scale(SCALE, encoder_dtype="bfloat16")
+    hr, lr = _smooth_batch(torch, gen, LR_HW * SCALE)
+    params = model.calibrate(model.init(0, device=DEV), hr, lr, generator=gen)
+    noise = torch.rand(hr.shape, device=DEV, generator=gen)
+    tx = trainer.make_optimizer(TRAIN_OPT, schedules.schedule_from_opt(TRAIN_OPT))
+    grads, peaks, remat = {}, {}, {}
+    for on in (False, True):
+        m = dataclasses.replace(model, flow=dataclasses.replace(model.flow, remat_steps=on))
+        state = trainer.init_state(params, tx)
+        step = trainer.make_sr_nll_step(m, tx, TRAIN_OPT["nll_weight"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        seen, fwd, undo = _tf32_probe(torch, nets)
+        try:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, met = step(state, hr, lr, noise=noise)
+            ev[1].record()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        grads[on], peaks[on] = met["grads"], torch.cuda.max_memory_allocated() / 1e9
+        again = trainer.init_state(params, tx)  # a second call, timed: the first builds plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(again, hr, lr, noise=noise)
+        torch.cuda.synchronize()
+        remat[on] = dict(first_ms=ev[0].elapsed_time(ev[1]),
+                         ms=(time.perf_counter() - t0) * 1e3, peak_gb=peaks[on],
+                         conv_forwards=len(fwd), conv_backwards=len(seen))
+        if any(a_ or b_ for a_, b_ in seen + fwd):
+            raise AssertionError(f"remat_steps {on}: a conv ran with TF32 allowed")
+    scale = max(g.abs().max().item() for g in grads[False])
+    err = max((x - y).abs().max().item() for x, y in zip(grads[True], grads[False]))
+    log(f"    gradient with remat against without: max abs {err:.3e} of max |g| {scale:.3e} "
+        f"(tol 1e-5 x); peak memory {peaks[False]:.2f} GB without, {peaks[True]:.2f} GB with; "
+        f"NLL step {remat[False]['ms']:.1f} / {remat[True]['ms']:.1f} ms (second call each, "
+        f"host clock; first {remat[False]['first_ms']:.1f} / {remat[True]['first_ms']:.1f}); "
+        f"conv forwards {remat[False]['conv_forwards']} / {remat[True]['conv_forwards']} (the "
+        f"recomputed ones), backwards {remat[False]['conv_backwards']} / "
+        f"{remat[True]['conv_backwards']}, every one with TF32 off")
+    if not err <= 1e-5 * scale:
+        raise AssertionError("remat_steps changes the gradient")
+    if not remat[True]["conv_forwards"] > remat[False]["conv_forwards"]:
+        raise AssertionError("remat_steps recomputed no conv")
+    return dict(max_abs_err=err, max_abs_grad=scale, **{str(k): v for k, v in remat.items()})
+
+
+def _inventory(torch, gen, launches):
+    """Phase 11 (d): the flow-op inventory's x4 SR model at full width, served fused;
+    adds its launches to launches."""
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+
+    log("  (d) x4 SR at full width, bf16 serving recipe, flow_permutation shuffle, splitOff "
+        "reverse: served fused")
+    model = HCFlowSRSpec.for_scale(SCALE, compute_dtype="bfloat16", flow_permutation="shuffle",
+                                   so_flow_permutation="reverse")
+    params = perturb(model.init(0, device=DEV), gen)
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params)
+    if any("main_fused" in fused[f"level{i}"] or "steps_fused" in fused[f"level{i}"]["cond"]
+           for i in range(model.flow.L)):
+        raise AssertionError("a permuted chain was packed for the chain kernel")
+    L = model.flow.L
+    lr = torch.rand(BATCH, LR_HW, LR_HW, 3, device=DEV, generator=gen)
+    eps = [torch.randn(BATCH, LR_HW * 2 ** (L - 1 - lv.level), LR_HW * 2 ** (L - 1 - lv.level),
+                       lv.cond_spec.a_channels, device=DEV, generator=gen)
+           for lv in model.flow.levels]
+    with torch.no_grad():
+        model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps)
+        torch.cuda.synchronize()
+        inv = _counts()
+        _check_counts("inventory x4 SR reverse", inv, _per_request(rrdb=28 * 16), 1)
+        p_max, p_mean = _compare_paths("inventory x4 SR reverse (same eps_list)", got,
+                                       model.flow.reverse_flow(plain, lr, HEAT, eps_list=eps))
+        hr, _ = _smooth_batch(torch, gen, LR_HW * SCALE)
+        nll = model.forward(fused, hr, lr, noise=torch.rand(hr.shape, device=DEV, generator=gen))[1]
+        torch.cuda.synchronize()
+    fwd = {k: v - inv[k] for k, v in _counts().items()}
+    log(f"    NLL forward on the fused params: {nll.item():.4f} bits/dim; launches {fwd}")
+    if not torch.isfinite(nll) or fwd != _per_request(rrdb=28 * 16):
+        raise AssertionError("the inventory model's NLL forward")
+    ms, ts = _median_ms(lambda: model.flow.reverse_flow(fused, lr, HEAT, eps_list=eps), n=3)
+    log(f"    reverse pass: median {ms:.3f} ms over 3 ({', '.join(f'{t:.3f}' for t in ts)}); 28 "
+        "RRDBs a pass through the RRDB kernel (16 launches each), chain kernel 0 (the permuted "
+        "chains serve on the plain path)")
+    for k, v in _counts().items():
+        launches[k] += v
+    return dict(launches=inv, path_max_abs=p_max, path_mean_abs=p_mean, nll=nll.item(),
+                pass_ms=ms, pass_times_ms=ts)
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -1900,9 +2281,16 @@ def kernel_lines(rows, launches):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], allow_abbrev=False)
     ap.add_argument("--json", help="also write every result to this file")
-    args = ap.parse_args(argv)
+    ap.add_argument("--train-rank", metavar="OUT",
+                    help="phase 11's training process: run cli.train.main on the remaining "
+                    "arguments, write its records to OUT")
+    args, rest = ap.parse_known_args(argv)
+    if args.train_rank:
+        return _train_rank(args.train_rank, rest)
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
 
     import torch
 
@@ -1967,6 +2355,9 @@ def main(argv=None):
     log("phase 10: the training entry point (cli.train.main) at full width on the shipped "
         "training configs")
     train_cli = phase_train_cli(torch, gen)
+    log("phase 11: data-parallel training (world 1 on NCCL, 2 ranks on the card over gloo, "
+        "dryrun_multigpu(2)), train.remat_steps and the flow-op inventory at full width")
+    par = phase_parallel(torch, gen)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -1976,13 +2367,15 @@ def main(argv=None):
                                   "sr8_f32": sr8_f32["launches"],
                                   **{f"serve_{k}": serve[k]["launches"]
                                      for k in ("x4", "x8", "rescaling", "tiny", "predict")},
-                                  "train_cli": train_cli["launches"]})
+                                  "train_cli": train_cli["launches"],
+                                  "parallel": par["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
-                       "serve": serve, "train_cli": train_cli}, f, indent=1, default=str)
+                       "serve": serve, "train_cli": train_cli, "parallel": par}, f, indent=1,
+                      default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

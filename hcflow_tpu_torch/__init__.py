@@ -1,4 +1,5 @@
-"""HCFlow in PyTorch for NVIDIA Hopper: x4 and x8 SR serving, x4 rescaling serving.
+"""HCFlow in PyTorch for NVIDIA Hopper: x4 and x8 SR and x4 rescaling, served and
+trained (data-parallel over several cards with ``parallel/``).
 
 The counterpart of ``hcflow_tpu`` (JAX): the same module names, NHWC tensors at
 every public function, parameters as nested dicts of tensors with OIHW conv

@@ -1,4 +1,6 @@
-"""Training CLI: ``python -m hcflow_tpu_torch.cli.train --opt <yml> [--cpu] [--max_steps N]``.
+"""Training CLI: ``python -m hcflow_tpu_torch.cli.train --opt <yml> [--cpu] [--max_steps N]``;
+on N cards of a node ``python -m torch.distributed.run --nproc_per_node N -m
+hcflow_tpu_torch.cli.train --opt <yml>``.
 
 The counterpart of the JAX package's ``hcflow_tpu/cli/train.py`` (the reference's
 train_HCFlow.py with HCFlow_SR_model.py / HCFlow_Rescaling_model.py), the same loop:
@@ -18,17 +20,33 @@ train_HCFlow.py with HCFlow_SR_model.py / HCFlow_Rescaling_model.py), the same l
   finished iteration is saved and the process exits 75 (EX_TEMPFAIL).
 
 It runs on the card unless ``--cpu`` is given; without a card and without ``--cpu``
-it raises.  One process on one device: data parallelism over several cards is not
-ported.  The steps run the plain path (no kernel has a backward pass); validation on
-the card serves ``precompute_inference(params, fused=True)``, the kernels, as
-``cli/test.py`` does.  Randomness: one generator per (seed, iteration, pass) on the
-device, so an iteration run again from a restored state draws what it drew before.
+it raises.  Checkpoints are written in the pickle format only: a
+``path.checkpoint_backend`` other than ``pickle`` raises before training starts.  The
+steps run the plain path (no kernel has a backward pass); validation on the card
+serves ``precompute_inference(params, fused=True)``, the kernels, as ``cli/test.py``
+does.  Randomness: one generator per (seed, iteration, pass) on the device, which
+draws the dequantization noise and latents of the global batch, so an iteration run
+again from a restored state draws what it drew before, whatever the world size.
+
+Data parallelism (``parallel/mesh.py``; the JAX package splits the batch over a
+device mesh): under the launcher each process takes one card (``cuda:LOCAL_RANK``;
+NCCL, or gloo with ``--cpu`` or ``--dist_backend gloo``) and ``batch_size / world``
+rows of the global batch, which the world size must divide; the params start from
+rank 0's, every pass averages its gradients over the ranks, the ActNorm calibration
+runs on the gathered global batch on every rank and the discriminators' BatchNorm on
+the global batch's statistics, so a step equals the one-process step on the global
+batch up to the order of its sums.  Logging to file, checkpoints, validation and the
+emergency save happen on rank 0 while the others wait at a barrier; every rank resumes
+from the same ``.state``.  A stop request and a device failure are agreed over the
+ranks at the end of each iteration; a rank whose card fails before its gradient
+all-reduce leaves the others' collective to fail, and the launcher stops them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import os
 import signal
 import threading
@@ -42,6 +60,7 @@ from ..data.loader import EnlargedSampler
 from ..models import vgg
 from ..models.discriminators import PatchGANDiscriminatorSpec, VGGDiscriminatorSpec
 from ..models.hcflow_sr import device_for
+from ..parallel import mesh
 from ..train.losses import pixel_criterion
 from ..train.schedules import restart_steps, schedule_from_opt
 from ..train.trainer import (
@@ -56,6 +75,7 @@ from ..train.trainer import (
     make_sr_nll_step,
     make_sr_pixel_step,
     replace_params,
+    sample_latents,
 )
 from ..utils import config as config_mod
 from ..utils.backend_guard import is_device_failure
@@ -84,27 +104,42 @@ def step_generator(device, seed: int, step: int, sub: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s & (2 ** 63 - 1))
 
 
-def build_loaders(opt, seed):
+def build_loaders(opt, seed, num_replicas=1, rank=0):
+    """(train loader, val loader): the train loader gives this rank's
+    ``batch_size / num_replicas`` rows of each global batch."""
     train_loader = val_loader = None
     for phase, dataset_opt in (opt.get("datasets") or {}).items():
         dataset_opt = dict(dataset_opt, seed=seed)
         if phase == "train":
             ds = create_dataset(dataset_opt)
-            sampler = EnlargedSampler(len(ds), ratio=200, seed=seed)
-            train_loader = create_dataloader(ds, dataset_opt, sampler=sampler)
+            sampler = EnlargedSampler(len(ds), ratio=200, num_replicas=num_replicas, rank=rank,
+                                      seed=seed)
+            train_loader = create_dataloader(ds, dataset_opt, sampler=sampler,
+                                             num_replicas=num_replicas)
         elif phase == "val":
             ds = create_dataset(dict(dataset_opt, phase="val"))
             val_loader = create_dataloader(ds, dict(dataset_opt, phase="val"))
     return train_loader, val_loader
 
 
-def _discriminator(opt):
+def _discriminator(opt, sync_bn=False):
     """The D spec of network_D (the reference's networks.py)."""
     if opt_get(opt, ["network_D", "which_model_D"], "") == "PatchGANDiscriminator":
         return PatchGANDiscriminatorSpec(in_nc=opt_get(opt, ["network_D", "in_nc"], 3),
                                          ndf=opt_get(opt, ["network_D", "ndf"], 64),
-                                         n_layers=opt_get(opt, ["network_D", "n_layers"], 5))
-    return VGGDiscriminatorSpec(input_size=opt_get(opt, ["datasets", "train", "GT_size"], 160))
+                                         n_layers=opt_get(opt, ["network_D", "n_layers"], 5),
+                                         sync_bn=sync_bn)
+    return VGGDiscriminatorSpec(input_size=opt_get(opt, ["datasets", "train", "GT_size"], 160),
+                                sync_bn=sync_bn)
+
+
+def check_checkpoint_backend(opt) -> None:
+    """The port writes pickled checkpoints only; any other backend raises."""
+    backend = opt_get(opt, ["path", "checkpoint_backend"], "pickle")
+    if backend != "pickle":
+        raise NotImplementedError(
+            f"path.checkpoint_backend = {backend!r} is not implemented in the port (it writes "
+            "'pickle' checkpoints; the JAX package's orbax backend needs JAX)")
 
 
 def main(argv=None):
@@ -113,21 +148,44 @@ def main(argv=None):
     parser.add_argument("--opt", required=True)
     parser.add_argument("--cpu", action="store_true", help="train on the CPU")
     parser.add_argument("--max_steps", type=int, default=None, help="override niter")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                        help="under the launcher: the process group's backend (default "
+                        "nccl on the card, gloo with --cpu)")
     args = parser.parse_args(argv)
-    device = device_for("cpu" if args.cpu else "cuda")
-
+    device = device_for(mesh.rank_device(args.cpu))
     opt = config_mod.parse(args.opt, is_train=True)
+    check_checkpoint_backend(opt)
+
+    own_group = not torch.distributed.is_initialized()
+    rank, world = mesh.init_distributed(args.dist_backend, cpu=args.cpu)
+    try:
+        return _train(args, opt, device, rank, world)
+    finally:
+        if own_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, opt, device, rank, world):
+    main_rank = mesh.is_main_process()
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     train_opt = opt["train"]
     seed = train_opt.get("manual_seed", 0) or 0
     paths = opt["path"]
     for d in (paths["experiments_root"], paths["models"], paths["training_state"]):
         os.makedirs(d, exist_ok=True)
-    logger = setup_logger("base", paths["log"])
+    logger = setup_logger("base", paths["log"], level=logging.INFO if main_rank else logging.WARNING,
+                          to_file=main_rank)
     tb = TBWriter(os.path.join(paths["root"], "tb_logger", opt.get("name", "exp"))
-                  if opt.get("use_tb_logger") else None)
+                  if opt.get("use_tb_logger") and main_rank else None)
+    batch_size = opt_get(opt, ["datasets", "train", "batch_size"], 16)
+    if batch_size % world:
+        raise ValueError(f"datasets.train.batch_size {batch_size} is not a multiple of the "
+                         f"world size {world}")
+    reducer = mesh.DataParallel(world) if torch.distributed.is_initialized() else None
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    logger.info(f"device: {name}; one process on one device (data parallelism over several "
-                "cards is not ported)")
+    logger.info(f"device: {name}; rank {rank} of {world}, {batch_size // world} of the "
+                f"{batch_size} rows of a batch each")
 
     # ------------------------------------------------------------------ model
     model_spec = config_mod.model_spec_from_opt(opt)
@@ -136,11 +194,9 @@ def main(argv=None):
             "training with compute_dtype=%s: bf16 gradients destabilize flow NLL training "
             "(diverges in practice) - use float32 couplings for training and bf16 for serving "
             "unless you know what you are doing", model_spec.flow.compute_dtype)
-    if opt_get(opt, ["train", "remat_steps"], False):
-        raise NotImplementedError("train.remat_steps is not implemented in the port (the "
-                                  "trunks' recomputation, train.remat_trunks, is)")
     model_spec = dataclasses.replace(model_spec, flow=dataclasses.replace(
-        model_spec.flow, remat_trunks=bool(opt_get(opt, ["train", "remat_trunks"], True))))
+        model_spec.flow, remat_steps=bool(opt_get(opt, ["train", "remat_steps"], False)),
+        remat_trunks=bool(opt_get(opt, ["train", "remat_trunks"], True))))
     is_rescaling = "rescaling" in (opt.get("model") or "").lower()
     params = model_spec.init(seed, device=device)
 
@@ -148,6 +204,7 @@ def main(argv=None):
     if pretrain and os.path.exists(pretrain):
         logger.info(f"loading pretrained G from {pretrain}")
         params = load_any(pretrain, model_spec.flow, device=device)
+    params = mesh.replicate(params)
 
     # --------------------------------------------------------------- trainers
     niter = args.max_steps or int(train_opt.get("niter", 100000))
@@ -168,11 +225,11 @@ def main(argv=None):
     d_spec = d_state = d_step = d_tx = None
     f_params = f_apply = None
     if gan_weight:
-        d_spec = _discriminator(opt)
+        d_spec = _discriminator(opt, sync_bn=world > 1)
         d_tx = make_d_optimizer(train_opt, schedule_from_opt(
             {**train_opt, "lr_G": train_opt.get("lr_D", 1e-4)}))
-        d_state = init_state(d_spec.init(seed, device=device), d_tx)
-        d_step = make_d_step(d_spec.apply, d_tx, train_opt.get("gan_type", "gan"))
+        d_state = init_state(mesh.replicate(d_spec.init(seed, device=device)), d_tx)
+        d_step = make_d_step(d_spec.apply, d_tx, train_opt.get("gan_type", "gan"), reducer)
     if fea_weight:
         vgg_path = opt_get(opt, ["path", "vgg19_npz"], "weights/vgg19_features.npz")
         f_params = vgg.load_npz(vgg_path, device=device)
@@ -206,9 +263,9 @@ def main(argv=None):
             hr_criterion=pixel_criterion(train_opt.get("pixel_criterion_hr", "l1")),
             gan_type=train_opt.get("gan_type", "gan"), gan_weight=gan_weight,
             fea_weight=fea_weight, fea_criterion=fea_criterion,
-            d_apply=d_spec.apply if d_spec else None, f_apply=f_apply)
+            d_apply=d_spec.apply if d_spec else None, f_apply=f_apply, reducer=reducer)
     else:
-        nll_step = make_sr_nll_step(model_spec, tx, nll_weight)
+        nll_step = make_sr_nll_step(model_spec, tx, nll_weight, reducer)
         pix_step = fg_step = None  # built after resume (the warmup ramp anchors there)
 
     # ----------------------------------------------------------------- resume
@@ -232,16 +289,16 @@ def main(argv=None):
                 model_spec, tx, pixel_weight_hr,
                 pixel_criterion(train_opt.get("pixel_criterion_hr", "l1")),
                 warmup_steps=int(train_opt.get("pixel_warmup_hr") or 0), warmup_start=start_step,
-                reverse_grad_clip=rev_clip)
+                reverse_grad_clip=rev_clip, reducer=reducer)
         if gan_weight or fea_weight:
             fg_step = make_sr_feagan_step(
                 model_spec, tx, eps_std_reverse, gan_type=train_opt.get("gan_type", "gan"),
                 gan_weight=gan_weight, fea_weight=fea_weight, fea_criterion=fea_criterion,
                 d_apply=d_spec.apply if d_spec else None, f_apply=f_apply,
-                reverse_grad_clip=rev_clip)
+                reverse_grad_clip=rev_clip, reducer=reducer)
 
     # ------------------------------------------------------------------- data
-    train_loader, val_loader = build_loaders(opt, seed)
+    train_loader, val_loader = build_loaders(opt, seed, world, rank)
     assert train_loader is not None, "no train dataset configured"
 
     print_freq = opt_get(opt, ["logger", "print_freq"], 200)
@@ -276,11 +333,19 @@ def main(argv=None):
             prune_checkpoints(paths["models"], "_G.ckpt", keep=keep, keep_period=period)
             prune_checkpoints(paths["training_state"], ".state", keep=keep, keep_period=period)
 
+        def save_on_main(tag_step):
+            if main_rank:
+                save_all(tag_step)
+            mesh.barrier()
+
         def emergency_save(tag_step):
-            """Best-effort save after a device failure: copying off a failed card may
-            hang, so it runs in a daemon thread with a deadline; a failed or timed-out
-            save is logged and skipped (the periodic checkpoints bound the loss, and
-            every write is atomic, so a partial save cannot corrupt auto-resume)."""
+            """Best-effort save after a device failure, on rank 0: copying off a failed
+            card may hang, so it runs in a daemon thread with a deadline; a failed or
+            timed-out save is logged and skipped (the periodic checkpoints bound the
+            loss, and every write is atomic, so a partial save cannot corrupt
+            auto-resume)."""
+            if not main_rank:
+                return
             done = threading.Event()
 
             def _try():
@@ -320,10 +385,23 @@ def main(argv=None):
                 hr = torch.from_numpy(batch["GT"]).to(device)
                 lr = torch.from_numpy(batch["LQ"]).to(device)
                 metrics = {}
+                # this rank's rows of what a pass draws for the global batch
+                global_lr = (world * lr.shape[0], *lr.shape[1:])
 
                 def gen(sub):
                     return step_generator(device, seed, step, sub)
 
+                def noise(sub):
+                    g = torch.rand((world * hr.shape[0], *hr.shape[1:]), generator=gen(sub),
+                                   device=device)
+                    return mesh.shard_batch(g, rank, world)
+
+                def latents(sub, eps_std, deepest_first=True):
+                    eps = sample_latents(model_spec, global_lr, eps_std, gen(sub), device,
+                                         deepest_first)
+                    return [mesh.shard_batch(e, rank, world) for e in eps]
+
+                failed = False
                 try:
                     g_turn = (step % d_update_ratio == 0 and step > d_init_iters) or not gan_weight
                     fake_h = None
@@ -331,50 +409,62 @@ def main(argv=None):
                         # G gated as in SR (HCFlow_Rescaling_model.py:211); when G is
                         # skipped D trains on a no-grad reverse from the true LR (:275-277)
                         if g_turn:
+                            eps = latents(NLL, eps_std_reverse, deepest_first=False)
                             if rescaling_heads:
                                 state, fake_h, m = joint_step(
                                     state, hr, lr, d_state.params if d_state else None,
-                                    f_params, generator=gen(NLL))
+                                    f_params, eps_list=eps)
                             else:
-                                state, m = joint_step(state, hr, lr, generator=gen(NLL))
+                                state, m = joint_step(state, hr, lr, eps_list=eps)
                             metrics.update(m)
                     else:
                         # the ActNorm re-initialisation window (NLL-only pretraining)
                         if step < act_norm_start and nll_only:
+                            # on the gathered global batch, the same on every rank
+                            hr_all = mesh.gather_batch(hr)
                             state = replace_params(state, model_spec.calibrate(
-                                detached(state.params), hr, lr, generator=gen(CALIBRATE)))
+                                detached(state.params), hr_all,
+                                noise=torch.rand(hr_all.shape, generator=gen(CALIBRATE),
+                                                 device=device)))
                         if g_turn:
-                            state, m = nll_step(state, hr, lr, generator=gen(NLL))
+                            state, m = nll_step(state, hr, lr, noise=noise(NLL))
                             metrics.update(m)
                             if pix_step is not None:
-                                state, m = pix_step(state, hr, lr, generator=gen(PIXEL))
+                                state, m = pix_step(state, hr, lr, eps_list=latents(PIXEL, 0.0))
                                 metrics.update(m)
                             if fg_step is not None:
                                 state, fake_h, m = fg_step(
                                     state, hr, lr, d_state.params if d_state else None,
-                                    f_params, generator=gen(FEAGAN))
+                                    f_params, eps_list=latents(FEAGAN, eps_std_reverse))
                                 metrics.update(m)
                     if gan_weight:
                         if fake_h is None:
                             fake_h = model_spec.reverse(detached(state.params), lr,
-                                                        eps_std_reverse, generator=gen(FEAGAN))
+                                                        eps_std_reverse,
+                                                        eps_list=latents(FEAGAN, eps_std_reverse))
                         d_state, m = d_step(d_state, hr, fake_h)
                         metrics.update(m)
                 except Exception as e:  # noqa: BLE001 - device failures only; others re-raise
                     if not is_device_failure(e):
                         raise
+                    failed = True
+                    logger.error(
+                        f"device failure at step {step} on rank {rank} ({type(e).__name__}: "
+                        f"{str(e)[:300]}) - restart will auto-resume from the newest checkpoint")
+                stop, failed = mesh.any_rank((stop_requested["flag"], failed), device)
+                if failed:
                     # save what can be saved within a deadline and exit EX_TEMPFAIL so
                     # that a supervisor restarts; resume_state auto picks up the newest
-                    logger.error(
-                        f"device failure at step {step} ({type(e).__name__}: {str(e)[:300]}) "
-                        "- restart will auto-resume from the newest checkpoint")
                     emergency_save(step - 1)
                     tb.close()
                     raise SystemExit(75)
                 metrics.pop("grads", None)
 
-                meter.tick(n_items=hr.shape[0], n_pixels=hr.shape[0] * hr.shape[1] * hr.shape[2])
+                n_global = world * hr.shape[0]
+                meter.tick(n_items=n_global, n_pixels=n_global * hr.shape[1] * hr.shape[2])
                 if step % print_freq == 0:
+                    if reducer is not None:  # the global batch's means
+                        metrics = dict(zip(metrics, reducer.average(list(metrics.values()))))
                     dt = (time.time() - t_last) / print_freq
                     t_last = time.time()
                     msg = ", ".join(f"{k_}: {float(v):.4e}" for k_, v in metrics.items())
@@ -386,17 +476,17 @@ def main(argv=None):
                         tb.add_scalar(k_, float(v), step)
                     tb.add_scalar("perf/img_per_sec", meter.items_per_sec, step)
 
-                if stop_requested["flag"]:
-                    save_all(step)
+                if stop:
+                    save_on_main(step)
                     logger.info(f"stopped by signal at step {step}")
                     tb.close()
                     return state
 
                 if step % save_freq == 0:
                     logger.info(f"saving models and training states at step {step}")
-                    save_all(step)
+                    save_on_main(step)
 
-                if val_loader is not None and step % val_freq == 0:
+                if val_loader is not None and step % val_freq == 0 and main_rank:
                     with torch.no_grad():
                         served = model_spec.flow.precompute_inference(
                             detached(state.params), fused=device.type == "cuda")
@@ -411,11 +501,16 @@ def main(argv=None):
                     for k_, v in results.items():
                         if isinstance(v, float):
                             tb.add_scalar(f"val/{k_}", v, step)
+                if val_loader is not None and step % val_freq == 0:
+                    mesh.barrier()
             epoch += 1
 
         logger.info("saving the final model")
-        save_model(os.path.join(paths["models"], "latest_G.ckpt"), state.params, model_spec, step)
-        wait_for_saves()
+        if main_rank:
+            save_model(os.path.join(paths["models"], "latest_G.ckpt"), state.params, model_spec,
+                       step)
+            wait_for_saves()
+        mesh.barrier()
         tb.close()
         logger.info("end of training")
         return state

@@ -10,9 +10,12 @@ per-step / per-RRDB dicts.
 A reference state_dict names its tensors by module path (``flow.layers.<i>.actnorm.bias``,
 ``flow.level0_condFlow.RRDB_trunk0.0.RDB1.conv1.weight``, ...);
 :func:`params_from_state_dict` walks them with the names of
-``hcflow_tpu/utils/convert.py`` (``convert_flownet``, ``convert_invconv``), a copy kept
-here so that no JAX is needed: conv weights stay OIHW, ActNorm bias/logs (1,C,1,1) and
-Conv2dZeros logs (C,1,1) become (C,), a ``module.`` prefix is stripped.
+``hcflow_tpu/utils/convert.py`` (``convert_flownet``, ``convert_invconv``,
+``convert_flowstep``), a copy kept here so that no JAX is needed: conv weights stay
+OIHW, ActNorm bias/logs (1,C,1,1) and Conv2dZeros logs (C,1,1) become (C,), a
+``module.`` prefix is stripped; an invconv is a plain weight or LU factors, an
+AffineInjector coupling has ``affine.f_injector`` beside ``affine.f``, a noCoupling
+step has no coupling.
 
 :func:`params_to_jax` is the inverse of :func:`params_from_jax`: numpy in the JAX
 package's layout, what the training checkpoints (``<iter>_G.ckpt``) hold so that both
@@ -27,12 +30,14 @@ import numpy as np
 import torch
 
 from .models.hcflow_sr import device_for
+from .ops import permute
 
 
 def _convert(tree, device, key=None):
     if isinstance(tree, dict):
         return {k: _convert(v, device, k) for k, v in tree.items()}
-    t = torch.from_numpy(np.array(tree, dtype=np.float32))
+    a = np.asarray(tree)  # a permutation's indices stay int32, every other leaf float32
+    t = torch.from_numpy(np.array(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32))
     if key == "w" and t.ndim == 4:  # HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous()
     return t.to(device)
@@ -139,9 +144,11 @@ def params_to_jax(params: dict, spec) -> dict:
     weights HWIO, every chain and trunk stacked along a leading axis, except the
     rescaling main chains (steps of different shapes), which stay lists.  Derived
     entries (invconv inverses, packed kernel weights) are dropped."""
-    def step(p):  # a step's invconv keeps its weight, not its precomputed inverse
-        return _to_numpy({**p, "invconv": {"weight": p["invconv"]["weight"]}}
-                         if "invconv" in p else p)
+    def step(p):  # a step's invconv keeps its params, not its precomputed inverse
+        if "invconv" not in p:
+            return _to_numpy(p)
+        inv = {k: v for k, v in p["invconv"].items() if k not in ("w_inv", "logdet_w")}
+        return _to_numpy({**p, "invconv": inv})
 
     flow = getattr(spec, "flow", spec)
     out = {}
@@ -199,12 +206,30 @@ class _StateDict:
         return {f"rdb{i}": {f"conv{k}": self.conv(_j(p, f"RDB{i}.conv{k}")) for k in range(1, 6)}
                 for i in range(1, 4)}
 
+    def invconv(self, p):
+        """The plain weight, or the LU factors (the JAX package's names)."""
+        if _j(p, "weight") in self.sd:
+            return {"weight": self(_j(p, "weight"))}
+        return {k: self(_j(p, k)) for k in ("p", "sign_s", "l", "log_s", "u")}
+
+    def permute(self, p, spec):
+        """A reverse permutation's indices (the reversal); the reference keeps a
+        permutation's indices out of its state_dict, so a shuffle cannot be rebuilt."""
+        if spec.flow_permutation == "shuffle":
+            raise ValueError(f"{p}: a shuffle permutation's indices are not in the state_dict")
+        return {k: v.to(self.device) for k, v in permute.init(spec.in_channels).items()}
+
     def flowstep(self, p, spec):
         params = {"actnorm": self.actnorm(_j(p, "actnorm"))}
         if spec.flow_permutation == "invconv":
-            # the plain weight; an LU-parametrised invconv is not ported
-            params["invconv"] = {"weight": self(_j(p, "permute.weight"))}
-        params["coupling"] = {"f": self.net(_j(p, "affine.f"), spec.nn_module)}
+            params["invconv"] = self.invconv(_j(p, "permute"))
+        elif spec.flow_permutation in ("reverse", "shuffle"):
+            params["permute"] = self.permute(_j(p, "permute"), spec)
+        if spec.flow_coupling != "noCoupling":
+            params["coupling"] = {"f": self.net(_j(p, "affine.f"), spec.nn_module)}
+        if spec.flow_coupling == "AffineInjector":
+            params["coupling"]["f_injector"] = self.net(_j(p, "affine.f_injector"),
+                                                        spec.nn_module)
         return params
 
 

@@ -18,9 +18,13 @@ rescaling returns the whitened ``fake_z = (z - mean) * exp(-logs)``.  ``encode_e
 gives the whitened latent of both kinds, which ``reverse(..., eps=...)`` inverts;
 ``calibrate`` is the forward with the steps' data-dependent ActNorm inits.
 
-The encoder runs in ``encoder_dtype`` when set (the shipped SR training recipe: bf16
-encoders, float32 couplings), else in ``compute_dtype``; with ``remat_trunks`` and grad
-enabled each RRDB's activations are recomputed in the backward pass.  With packed
+The steps are the JAX package's kinds (``flow_permutation``, ``flow_coupling``,
+``nn_module``; flow/flowstep.py); those that support it (Affine/FCN) run with their
+cond terms hoisted into one wide conv (flow/stack.py).  The encoder runs in
+``encoder_dtype`` when set (the shipped SR training recipe: bf16 encoders, float32
+couplings), else in ``compute_dtype``; with ``remat_trunks`` and grad enabled each
+RRDB's activations are recomputed in the backward pass, with ``remat_steps`` each
+step's.  With packed
 weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the trunks run an
 RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch when packed with
 ``resident_trunk``; bf16 or float32, as the encoder dtype is), in the forward as in the
@@ -50,9 +54,13 @@ class ConditionalFlowSpec:
     rrdb_nb: Sequence[int] = (5, 5)
     rrdb_nf: int = 64
     rrdb_gc: int = 32
+    flow_permutation: str = "invconv"
+    flow_coupling: str = "Affine"
+    nn_module: str = "FCN"
     hidden_channels: int = 64
     compute_dtype: Optional[str] = None  # 'bfloat16' => coupling and encoder nets in bf16
     encoder_dtype: Optional[str] = None  # overrides compute_dtype for the RRDB encoder
+    remat_steps: bool = False  # recompute each step's activations in the backward pass
     remat_trunks: bool = True  # recompute the trunks' activations in the backward pass
 
     @property
@@ -78,7 +86,16 @@ class ConditionalFlowSpec:
             cond_channels=self.cond_channels,
             hidden_channels=self.hidden_channels,
             compute_dtype=self.compute_dtype,
+            flow_permutation=self.flow_permutation,
+            flow_coupling=self.flow_coupling,
+            nn_module=self.nn_module,
         )
+
+    @property
+    def hoists(self) -> bool:
+        """The steps' cond terms can be precomputed as one wide conv."""
+        cs = self.step_spec.coupling_spec
+        return cs is not None and cs.supports_hoisting
 
     def init(self, generator: torch.Generator) -> dict:
         nf = self.rrdb_nf
@@ -119,11 +136,12 @@ class ConditionalFlowSpec:
         return mean, logs if self.sr else coupling.clamp_logscale(logs)
 
     def _run_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """Invert the steps: the chain kernel when packed, else the hoisted plain path."""
+        """Invert the steps: the chain kernel when packed, else the plain path."""
         ss = self.step_spec
         packed = params.get("steps_fused")
         if packed is None:
-            return stack.inverse_stack_hoisted(ss, params["steps"], z, cond)[0]
+            fn = stack.inverse_stack_hoisted if self.hoists else stack.inverse_stack
+            return fn(ss, params["steps"], z, cond, remat=self.remat_steps)[0]
         uc = stack.compute_u_contribs(ss, params["steps"], cond)
         return chain.inverse_chain(packed, z, uc.to(packed["w1"].dtype).contiguous())
 
@@ -131,10 +149,8 @@ class ConditionalFlowSpec:
     def _forward_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor, logdet):
         if self.n_flow_step == 0:
             return z, logdet
-        ss = self.step_spec
-        fn = (stack.forward_stack_hoisted if ss.coupling_spec.supports_hoisting
-              else stack.forward_stack)
-        return fn(ss, params["steps"], z, cond, logdet)
+        fn = stack.forward_stack_hoisted if self.hoists else stack.forward_stack
+        return fn(self.step_spec, params["steps"], z, cond, logdet, remat=self.remat_steps)
 
     def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None):
         """Run the steps on a.  SR: add the prior's log-density of the result into

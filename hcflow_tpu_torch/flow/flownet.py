@@ -67,17 +67,22 @@ class FlowNetSpec:
     K: Sequence[int] = (26, 26)
     after_splitoff: Sequence[int] = (13, 13)
     squeeze: str = "checkerboard"  # 'checkerboard' | 'haar'
-    flow_permutation: str = "invconv"  # main chains: 'invconv' | 'none'
-    flow_coupling: str = "Affine"  # main chains: 'Affine' | 'Affine3shift'
+    flow_permutation: str = "invconv"  # main chains: 'invconv' | 'reverse' | 'shuffle' | 'none'
+    flow_coupling: str = "Affine"  # main chains: 'Affine' | 'Affine3shift' | 'noCoupling'
     nn_module: str = "FCN"  # main chains: 'FCN' | 'DenseBlock'
     sr: bool = True
     hidden_channels: int = 64
+    # the split-off (conditional) flows' steps
+    so_flow_permutation: str = "invconv"
+    so_flow_coupling: str = "Affine"  # 'Affine' | 'AffineInjector' | 'noCoupling'
+    so_nn_module: str = "FCN"
     so_hidden_channels: int = 64
     rrdb_nb: Sequence[int] = (5, 5)
     rrdb_nf: int = 64
     rrdb_gc: int = 32
     compute_dtype: Optional[str] = None  # 'bfloat16' => coupling/encoder nets in bf16
     encoder_dtype: Optional[str] = None  # encoder-only override (bf16 encoders + f32 couplings)
+    remat_steps: bool = False  # recompute each flow step's activations in the backward pass
     remat_trunks: bool = True  # recompute the RRDB trunks' activations in the backward pass
 
     @property
@@ -104,9 +109,13 @@ class FlowNetSpec:
                 rrdb_nb=tuple(self.rrdb_nb),
                 rrdb_nf=self.rrdb_nf,
                 rrdb_gc=self.rrdb_gc,
+                flow_permutation=self.so_flow_permutation,
+                flow_coupling=self.so_flow_coupling,
+                nn_module=self.so_nn_module,
                 hidden_channels=self.so_hidden_channels,
                 compute_dtype=self.compute_dtype,
                 encoder_dtype=self.encoder_dtype,
+                remat_steps=self.remat_steps,
                 remat_trunks=self.remat_trunks,
             )
             out.append(LevelSpec(
@@ -141,8 +150,12 @@ class FlowNetSpec:
 
     # --------------------------------------------------------------- main chains
     def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor, logdet=None):
+        # as the JAX package: the homogeneous chains recompute with remat_steps, the
+        # alternating rescaling chains do not
+        remat = self.remat_steps and not lv.alternate_lrvsothers
         for k, p in enumerate(main):
-            z, logdet = lv.main_step_spec(k).forward(p, z, None, logdet)
+            z, logdet = stack.run_step(lv.main_step_spec(k).forward, p, z, None, logdet,
+                                       remat=remat)
         return z, logdet
 
     def _split_forward(self, params: dict, hr: torch.Tensor, logdet=None, calibrate=False):
@@ -175,8 +188,10 @@ class FlowNetSpec:
         packed = level_params.get("main_fused")
         if packed is not None:
             return chain.inverse_chain(packed, z)
+        remat = self.remat_steps and not lv.alternate_lrvsothers
         for k in reversed(range(lv.n_main)):
-            z = lv.main_step_spec(k).inverse(level_params["main"][k], z)[0]
+            z = stack.run_step(lv.main_step_spec(k).inverse, level_params["main"][k], z,
+                               remat=remat)[0]
         return z
 
     def _cond_input(self, i: int, y_i: torch.Tensor, cond_feats) -> torch.Tensor:
@@ -265,10 +280,11 @@ class FlowNetSpec:
         serving path on the card, what the card's kernels take, as the JAX package's
         ``precompute_inference(fused="all")`` packs (hcflow_tpu/flow/flownet.py:297):
 
-        - every Affine/FCN chain for the chain kernel (ops/chain.py), in the coupling
-          dtype;
-        - the alternating rescaling main chains for ops/chain3s.py, in the coupling
-          dtype;
+        - every chain the chain kernel computes (``chain.supported``: Affine/FCN/
+          plain invconv steps; a split-off chain's cond terms must also hoist) for the
+          chain kernel (ops/chain.py), in the coupling dtype;
+        - every alternating rescaling main chain that ``chain3s.supported`` accepts for
+          ops/chain3s.py, in the coupling dtype;
         - every RRDB trunk for the RRDB kernels (ops/rrdb.py), in the encoder dtype
           (``encoder_dtype``, else ``compute_dtype``), when nf and gc are multiples of
           8 (the JAX package's gate) and, for params on the card, widths the kernels
@@ -277,7 +293,8 @@ class FlowNetSpec:
           resident-trunk kernel, the counterpart of the JAX package's
           ``HCFLOW_RDB_TRUNK=1``.
 
-        Each pack is bf16 or float32 as its dtype says, and every kernel takes both: the
+        Every other chain serves on the plain path, as in the JAX package.  Each pack
+        is bf16 or float32 as its dtype says, and every kernel takes both: the
         bf16 recipe gets bf16 packs, the float32 recipe (the shipped test configs set no
         ``compute_dtype``) float32 packs, whose kernels run 3xTF32 products (float32
         accuracy), and the shipped training recipe (bf16 encoders, float32 couplings)
@@ -296,11 +313,12 @@ class FlowNetSpec:
                 cond["steps"] = stack.precompute_invconv(cond["steps"])
             if fused:
                 cd = self.compute_dtype
-                if lv.n_main > 0 and lv.alternate_lrvsothers:
-                    lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
-                elif lv.n_main > 0:
+                if lv.alternate_lrvsothers:
+                    if chain3s.supported(lv, self.hidden_channels):
+                        lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
+                elif lv.n_main > 0 and chain.supported(lv.main_spec):
                     lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd, padded=True)
-                if so.n_flow_step > 0:
+                if so.n_flow_step > 0 and chain.supported(so.step_spec) and so.hoists:
                     cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
                                                                    padded=True)
                 dev = cond["conv_first"]["w"].device

@@ -2,12 +2,19 @@
 
 The JAX package stacks the steps' params and runs ``lax.scan``; here a Python loop
 runs the list.  The forward runs the steps from k = 0 up, the inverse from k = K-1
-down to 0.
+down to 0.  With ``remat`` and grad enabled each step's activations are recomputed
+in the backward pass (``torch.utils.checkpoint``), the counterpart of the JAX
+package's ``_maybe_remat``, which checkpoints the scan body: the recomputation runs
+under the TF32 settings of the first forward (``nets.exact_f32`` sets them globally,
+and the backward pass may run outside it).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import invconv, nets
 from .flowstep import FlowStepSpec
@@ -24,9 +31,20 @@ def precompute_invconv(steps: list) -> list:
             for p in steps]
 
 
-def forward_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
+def run_step(fn, *args, remat: bool = False):
+    """``fn(*args)``; with ``remat`` and grad enabled, its activations are recomputed
+    in the backward pass under the TF32 flags this forward ran with."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    flags = nets.tf32_flags()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,  # draws none
+                      context_fn=lambda: (contextlib.nullcontext(), nets.tf32(flags)))
+
+
+def forward_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None,
+                  remat: bool = False):
     for p in steps:
-        z, logdet = spec.forward(p, z, u, logdet)
+        z, logdet = run_step(spec.forward, p, z, u, logdet, remat=remat)
     return z, logdet
 
 
@@ -39,9 +57,10 @@ def calibrate_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, lo
     return new, z, logdet
 
 
-def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None):
+def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None,
+                  remat: bool = False):
     for p in reversed(steps):
-        z, logdet = spec.inverse(p, z, u, logdet)
+        z, logdet = run_step(spec.inverse, p, z, u, logdet, remat=remat)
     return z, logdet
 
 
@@ -58,19 +77,23 @@ def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torc
     return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype)
 
 
-def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None):
+def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
+                          remat: bool = False):
     """Forward with every step's cond term precomputed by :func:`compute_u_contribs`."""
     uc = compute_u_contribs(spec, steps, u)
     hid = spec.hidden_channels
     for k in range(len(steps)):
-        z, logdet = spec.forward_hoisted(steps[k], z, uc[..., k * hid : (k + 1) * hid], logdet)
+        z, logdet = run_step(spec.forward_hoisted, steps[k], z,
+                             uc[..., k * hid : (k + 1) * hid], logdet, remat=remat)
     return z, logdet
 
 
-def inverse_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None):
+def inverse_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
+                          remat: bool = False):
     """Inverse with every step's cond term precomputed by :func:`compute_u_contribs`."""
     uc = compute_u_contribs(spec, steps, u)
     hid = spec.hidden_channels
     for k in reversed(range(len(steps))):
-        z, logdet = spec.inverse_hoisted(steps[k], z, uc[..., k * hid : (k + 1) * hid], logdet)
+        z, logdet = run_step(spec.inverse_hoisted, steps[k], z,
+                             uc[..., k * hid : (k + 1) * hid], logdet, remat=remat)
     return z, logdet

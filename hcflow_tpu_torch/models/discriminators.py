@@ -9,7 +9,9 @@
 
 BatchNorm normalises with the current batch's statistics and the biased variance, and
 keeps no running statistics (the discriminators are trained only, as in the JAX
-package).  Params: convs {"w" OIHW, "b"}, ``bn{i}`` {"scale", "bias"}, linears {"w"
+package).  With ``sync_bn`` (data parallelism over several processes) the statistics
+are those of the global batch, reduced over the ranks by a differentiable all-reduce,
+as the JAX package gets them on a sharded batch.  Params: convs {"w" OIHW, "b"}, ``bn{i}`` {"scale", "bias"}, linears {"w"
 (in, out), "b"}.  NHWC in; the convs run in float32 without TF32.
 """
 
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import nets
+from ..parallel.mesh import moments
 from .hcflow_sr import device_for, to_device
 
 
@@ -29,10 +32,10 @@ def _bn_init(c):
     return {"scale": torch.ones(c), "bias": torch.zeros(c)}
 
 
-def _bn_apply(p, x, eps=1e-5):
-    """Batch statistics over (N, H, W), the biased variance."""
-    mean = x.mean(dim=(0, 1, 2))
-    var = x.var(dim=(0, 1, 2), unbiased=False)
+def _bn_apply(p, x, sync, eps=1e-5):
+    """Batch statistics over (N, H, W), the biased variance; over every rank's batch
+    with ``sync``."""
+    mean, var = moments(x, (0, 1, 2), sync)
     return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
 
 
@@ -63,6 +66,7 @@ class VGGDiscriminatorSpec:
     input_size: int = 160
     in_nc: int = 3
     nf: int = 64
+    sync_bn: bool = False  # BatchNorm over the global batch of every rank
 
     @property
     def final_hw(self) -> int:
@@ -97,7 +101,7 @@ class VGGDiscriminatorSpec:
         for i in range(1, 10):
             w = params[f"conv{i}"]["w"]
             fea = _conv(fea, w, stride=2, padding=1) if i % 2 == 1 else _conv(fea, w, padding=1)
-            fea = _lrelu(_bn_apply(params[f"bn{i}"], fea))
+            fea = _lrelu(_bn_apply(params[f"bn{i}"], fea, self.sync_bn))
         # the flatten in NCHW order, as the reference's
         fea = fea.permute(0, 3, 1, 2).reshape(fea.shape[0], -1)
         with nets.exact_f32():
@@ -112,6 +116,7 @@ class PatchGANDiscriminatorSpec:
     in_nc: int = 3
     ndf: int = 64
     n_layers: int = 5
+    sync_bn: bool = False  # BatchNorm over the global batch of every rank
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         device = device_for(device)
@@ -127,5 +132,6 @@ class PatchGANDiscriminatorSpec:
         """x: NHWC; returns the (B, H - 2 (n_layers + 2), W - ..., 1) prediction map."""
         h = _lrelu(_conv(x, params["conv_in"]["w"], params["conv_in"]["b"]))
         for i in range(self.n_layers):
-            h = _lrelu(_bn_apply(params[f"bn{i}"], _conv(h, params[f"conv{i}"]["w"])))
+            h = _lrelu(_bn_apply(params[f"bn{i}"], _conv(h, params[f"conv{i}"]["w"]),
+                                 self.sync_bn))
         return _conv(h, params["conv_out"]["w"])

@@ -54,6 +54,14 @@ def _up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def supported(step_spec) -> bool:
+    """The steps the kernel computes: Affine coupling, FCN net, plain-weight invconv
+    (``hcflow_tpu/ops/pallas_chain.py`` ``supported``); a chain of other steps serves
+    on the plain path."""
+    return (step_spec.flow_permutation == "invconv" and step_spec.flow_coupling == "Affine"
+            and step_spec.nn_module == "FCN" and not step_spec.lu_decomposed)
+
+
 def pack_inverse_chain(steps: list, compute_dtype=None, padded: bool = False) -> dict:
     """Pack a chain's per-step params (invconv inverses attached) for the kernel.
 

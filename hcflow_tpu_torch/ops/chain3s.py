@@ -48,6 +48,17 @@ def _rup16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def supported(lv, hidden_channels: int) -> bool:
+    """The chains the kernel computes (``hcflow_tpu/ops/pallas_chain3s.py``
+    ``supported``): a level's alternating main chain of at least two Affine3shift
+    steps with DenseBlock nets of a growth that is a multiple of 8, no permutation, no
+    cond, more than the 3 LR channels; a chain of other steps serves on the plain path."""
+    ms = lv.main_spec
+    return (lv.alternate_lrvsothers and lv.n_main >= 2 and ms.flow_permutation == "none"
+            and ms.flow_coupling == "Affine3shift" and ms.nn_module == "DenseBlock"
+            and ms.cond_channels is None and hidden_channels % 8 == 0 and lv.channels > 3)
+
+
 def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
     """One dense block's weights by ``nets.pack_taps`` (bf16 [tap][ci][co], float32
     [tap][co][ci]) with the net input padded to 16 channels (zero rows) and conv5's

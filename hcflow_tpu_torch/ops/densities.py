@@ -1,4 +1,4 @@
-"""Diagonal Gaussian density over NHWC feature maps."""
+"""Diagonal Gaussian and Laplace densities over NHWC feature maps."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import math
 import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
+LOG_2 = math.log(2.0)
 
 
 def gaussian_likelihood(mean, logs, x):
@@ -24,3 +25,15 @@ def gaussian_sample(generator, mean, logs, eps_std) -> torch.Tensor:
     (a generator on the device of ``mean``, or None for the global one)."""
     eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
     return mean + torch.exp(logs) * (eps * eps_std)
+
+
+def laplace_likelihood(mean, logs, x):
+    """Elementwise log Laplace(x; mean, exp(logs)); mean and logs None: the standard one."""
+    if mean is None and logs is None:
+        return -(x.abs() + LOG_2)
+    return -(logs + (x - mean).abs() * torch.exp(-logs) + LOG_2)
+
+
+def laplace_logp(mean, logs, x):
+    """Sum of the elementwise Laplace log-likelihood over (H, W, C); shape (B,)."""
+    return laplace_likelihood(mean, logs, x).sum(dim=(1, 2, 3))

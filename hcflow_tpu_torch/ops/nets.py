@@ -24,7 +24,22 @@ def net_dtype(compute_dtype) -> torch.dtype:
     return torch.float32 if compute_dtype is None else _DTYPES[compute_dtype]
 
 
+def tf32_flags() -> tuple:
+    """(cuDNN's, the matrix products') TF32 flags, global to the process."""
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
 @contextlib.contextmanager
+def tf32(flags):
+    """Run with the TF32 flags set to ``flags`` (as :func:`tf32_flags` gives them)."""
+    prev = tf32_flags()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def exact_f32():
     """Run float32 convolutions and matrix products in full float32.
 
@@ -32,12 +47,7 @@ def exact_f32():
     digits), and a caller may have allowed TF32 matrix products; the invertible
     path and the plain kernel versions must use neither.
     """
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    return tf32((False, False))
 
 
 def conv2d(x, w, b=None, compute_dtype=None) -> torch.Tensor:

@@ -1,0 +1,151 @@
+"""Data parallelism over processes, one card each: the counterpart of the JAX package's
+``hcflow_tpu/parallel/mesh.py`` (a 1-D 'data' mesh), on ``torch.distributed``.
+
+The semantics stay the JAX package's: the global batch is ``datasets.train.batch_size``
+per node, split over the ranks, and a step equals the one-process step on that global
+batch up to the order of its sums:
+
+- ``init_distributed`` joins the process group that a launcher describes
+  (``python -m torch.distributed.run``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``MASTER_ADDR`` / ``MASTER_PORT``, the counterpart of ``JAX_COORDINATOR_ADDRESS``);
+  without that environment it returns (0, 1) and makes no group.  The backend is NCCL
+  on the card and gloo on the CPU or where the caller names it; nothing falls back;
+- a rank's device is ``cuda:LOCAL_RANK``;
+- rank r holds rows r, r + world, ... of the global batch (``shard_batch``), the rows
+  the sampler gives it (``data/loader.py`` ``EnlargedSampler``); ``gather_batch`` puts
+  the global batch back together in that order;
+- ``replicate`` broadcasts params from rank 0; ``DataParallel.average`` averages a
+  pass's gradients over the ranks in one flattened all-reduce, so that every rank
+  clips and takes the skip decision on the same gradient and the params stay
+  bit-identical; ``DataParallel.mean`` and :func:`moments` are differentiable means
+  over the global batch (the discriminators' BatchNorm, the relativistic GAN loss);
+- ``any_rank`` agrees flags (a stop request, a device failure) over the ranks.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
+
+_LAUNCHER_ENV = ("RANK", "WORLD_SIZE")
+
+
+def local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+def rank_device(cpu: bool = False) -> torch.device:
+    """The device of this process: the CPU, or card ``LOCAL_RANK``."""
+    return torch.device("cpu") if cpu else torch.device("cuda", local_rank())
+
+
+def init_distributed(backend=None, cpu: bool = False) -> tuple:
+    """Join the launcher's process group; returns (rank, world).  ``backend``: NCCL
+    on the card, gloo with ``cpu``, unless named."""
+    if not all(k in os.environ for k in _LAUNCHER_ENV):
+        return 0, 1
+    if not dist.is_initialized():
+        backend = backend or ("gloo" if cpu else "nccl")
+        if backend == "nccl":
+            torch.cuda.set_device(local_rank())
+        dist.init_process_group(backend, init_method="env://",
+                                rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    return dist.get_rank(), dist.get_world_size()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_main_process() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def shard_batch(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """This rank's rows of a global batch: rank, rank + world, ..."""
+    return x[rank::world]
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """The global batch from every rank's rows (equal on every rank), in the order
+    ``shard_batch`` takes them apart."""
+    world = world_size()
+    if world == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts, 1).flatten(0, 1)
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+@torch.no_grad()
+def replicate(tree):
+    """Every tensor of a nested dict/list overwritten by rank 0's, in place; returns
+    the tree."""
+    if world_size() > 1:
+        for t in _tensor_leaves(tree):
+            dist.broadcast(t, 0)
+    return tree
+
+
+def any_rank(flags, device) -> list:
+    """Each of ``flags`` (bools) set on any rank, in one all-reduce (every rank must
+    call it)."""
+    if world_size() == 1:
+        return [bool(f) for f in flags]
+    t = torch.tensor([1.0 if f else 0.0 for f in flags], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [bool(v) for v in t.tolist()]
+
+
+def moments(x: torch.Tensor, dims, sync: bool = False):
+    """(mean, biased variance) of x over ``dims``; with ``sync`` over the global batch
+    (every rank's x of the same shape), differentiable through the all-reduces."""
+    if not sync or world_size() == 1:
+        return x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+    n = world_size()
+    for d in dims:
+        n *= x.shape[d]
+    mean = dist_nn.all_reduce(x.sum(dim=dims)) / n
+    var = dist_nn.all_reduce(((x - mean) ** 2).sum(dim=dims)) / n
+    return mean, var
+
+
+class DataParallel:
+    """What a train step needs of the process group: the gradient average of a pass
+    and means over the global batch.  ``world`` 1 changes nothing."""
+
+    def __init__(self, world: int):
+        self.world = world
+
+    @torch.no_grad()
+    def average(self, tensors: list) -> list:
+        """Each tensor's mean over the ranks (a pass's gradients, the metrics), in one
+        all-reduce of the flattened list."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        flat /= self.world
+        return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of t over every rank's elements (t of the same shape on each),
+        differentiable."""
+        if self.world == 1:
+            return t.mean()
+        return dist_nn.all_reduce(t.sum()) / (t.numel() * self.world)

@@ -16,6 +16,17 @@ Randomness is explicit: a step draws its latents from the ``generator`` it is gi
 (or takes them as ``eps_list``), so a step repeated from a restored state draws what
 it drew before.
 
+Data parallelism: every factory takes an optional ``reducer``
+(``parallel.DataParallel``).  Each rank computes its pass on its rows of the global
+batch; the reducer averages the gradients over the ranks between the backward pass
+and the update (before any clipping), so every rank clips, takes the skip decision and
+updates on the same gradient, and the ranks' params stay bit-identical; the
+relativistic GAN loss takes its batch means over the global batch through it.  The
+metrics are this rank's.
+
+Integer leaves of the params (a permutation's indices) are fixed: they get no
+gradient and no update.
+
 The optimizer is optax's chain, written out: clip by value (``max_grad_clip``), clip
 by global norm (``max_grad_norm``), weight decay added to the gradient before Adam,
 Adam(beta1, beta2), then ``-schedule(state.step)`` times the update; a gradient with a
@@ -59,6 +70,12 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def param_leaves(tree) -> list:
+    """The leaves the optimizer updates: the floating-point ones, in
+    :func:`tree_leaves` order."""
+    return [t for t in tree_leaves(tree) if t.is_floating_point()]
+
+
 def _has_packs(tree) -> bool:
     if isinstance(tree, dict):
         return any(k.endswith("_fused") or _has_packs(v) for k, v in tree.items())
@@ -84,7 +101,7 @@ class Optimizer:
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
 
     def init(self, params) -> dict:
-        leaves = tree_leaves(params)
+        leaves = param_leaves(params)
         return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
                 "nu": [torch.zeros_like(p) for p in leaves], "notfinite_count": 0,
                 "total_notfinite": 0}
@@ -92,7 +109,7 @@ class Optimizer:
     @torch.no_grad()
     def update(self, grads: list, opt_state: dict, params, step: int) -> bool:
         """Apply one update from ``grads`` (one per leaf of ``params``, in
-        :func:`tree_leaves` order) at iteration ``step``; returns whether it was
+        :func:`param_leaves` order) at iteration ``step``; returns whether it was
         applied (False: a gradient was not finite, nothing changed but the counters)."""
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all().item()
         if not finite:
@@ -100,7 +117,7 @@ class Optimizer:
             opt_state["total_notfinite"] += 1
             return False
         opt_state["notfinite_count"] = 0
-        leaves = tree_leaves(params)
+        leaves = param_leaves(params)
         g = list(grads)
         if self.clip_value:
             g = [t.clamp(-self.clip_value, self.clip_value) for t in g]
@@ -152,7 +169,7 @@ def init_state(params, tx: Optimizer) -> TrainState:
     if _has_packs(params):
         raise ValueError("training params must not carry packed kernel weights: no kernel "
                          "has a backward pass")
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
     return TrainState(step=0, params=params, opt_state=tx.init(params))
 
 
@@ -160,7 +177,8 @@ def replace_params(state: TrainState, params) -> TrainState:
     """``state`` with ``params`` (the same tree structure, e.g. calibrated) as its
     leaves: each one a leaf that requires grad, sharing the given storage."""
     return dataclasses.replace(
-        state, params=tree_map(lambda t: t.detach().requires_grad_(True), params))
+        state, params=tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                               params))
 
 
 def detached(params):
@@ -169,11 +187,17 @@ def detached(params):
     return tree_map(lambda t: t.detach(), params)
 
 
-def _grads(loss: torch.Tensor, params) -> list:
-    """d loss / d leaf for every leaf (zeros for a leaf the loss does not reach)."""
-    leaves = tree_leaves(params)
+def _grads(loss: torch.Tensor, params, reducer=None) -> list:
+    """d loss / d leaf for every leaf of :func:`param_leaves` (zeros for a leaf the
+    loss does not reach), averaged over the ranks by ``reducer``."""
+    leaves = param_leaves(params)
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    return gs if reducer is None else reducer.average(gs)
+
+
+def _mean(reducer):
+    return torch.mean if reducer is None else reducer.mean
 
 
 def _apply(tx: Optimizer, state: TrainState, grads: list, advance_step: bool) -> TrainState:
@@ -182,18 +206,18 @@ def _apply(tx: Optimizer, state: TrainState, grads: list, advance_step: bool) ->
 
 
 # ---------------------------------------------------------------------- SR steps
-def make_sr_nll_step(model, tx: Optimizer, nll_weight: float = 1.0):
+def make_sr_nll_step(model, tx: Optimizer, nll_weight: float = 1.0, reducer=None):
     """G pass 1: the forward flow's NLL (HCFlow_SR_model.py:195-203).
 
     ``step(state, hr, lr, generator=None, noise=None) -> (state, metrics)``: the
     dequantization noise is ``noise`` or drawn from ``generator``.  metrics: ``nll``,
     ``grad_norm`` (of the unclipped gradient) and ``grads`` (one per leaf of
-    ``state.params``, in ``tree_leaves`` order, unclipped)."""
+    ``param_leaves(state.params)``, unclipped)."""
 
     def step(state: TrainState, hr, lr, generator=None, noise=None):
         with nets.exact_f32():
             _, nll = model.forward(state.params, hr, lr, generator=generator, noise=noise)
-            grads = _grads(nll_weight * nll, state.params)
+            grads = _grads(nll_weight * nll, state.params, reducer)
             gnorm = global_norm(grads)
             state = _apply(tx, state, grads, advance_step=True)
         return state, {"nll": nll.detach(), "grad_norm": gnorm, "grads": grads}
@@ -208,24 +232,26 @@ def _clip_global_norm(grads: list, max_norm: float) -> list:
 
 def make_sr_pixel_step(model, tx: Optimizer, pixel_weight: float, criterion: Callable,
                        warmup_steps: int = 0, warmup_start: int = 0,
-                       reverse_grad_clip: Optional[float] = None):
+                       reverse_grad_clip: Optional[float] = None, reducer=None):
     """G pass 2: the reverse at eps_std 0 and an HR pixel loss (HCFlow_SR_model.py:207-218).
 
     ``warmup_steps`` ramps the pixel weight linearly from 0 over that many iterations
     after ``warmup_start``; ``reverse_grad_clip`` clips the global norm of the
     gradient before the optimizer sees it (the JAX package's config-gated
-    stabilisers, off by default).  ``step(state, hr, lr, generator=None) ->
-    (state, metrics)``: ``generator`` draws the (zero-temperature) latents.  metrics:
-    ``l_g_pix_hr`` and ``grads`` (after ``reverse_grad_clip``)."""
+    stabilisers, off by default).  ``step(state, hr, lr, generator=None,
+    eps_list=None) -> (state, metrics)``: ``generator`` draws the (zero-temperature)
+    latents, or ``eps_list`` gives them whitened.  metrics: ``l_g_pix_hr`` and
+    ``grads`` (after ``reverse_grad_clip``)."""
 
-    def step(state: TrainState, hr, lr, generator=None):
+    def step(state: TrainState, hr, lr, generator=None, eps_list=None):
         ramp = 1.0
         if warmup_steps:
             ramp = min(max((state.step - warmup_start) / float(warmup_steps), 0.0), 1.0)
         with nets.exact_f32():
-            fake_h = model.reverse(state.params, lr, 0.0, generator=generator, grad=True)
+            fake_h = model.reverse(state.params, lr, 0.0, generator=generator,
+                                   eps_list=eps_list, grad=True)
             loss = pixel_weight * ramp * criterion(fake_h, hr)
-            grads = _grads(loss, state.params)
+            grads = _grads(loss, state.params, reducer)
             if reverse_grad_clip:
                 grads = _clip_global_norm(grads, reverse_grad_clip)
             state = _apply(tx, state, grads, advance_step=False)
@@ -234,15 +260,15 @@ def make_sr_pixel_step(model, tx: Optimizer, pixel_weight: float, criterion: Cal
     return step
 
 
-def _adversarial(gan_type: str, d_apply, d_params, fake_h, hr):
+def _adversarial(gan_type: str, d_apply, d_params, fake_h, hr, mean=torch.mean):
     """The generator's adversarial loss on fake_h; ragan against the detached real
-    logits (HCFlow_SR_model.py:236-249)."""
+    logits (HCFlow_SR_model.py:236-249), with the batch means ``mean`` takes."""
     pred_fake = d_apply(d_params, fake_h)
     if gan_type == "ragan":
         with torch.no_grad():
             pred_real = d_apply(d_params, hr)
-        return (gan_loss("ragan", pred_real - pred_fake.mean(), False)
-                + gan_loss("ragan", pred_fake - pred_real.mean(), True)) / 2.0
+        return (gan_loss("ragan", pred_real - mean(pred_fake), False)
+                + gan_loss("ragan", pred_fake - mean(pred_real), True)) / 2.0
     return gan_loss(gan_type, pred_fake, True)
 
 
@@ -257,7 +283,7 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
                         gan_weight: float = 0.0, fea_weight: float = 0.0,
                         fea_criterion: Optional[Callable] = None,
                         d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None,
-                        reverse_grad_clip: Optional[float] = None):
+                        reverse_grad_clip: Optional[float] = None, reducer=None):
     """G pass 3: the reverse at eps_std_reverse, perceptual and adversarial losses
     (HCFlow_SR_model.py:223-254).
 
@@ -277,9 +303,9 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
                 total = total + metrics["l_g_fea"]
             if gan_weight and d_apply is not None:
                 metrics["l_g_gan"] = gan_weight * _adversarial(gan_type, d_apply, d_params,
-                                                               fake_h, hr)
+                                                               fake_h, hr, _mean(reducer))
                 total = total + metrics["l_g_gan"]
-            grads = _grads(total, state.params)
+            grads = _grads(total, state.params, reducer)
             if reverse_grad_clip:
                 grads = _clip_global_norm(grads, reverse_grad_clip)
             state = _apply(tx, state, grads, advance_step=False)
@@ -289,11 +315,13 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
     return step
 
 
-def make_d_step(d_apply, d_tx: Optimizer, gan_type: str = "gan"):
+def make_d_step(d_apply, d_tx: Optimizer, gan_type: str = "gan", reducer=None):
     """D pass: the discriminator's update on real and fake HR (HCFlow_SR_model.py:256-287).
 
     ``step(d_state, hr, fake_h) -> (d_state, metrics)``; advances ``d_state.step``.
     metrics: ``l_d_real``, ``l_d_fake``, ``D_real``, ``D_fake`` and ``grads``."""
+
+    mean = _mean(reducer)
 
     def step(d_state: TrainState, hr, fake_h):
         fake_h = fake_h.detach()
@@ -301,14 +329,14 @@ def make_d_step(d_apply, d_tx: Optimizer, gan_type: str = "gan"):
             pred_real = d_apply(d_state.params, hr)
             pred_fake = d_apply(d_state.params, fake_h)
             if gan_type == "ragan":
-                l_real = gan_loss("ragan", pred_real - pred_fake.mean(), True)
-                l_fake = gan_loss("ragan", pred_fake - pred_real.mean(), False)
+                l_real = gan_loss("ragan", pred_real - mean(pred_fake), True)
+                l_fake = gan_loss("ragan", pred_fake - mean(pred_real), False)
                 total = (l_real + l_fake) / 2.0
             else:
                 l_real = gan_loss(gan_type, pred_real, True)
                 l_fake = gan_loss(gan_type, pred_fake, False)
                 total = l_real + l_fake
-            grads = _grads(total, d_state.params)
+            grads = _grads(total, d_state.params, reducer)
             d_state = _apply(d_tx, d_state, grads, advance_step=True)
         metrics = {"l_d_real": l_real, "l_d_fake": l_fake, "D_real": pred_real.mean(),
                    "D_fake": pred_fake.mean()}
@@ -327,6 +355,18 @@ def latent_shapes(model, lr_shape) -> list:
              lv.cond_spec.a_channels) for lv in model.flow.levels]
 
 
+def sample_latents(model, lr_shape, eps_std, generator, device, deepest_first: bool = True) -> list:
+    """Whitened latents at temperature eps_std for an LR batch of ``lr_shape``, one per
+    level (``latent_shapes``), drawn from ``generator`` in the order the model draws
+    them: the SR reverse deepest level first, the rescaling step level 0 first."""
+    shapes = latent_shapes(model, lr_shape)
+    order = reversed(range(len(shapes))) if deepest_first else range(len(shapes))
+    eps = [None] * len(shapes)
+    for i in order:
+        eps[i] = eps_std * torch.randn(shapes[i], generator=generator, device=device)
+    return eps
+
+
 def _finite(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
@@ -337,7 +377,8 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
                         hr_criterion: Optional[Callable] = None, gan_type: str = "gan",
                         gan_weight: float = 0.0, fea_weight: float = 0.0,
                         fea_criterion: Optional[Callable] = None,
-                        d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None):
+                        d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None,
+                        reducer=None):
     """The joint forward and inverse update through the straight-through quantizer
     (HCFlow_Rescaling_model.py:204-264):
 
@@ -368,9 +409,8 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
             l_z = weight_z * (z_flat ** 2).mean()
             fake_lr_q = quantize_ste(fake_lr)
             if eps_list is None:
-                eps_list = [eps_std_reverse * torch.randn(s, generator=generator,
-                                                          device=hr.device, dtype=hr.dtype)
-                            for s in latent_shapes(model, fake_lr_q.shape)]
+                eps_list = sample_latents(model, fake_lr_q.shape, eps_std_reverse, generator,
+                                          hr.device, deepest_first=False)
 
             def reverse(z):
                 return model.reverse(p, z, eps_std_reverse, eps_list=eps_list, grad=True)
@@ -385,9 +425,9 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
                 total = total + _finite(metrics["l_g_fea"])
             if gan_weight and d_apply is not None:
                 metrics["l_g_gan"] = gan_weight * _adversarial(gan_type, d_apply, d_params,
-                                                               fake_hr, hr)
+                                                               fake_hr, hr, _mean(reducer))
                 total = total + _finite(metrics["l_g_gan"])
-            grads = _grads(total, p)
+            grads = _grads(total, p, reducer)
             state = _apply(tx, state, grads, advance_step=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, fake_hr.detach(), {**metrics, "grads": grads}

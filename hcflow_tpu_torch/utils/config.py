@@ -88,27 +88,37 @@ def parse(path: str, is_train: bool = True) -> dict:
 
 
 # ------------------------------------------------------------------------- specs
-# what the port implements, by option key; the split-off (conditional) flow steps are
-# the port's fixed Affine/FCN/invconv steps
+# what the port implements, by option key: the values for which the JAX package's
+# model_spec_from_opt builds a model whose forward and reverse run
 _SUPPORTED = {
     "flowDownsampler.squeeze": ("checkerboard", "haar"),
-    "flowDownsampler.flow_permutation": ("invconv", "none"),
-    "flowDownsampler.flow_coupling": ("Affine", "Affine3shift"),
+    "flowDownsampler.flow_permutation": ("invconv", "reverse", "shuffle", "none"),
+    "flowDownsampler.flow_coupling": ("Affine", "Affine3shift", "noCoupling"),
     "flowDownsampler.nn_module": ("FCN", "DenseBlock"),
     "flowDownsampler.cond_channels": (None,),
-    "flowDownsampler.splitOff.flow_permutation": ("invconv",),
-    "flowDownsampler.splitOff.flow_coupling": ("Affine",),
+    "flowDownsampler.splitOff.flow_permutation": ("invconv", "reverse", "shuffle", "none"),
+    "flowDownsampler.splitOff.flow_coupling": ("Affine", "AffineInjector", "noCoupling"),
     "flowDownsampler.splitOff.nn_module": ("FCN",),
     "compute_dtype": (None, "bfloat16"),
     "encoder_dtype": (None, "bfloat16"),
+}
+# why a value (or any value of a key) that the JAX package names is refused
+_WHY = {
+    ("flowDownsampler.flow_coupling", "AffineInjector"):
+        "the main flow steps get no cond features (the JAX package passes u=None there, "
+        "and its injector net needs them); it is a split-off coupling",
+    "flowDownsampler.cond_channels":
+        "the main flow steps get no cond features, so a coupling there cannot take them",
 }
 
 
 def _supported(key: str, value):
     if value not in _SUPPORTED[key]:
+        why = _WHY.get((key, value), _WHY.get(key))
         raise NotImplementedError(
             f"network_G.{key} = {value!r} is not implemented in the port "
-            f"(it implements {', '.join(map(repr, _SUPPORTED[key]))})")
+            f"(it implements {', '.join(map(repr, _SUPPORTED[key]))})"
+            + (f": {why}" if why else ""))
     return value
 
 
@@ -126,9 +136,9 @@ def flownet_spec_from_opt(opt: dict, sr: bool = True) -> FlowNetSpec:
     def value(key, default, section=fd, prefix="flowDownsampler."):
         return _supported(prefix + key, section.get(key, default))
 
-    for key, default in (("flow_permutation", "invconv"), ("flow_coupling", "Affine"),
-                         ("nn_module", "FCN")):
-        value(key, default, so, "flowDownsampler.splitOff.")
+    def so_value(key, default):
+        return value(key, default, so, "flowDownsampler.splitOff.")
+
     value("cond_channels", None)
     net = opt.get("network_G") or {}
     return FlowNetSpec(
@@ -142,6 +152,9 @@ def flownet_spec_from_opt(opt: dict, sr: bool = True) -> FlowNetSpec:
         nn_module=value("nn_module", "FCN"),
         hidden_channels=fd.get("hidden_channels", 64),
         sr=sr,
+        so_flow_permutation=so_value("flow_permutation", "invconv"),
+        so_flow_coupling=so_value("flow_coupling", "Affine"),
+        so_nn_module=so_value("nn_module", "FCN"),
         so_hidden_channels=so.get("hidden_channels", 64),
         rrdb_nb=tuple(so.get("RRDB_nb", (5, 5))),
         rrdb_nf=so.get("RRDB_nf", 64),

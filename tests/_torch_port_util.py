@@ -29,9 +29,10 @@ TINY_CKPT = dict(
 
 
 def perturb(tree, seed=1, scale=0.05):
-    """Every tensor plus scale * N(0, 1) noise, as tests/test_pallas_chain.py does:
-    fresh inits zero each coupling conv3 and the prior head, which would make the
-    affine updates and the prior no-ops."""
+    """Every floating-point tensor plus scale * N(0, 1) noise, as
+    tests/test_pallas_chain.py does: fresh inits zero each coupling conv3 and the prior
+    head, which would make the affine updates and the prior no-ops.  Integer tensors (a
+    permutation's indices) stay as they are."""
     rng = np.random.default_rng(seed)
 
     def go(t):
@@ -39,6 +40,8 @@ def perturb(tree, seed=1, scale=0.05):
             return {k: go(v) for k, v in t.items()}
         if isinstance(t, list):
             return [go(v) for v in t]
+        if not t.is_floating_point():
+            return t
         return t + scale * torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
 
     return go(tree)

@@ -37,6 +37,8 @@ def _perturb(tree, gen):
     if isinstance(tree, list):
         return [_perturb(v, gen) for v in tree]
     tree = tree.cuda()
+    if not tree.is_floating_point():  # a permutation's indices
+        return tree
     std = 0.1 / tree[0].numel() ** 0.5 if tree.ndim == 4 else 0.02
     return tree + std * torch.randn(tree.shape, device="cuda", generator=gen)
 
@@ -559,3 +561,94 @@ def test_train_cli_on_the_card_validates_through_the_kernels(gen, tmp_path):
     # each; the reverse's 4 chains of 2 steps
     assert rrdb_launches == {"bf16": 2 * 4 * 16}
     assert chain_launches == {"f32 hid 32": 4 * 2}
+
+
+# ------------------------------------------- data parallelism, remat, the inventory
+def _inventory_model(**kw):
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+
+    return HCFlowSRSpec.for_scale(4, K=(4, 4), after_splitoff=(2, 2), rrdb_nb=(1, 1), rrdb_nf=32,
+                                  rrdb_gc=16, hidden_channels=32, so_hidden_channels=32, **kw)
+
+
+@pytest.mark.parametrize("perm, so_perm, main_packed, so_packed", [
+    ("shuffle", "reverse", False, False), ("none", "invconv", False, True)])
+def test_chains_the_chain_kernel_cannot_take_serve_plain(gen, perm, so_perm, main_packed,
+                                                         so_packed):
+    """A permuted (or unpermuted) chain is not packed: the fused reverse launches the RRDB
+    kernel and the chain kernel only for the invconv split-off chains, and matches the
+    plain path."""
+    model = _inventory_model(compute_dtype="bfloat16", flow_permutation=perm,
+                             so_flow_permutation=so_perm)
+    params = _perturb(model.init(0, device="cuda"), gen)
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params)
+    for lv in model.flow.levels:
+        lp = fused[f"level{lv.level}"]
+        assert ("main_fused" in lp, "steps_fused" in lp["cond"]) == (main_packed, so_packed)
+    lr = torch.rand(2, 8, 8, 3, device="cuda", generator=gen)
+    eps = [torch.randn(2, 8 * 2 ** (1 - lv.level), 8 * 2 ** (1 - lv.level),
+                       lv.cond_spec.a_channels, device="cuda", generator=gen)
+           for lv in model.flow.levels]
+    rrdb.launches_by.clear()
+    chain.launches_by.clear()
+    with torch.no_grad():
+        got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
+        torch.cuda.synchronize()
+        assert rrdb.launches_by == {"bf16": 4 * 16}
+        assert chain.launches_by == ({"bf16 hid 32": 2 * 2} if so_packed else {})
+        ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
+    d = (got - ref).abs()
+    assert d.max() <= 5e-2 * ref.abs().max() and d.mean() <= 1e-2 * ref.abs().mean()
+
+
+def test_remat_steps_gradient_on_the_card(gen):
+    import dataclasses
+
+    from hcflow_tpu_torch.train import schedules, trainer
+
+    model = _inventory_model(encoder_dtype="bfloat16")
+    params = _perturb(model.init(0, device="cuda"), gen)
+    hr = torch.rand(2, 32, 32, 3, device="cuda", generator=gen)
+    lr = hr.reshape(2, 8, 4, 8, 4, 3).mean((2, 4))
+    noise = torch.rand(hr.shape, device="cuda", generator=gen)
+    topt = {"lr_G": 5e-5, "lr_steps": [100]}
+    tx = trainer.make_optimizer(topt, schedules.schedule_from_opt(topt))
+    grads = []
+    for on in (False, True):
+        m = dataclasses.replace(model, flow=dataclasses.replace(model.flow, remat_steps=on))
+        grads.append(trainer.make_sr_nll_step(m, tx)(trainer.init_state(params, tx), hr, lr,
+                                                     noise=noise)[-1]["grads"])
+    scale = max(g.abs().max().item() for g in grads[0])
+    assert max((a - b).abs().max().item() for a, b in zip(*grads)) <= 1e-5 * scale
+
+
+def test_dryrun_multigpu_two_ranks_on_the_card(gen):
+    from hcflow_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    rep = dryrun_multigpu(2)
+    assert rep["digests_equal"] and rep["calibrate_equal"]
+    assert all(r["rel"] <= 1e-4 for r in rep["passes"].values()) and rep["d_loss"]["rel"] <= 1e-5
+
+
+def test_train_cli_world_1_on_nccl(gen, tmp_path):
+    """cli.train.main as the launcher's one rank on NCCL: trains, saves and validates."""
+    import yaml
+
+    import _parallel_ranks
+    from _torch_port_util import train_data, train_option_file
+    from hcflow_tpu_torch.parallel.dryrun import launch
+
+    data = train_data(tmp_path / "data")
+    opt = train_option_file(tmp_path / "opt.yml", "train_SR_DF2K_4X_HCFlow+.yml", data,
+                            tmp_path / "run", val_freq=2)
+    o = yaml.safe_load(open(opt))
+    # widths the kernels take (the validation serves fused on the card)
+    o["network_G"]["flowDownsampler"].update(K=4, hidden_channels=32)
+    o["network_G"]["flowDownsampler"]["splitOff"].update(
+        after_flowstep=[2, 2], hidden_channels=32, RRDB_nb=[1, 1], RRDB_nf=32, RRDB_gc=16)
+    with open(opt, "w") as f:
+        yaml.safe_dump(o, f)
+    rec, = launch(1, _parallel_ranks.train_cli, (opt, 2, None, None, False), cpu=False)
+    assert rec["step"] == 2 and rec["validations"] == 1
+    assert rec["saves"] == ["1_G.ckpt", "1.state", "2_G.ckpt", "2.state", "latest_G.ckpt"]

@@ -10,6 +10,8 @@ the files it and the data-prep / convert CLIs write, against the JAX package:
   and a step from the restored state equals the same step from the saved one bit for
   bit; ``resume_state: auto`` continues the loop from the newest state; a JAX
   ``.state`` raises;
+- a ``path.checkpoint_backend`` other than ``pickle`` (the orbax configs) raises before
+  training starts;
 - a CUDA error in a step saves the last finished iteration and exits 75; running out
   of memory and a plain error re-raise; SIGTERM saves and stops, and the handlers are
   restored; without a card and without ``--cpu`` the CLI raises, naming ``--cpu``;
@@ -262,6 +264,23 @@ def test_sigterm_saves_and_stops(data, tmp_path, monkeypatch):
     assert state.step == 2
     assert (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)) == before
     assert sorted(os.listdir(_exp(tmp_path) / "models")) == ["2_G.ckpt"]
+
+
+def test_a_checkpoint_backend_other_than_pickle_raises_before_training(data, tmp_path,
+                                                                        monkeypatch):
+    """configs/train_faces_x4_nll_onchip.yml asks for orbax checkpoints, which the port
+    does not write: it raises, naming path.checkpoint_backend, before any step."""
+    o = yaml.safe_load((ROOT / "configs" / "train_faces_x4_nll_onchip.yml").read_text())
+    assert o["path"]["checkpoint_backend"] == "orbax"
+    o["path"]["root"] = str(tmp_path)
+    opt = tmp_path / "onchip.yml"
+    opt.write_text(yaml.safe_dump(o))
+    monkeypatch.setattr(train, "make_sr_nll_step", None)  # no trainer may be built
+    with pytest.raises(NotImplementedError, match="path.checkpoint_backend = 'orbax'"):
+        train.main(["--opt", str(opt), "--cpu", "--max_steps", "1"])
+    assert not (tmp_path / "experiments").exists()
+    o["path"]["checkpoint_backend"] = "pickle"
+    train.check_checkpoint_backend(o)
 
 
 def test_without_a_card_raises_naming_cpu(data, tmp_path, monkeypatch):

@@ -86,9 +86,9 @@ def test_model_spec_from_opt_matches_jax(path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("flow_permutation", "shuffle"), ("flow_coupling", "AffineInjector"),
+    ("flow_permutation", "random"), ("flow_coupling", "AffineInjector"),
     ("nn_module", "RRDB"), ("squeeze", "pixelshuffle"), ("cond_channels", 64),
-    ("splitOff.flow_coupling", "Affine3shift"), ("splitOff.flow_permutation", "none"),
+    ("splitOff.flow_coupling", "Affine3shift"), ("splitOff.nn_module", "DenseBlock"),
     ("compute_dtype", "float16"),
 ])
 def test_unsupported_value_raises_naming_its_key(key, value):
