@@ -113,11 +113,25 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    kernel launch (a permuted chain serves on the plain path), the kernel path within
    phase 3's limits of the plain path, the NLL forward finite; the validations' and
    (d)'s launches count in the kernels line;
-12. print the kernels' JSON line, the card line, then the JSON status line last.
+12. spatially sharded serving at full width and batch 1 on a ('data', 'spatial') mesh of
+   (1, 2): one parallel.dryrun.serve_spatial launch of 2 ranks on the one card over gloo,
+   each serving its band of the image's rows with the halo exchange of parallel/halo.py,
+   against the unsharded pass computed in this process first: (a) x4 SR in the bf16
+   serving recipe, LR 512x512 -> HR 2048x2048 at heat 0.9, latents from one seeded
+   generator (phase 3's limits, 5e-2 x max and 1e-2 x mean |unsharded|); (b) the same in
+   the float32 recipe (1e-4 x max); (c) x8 SR bf16 with resident trunks, LR 256x256 -> HR
+   2048x2048 at heat 0.8; (d) x4 rescaling bf16, HR 2048x2048 -> downscale -> quantize ->
+   upscale at heat 1.0, LR and HR; (e) (a) with every halo one row short, which must
+   break (a)'s limits.  Each rank's kernel launches equal the unsharded pass's, its halo
+   exchanges and bytes the count from the model's structure
+   (dryrun.expected_exchanges); ms a pass (median of 3, CUDA events in the rank after a
+   barrier) and peak memory a rank beside the unsharded pass's;
+13. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
-so the kernels line's units do not change), and the variants against their plain
+so the kernels line's units do not change), every kernel of phase 12 at a rank's band
+plus halo (calls_per_pass 0), and the variants against their plain
 version: the chain kernel's float32 one at hid 64 at the shapes of phase 6's serving,
 bf16 and float32 at hid 32 at phase 7's; the float32 RRDB kernel at phases 3, 4 and
 7's shapes, the float32 resident trunk at phase 5's and chain3s in float32 at phase
@@ -228,6 +242,13 @@ PAR_NONDET = "does not have a deterministic implementation"
 TRAIN_PASSES = {"make_sr_nll_step": "nll", "make_sr_pixel_step": "pixel",
                 "make_sr_feagan_step": "feagan", "make_d_step": "D",
                 "make_rescaling_step": "rescaling"}
+# phase 12: spatially sharded serving at batch 1 on a (1, 2) mesh, 2 ranks on the one card
+# over gloo: x4 SR LR 512x512 -> HR 2048x2048 at heat 0.9 (bf16 and float32 recipes), x8
+# SR LR 256x256 -> HR 2048x2048 at heat 0.8 (bf16, resident trunks), x4 rescaling HR
+# 2048x2048 -> LR 512x512 -> HR at heat 1.0 (bf16); the median of SP_REPS timed passes.
+# Sharded against unsharded: the bf16 paths within phase 3's kernel-vs-plain limits
+# (MODEL_MAX_RTOL, MODEL_MEAN_RTOL), the float32 path within F32_PATH_RTOL x max.
+SP_WORLD, SP_X4_LR, SP_X8_LR, SP_RS_HR, SP_REPS = 2, 512, 256, 2048, 3
 
 
 def log(msg):
@@ -482,14 +503,15 @@ def _trunk_rows(torch, gen, rows, shapes, path, cd="bfloat16", key="rrdb_trunk")
     res = rrdb.pack_rrdb_trunk(trunk, cd, resident=True)
     per = rrdb.pack_rrdb_trunk(trunk, cd)
     for hw, calls in shapes:
-        x = torch.randn(BATCH, hw, hw, nf, device=DEV, generator=gen)
-        label = f"{key} nb {X8_NB} gc {gc} {BATCH}x{hw}x{hw}x{nf}"
-        flops, nbytes = trunk_work(BATCH, hw, hw, nf, gc, X8_NB, 2 if cd else 4)
+        B, H, W = _bhw(hw)
+        x = torch.randn(B, H, W, nf, device=DEV, generator=gen)
+        label = f"{key} nb {X8_NB} gc {gc} {B}x{H}x{W}x{nf}"
+        flops, nbytes = trunk_work(B, H, W, nf, gc, X8_NB, 2 if cd else 4)
         got = _row(rows, key, label, lambda: rrdb.trunk_apply(res, x),
                    lambda: rrdb.trunk_apply_resident_plain(res, x),
                    (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
                    library_fn=lambda: nets.apply_rrdb_trunk(lib, x, cd), library_seq=True,
-                   rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[BATCH, hw, hw, nf], gc=gc,
+                   rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[B, H, W, nf], gc=gc,
                    nb=X8_NB)
         ref = rrdb.trunk_apply(per, x)
         torch.cuda.synchronize()
@@ -662,7 +684,54 @@ def phase_kernels(torch, gen):
     log("  training entry point (phase 10): the validations' shapes (bf16 RRDBs, float32 "
         "chains and chain3s), checked, not in the units above")
     _train_cli_rows(torch, gen, rows)
+    log("  spatially sharded serving (phase 12): a rank's band plus its halo, batch 1, "
+        "checked, not in the units above")
+    _spatial_rows(torch, gen, rows)
     return rows
+
+
+def _sp_band(lr_hw, f, halo):
+    """(B, H, W) that a rank of phase 12 gives a unit reading ``halo`` rows each side at a
+    level of f times the LR size: its band of the rows plus the halo from its one
+    neighbour (2 ranks), batch 1."""
+    h = lr_hw * f // SP_WORLD
+    return (1, h + min(halo, h), lr_hw * f)
+
+
+def _spatial_rows(torch, gen, rows):
+    """The kernels at phase 12's shapes, calls_per_pass 0: the x4 SR path's RRDBs and
+    chains in both recipes (LR 512), the x8 path's resident trunks and chains (LR 256),
+    the rescaling path's RRDBs, split-off chains and chain3s (LR 512)."""
+    from hcflow_tpu_torch.parallel.dryrun import RRDB_HALO, STEP_HALO
+
+    fcn, dense = STEP_HALO["FCN"], STEP_HALO["DenseBlock"]
+    x4, x8, rs = SP_X4_LR, SP_X8_LR, SP_RS_HR // SCALE
+    k13 = 13 * fcn
+    for cd, rk, ck in (("bfloat16", "rrdb", "chain"), (None, "rrdb_f32", "chain_f32")):
+        _rrdb_rows(torch, gen, rows, 32, [(_sp_band(x4, f, RRDB_HALO), 0) for f in (1, 2)],
+                   "spatial", cd=cd, key=rk)
+        _chain_rows(torch, gen, rows, 13, 128, [("L1 cond", True, 21, _sp_band(x4, 1, k13)),
+                                                ("L0 cond", True, 6, _sp_band(x4, 2, k13)),
+                                                ("L1 main", False, 24, _sp_band(x4, 1, k13)),
+                                                ("L0 main", False, 12, _sp_band(x4, 2, k13))],
+                    "spatial", cd=cd, key=ck, calls=0)
+    _trunk_rows(torch, gen, rows, [(_sp_band(x8, f, X8_NB * RRDB_HALO), 0) for f in (1, 2, 4)],
+                "spatial")
+    _chain_rows(torch, gen, rows, 13, 128, [("L2 cond", True, 45, _sp_band(x8, 1, k13)),
+                                            ("L1 cond", True, 12, _sp_band(x8, 2, k13)),
+                                            ("L0 cond", True, 6, _sp_band(x8, 4, k13)),
+                                            ("L2 main", False, 48, _sp_band(x8, 1, k13)),
+                                            ("L1 main", False, 24, _sp_band(x8, 2, k13)),
+                                            ("L0 main", False, 12, _sp_band(x8, 4, k13))],
+                "spatial", calls=0)
+    _rrdb_rows(torch, gen, rows, 16, [(_sp_band(rs, f, RRDB_HALO), 0) for f in (1, 2)],
+               "spatial")
+    _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, _sp_band(rs, 1, 6 * fcn)),
+                                          ("L0 cond", True, 6, _sp_band(rs, 2, 6 * fcn))],
+                "spatial", calls=0)
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, _sp_band(rs, 1, 8 * dense)),
+                                        ("L0 main", 12, _sp_band(rs, 2, 8 * dense))], "spatial",
+                  calls=0)
 
 
 def _serving_rows(torch, gen, rows):
@@ -721,30 +790,32 @@ def _train_cli_rows(torch, gen, rows):
                   cd=None, key="chain3s_f32", calls=0)
 
 
-def _counts():
-    """Launches of every KERNELS entry since the last reset, by variant: the chain
-    kernel's (bf16 at hid 64; float32 at hid 64; bf16 and float32 at hid 32), the RRDB,
-    trunk and chain3s kernels' (bf16, float32)."""
-    from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
-
-    by = chain.launches_by
-    return {"rrdb": rrdb.launches_by.get("bf16", 0),
-            "rrdb_trunk": rrdb.trunk_launches_by.get("bf16", 0),
-            "chain": by.get("bf16 hid 64", 0), "chain3s": chain3s.launches_by.get("bf16", 0),
-            "conv3x3": conv.launches, "chain_f32": by.get("f32 hid 64", 0),
+def _named(raw):
+    """``dryrun.kernel_launches()``'s counts by KERNELS entry: the chain kernel's variants
+    (bf16 at hid 64; float32 at hid 64; bf16 and float32 at hid 32), the RRDB, trunk and
+    chain3s kernels' recipes (bf16, float32)."""
+    by = raw["chain"]
+    return {"rrdb": raw["rrdb"].get("bf16", 0), "rrdb_trunk": raw["rrdb_trunk"].get("bf16", 0),
+            "chain": by.get("bf16 hid 64", 0), "chain3s": raw["chain3s"].get("bf16", 0),
+            "conv3x3": raw["conv3x3"], "chain_f32": by.get("f32 hid 64", 0),
             "chain_hid32": by.get("bf16 hid 32", 0), "chain_hid32_f32": by.get("f32 hid 32", 0),
-            "rrdb_f32": rrdb.launches_by.get("f32", 0),
-            "rrdb_trunk_f32": rrdb.trunk_launches_by.get("f32", 0),
-            "chain3s_f32": chain3s.launches_by.get("f32", 0)}
+            "rrdb_f32": raw["rrdb"].get("f32", 0),
+            "rrdb_trunk_f32": raw["rrdb_trunk"].get("f32", 0),
+            "chain3s_f32": raw["chain3s"].get("f32", 0)}
+
+
+def _counts():
+    """Launches of every KERNELS entry since the last reset."""
+    from hcflow_tpu_torch.parallel import dryrun
+
+    return _named(dryrun.kernel_launches())
 
 
 def _reset_counts():
-    from hcflow_tpu_torch.ops import chain, chain3s, conv, rrdb
+    """Every kernel's launch counter (and the halo exchange counters) to 0."""
+    from hcflow_tpu_torch.parallel import dryrun
 
-    for counts in (chain.launches_by, rrdb.launches_by, rrdb.trunk_launches_by,
-                   chain3s.launches_by):
-        counts.clear()
-    conv.launches = 0
+    dryrun.reset_counters()
 
 
 def _per_request(**counts):
@@ -2213,6 +2284,137 @@ def _inventory(torch, gen, launches):
                 pass_ms=ms, pass_times_ms=ts)
 
 
+def _sp_check(name, got, ref, f32):
+    """(max abs, mean abs, within the limits) of a sharded image against the unsharded
+    one: float32 within F32_PATH_RTOL x max |unsharded|, bf16 within MODEL_MAX_RTOL x max
+    and MODEL_MEAN_RTOL x mean."""
+    import torch
+
+    if tuple(got.shape) != tuple(ref.shape) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: sharded output {tuple(got.shape)} not finite of shape "
+                             f"{tuple(ref.shape)}")
+    d = (got - ref).abs()
+    max_abs, mean_abs = d.max().item(), d.mean().item()
+    max_ref, mean_ref = ref.abs().max().item(), ref.abs().mean().item()
+    if f32:
+        ok, lim = max_abs <= F32_PATH_RTOL * max_ref, f"{F32_PATH_RTOL:g} x max"
+    else:
+        ok = max_abs <= MODEL_MAX_RTOL * max_ref and mean_abs <= MODEL_MEAN_RTOL * mean_ref
+        lim = f"{MODEL_MAX_RTOL:g} x max, {MODEL_MEAN_RTOL:g} x mean"
+    log(f"  {name}, sharded vs unsharded: max abs {max_abs:.3e} of max {max_ref:.3e}, mean abs "
+        f"{mean_abs:.3e} of mean {mean_ref:.3e} (limits {lim}): {'within' if ok else 'BROKEN'}")
+    return dict(max_abs=max_abs, mean_abs=mean_abs, max_ref=max_ref, mean_ref=mean_ref, ok=ok)
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def _gb(nbytes):
+    return None if nbytes is None else nbytes / 1e9
+
+
+def phase_spatial(torch, gen):
+    """Spatially sharded serving at full width, batch 1, on a (1, 2) mesh: 2 ranks on the
+    one card over gloo (dryrun.serve_spatial), each its band of the image's rows, against
+    the unsharded pass computed here first; (a) x4 SR bf16, (b) x4 SR float32, (c) x8 SR
+    bf16 with resident trunks, (d) x4 rescaling bf16 (LR and HR), (e) (a) with every halo
+    one row short, which must break (a)'s limits.  Each rank's kernel launches must equal
+    the unsharded pass's, its halo exchanges and bytes dryrun.expected_exchanges'."""
+    import dataclasses
+
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
+    from hcflow_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    cpu = torch.Generator().manual_seed(12)
+
+    def params(model):
+        return _to(perturb(model.init(0, device=DEV), gen), "cpu")
+
+    x4 = {cd: HCFlowSRSpec.for_scale(SCALE, compute_dtype=cd) for cd in ("bfloat16", None)}
+    x8 = HCFlowSRSpec.for_scale(X8_SCALE, compute_dtype="bfloat16")
+    rs = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
+    lr4 = torch.rand(1, SP_X4_LR, SP_X4_LR, 3, generator=cpu)
+    cases = {
+        "a": dryrun.ServeCase(x4["bfloat16"], params(x4["bfloat16"]), lr4, HEAT, seed=1,
+                              reps=SP_REPS),
+        "b": dryrun.ServeCase(x4[None], params(x4[None]), lr4, HEAT, seed=2, reps=SP_REPS),
+        "c": dryrun.ServeCase(x8, params(x8), torch.rand(1, SP_X8_LR, SP_X8_LR, 3, generator=cpu),
+                              X8_HEAT, resident=True, seed=3, reps=SP_REPS),
+        "d": dryrun.ServeCase(rs, params(rs), torch.rand(1, SP_RS_HR, SP_RS_HR, 3, generator=cpu),
+                              RS_HEAT, seed=4, reps=SP_REPS),
+    }
+    cases["e"] = dataclasses.replace(cases["a"], halo_cut=1, reps=0)
+    per_request = {"a": _per_request(rrdb=28 * 16, chain=4 * 13),
+                   "b": _per_request(rrdb_f32=28 * 16, chain_f32=4 * 13),
+                   "c": _per_request(rrdb_trunk=6, chain=6 * 13),
+                   "d": _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * 41)}
+    refs = {}
+    for k in "abcd":
+        rec = dryrun.serve(cases[k], None, DEV)
+        refs[k] = {**rec, "out": rec["out"].cpu(), "lr": None if rec["lr"] is None else
+                   rec["lr"].cpu(), "launches": _named(rec["launches"])}
+        del rec
+        _check_counts(f"phase 12 ({k}) unsharded", refs[k]["launches"], per_request[k], 1)
+        log(f"  ({k}) unsharded: {_ms(refs[k]['ms'])} a pass (median of {SP_REPS}), peak "
+            f"{_gb(refs[k]['peak_bytes'])} GB")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.serve_spatial(SP_WORLD, [cases[k] for k in "abcde"])
+    log(f"  {SP_WORLD} ranks (spawn, gloo group, 5 cases): {time.perf_counter() - t0:.1f} s")
+    out, launches = {}, _per_request()
+    for i, k in enumerate("abcd"):
+        case, ref = cases[k], refs[k]
+        rescaling = isinstance(case.model, HCFlowRescalingSpec)
+        H, W = case.image.shape[1:3]
+        f = SCALE if rescaling else 1
+        exp_n, exp_b = dryrun.expected_exchanges(case.model.flow, (1, H // f // SP_WORLD, W // f),
+                                                 SP_WORLD, resident=case.resident,
+                                                 forward=rescaling)
+        res = {"ranks": []}
+        for r, rank in enumerate(ranks):
+            rec = rank[i]
+            named = _named(rec["launches"])
+            if named != ref["launches"]:
+                raise AssertionError(f"({k}) rank {r}: launches {named}, unsharded "
+                                     f"{ref['launches']}")
+            if rec["exchanges"] != exp_n or rec["bytes"] != exp_b:
+                raise AssertionError(f"({k}) rank {r}: exchanges {rec['exchanges']} of "
+                                     f"{rec['bytes']} bytes, counted {exp_n} of {exp_b}")
+            for n in launches:
+                launches[n] += named[n]
+            res["ranks"].append(dict(launches=named, exchanges=rec["exchanges"],
+                                     bytes=rec["bytes"], ms=rec["ms"], times_ms=rec["times_ms"],
+                                     peak_gb=_gb(rec["peak_bytes"])))
+            log(f"  ({k}) rank {r}: launches as unsharded; {sum(exp_n.values())} exchanges "
+                f"{exp_n}, {sum(exp_b.values()) / 1e6:.3f} MB sent, as counted; "
+                f"{_ms(rec['ms'])} a pass ({', '.join(f'{t:.3f}' for t in rec['times_ms'])}) "
+                f"against {_ms(ref['ms'])} unsharded; peak {_gb(rec['peak_bytes'])} GB "
+                f"against {_gb(ref['peak_bytes'])} GB")
+        f32 = case.model.flow.compute_dtype is None
+        res["hr"] = _sp_check(f"({k}) HR", ranks[0][i]["image"], ref["out"], f32)
+        ok = res["hr"]["ok"]
+        if rescaling:
+            res["lr"] = _sp_check(f"({k}) LR", ranks[0][i]["lr_image"], ref["lr"], f32)
+            ok = ok and res["lr"]["ok"]
+        if not ok:
+            raise AssertionError(f"({k}): the sharded pass disagrees with the unsharded one")
+        res.update(unsharded_ms=ref["ms"], unsharded_times_ms=ref["times_ms"],
+                   unsharded_peak_gb=_gb(ref["peak_bytes"]), exchanges=exp_n, bytes=exp_b,
+                   launches=ref["launches"])
+        out[k] = res
+    out["e"] = _sp_check("(e) every halo one row short (a control)", ranks[0][4]["image"],
+                         refs["a"]["out"], False)
+    if out["e"]["ok"]:
+        raise AssertionError("(e): a halo one row short stays within (a)'s limits")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 12 took {wall:.1f} s; the 2 ranks share one card, so their ms say nothing "
+        f"of the gain across cards; launches {launches}")
+    out.update(launches=launches, wall_s=wall)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -2358,6 +2560,9 @@ def main(argv=None):
     log("phase 11: data-parallel training (world 1 on NCCL, 2 ranks on the card over gloo, "
         "dryrun_multigpu(2)), train.remat_steps and the flow-op inventory at full width")
     par = phase_parallel(torch, gen)
+    log("phase 12: spatially sharded serving at full width, batch 1: x4 SR (bf16, float32), "
+        "x8 SR and x4 rescaling on a (1, 2) mesh, 2 ranks on the card over gloo")
+    spatial = phase_spatial(torch, gen)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -2368,13 +2573,15 @@ def main(argv=None):
                                   **{f"serve_{k}": serve[k]["launches"]
                                      for k in ("x4", "x8", "rescaling", "tiny", "predict")},
                                   "train_cli": train_cli["launches"],
-                                  "parallel": par["launches"]})
+                                  "parallel": par["launches"],
+                                  "spatial": spatial["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
-                       "serve": serve, "train_cli": train_cli, "parallel": par}, f, indent=1,
+                       "serve": serve, "train_cli": train_cli, "parallel": par,
+                       "spatial": spatial}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))

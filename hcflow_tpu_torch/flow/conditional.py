@@ -29,7 +29,11 @@ weights attached by ``FlowNetSpec.precompute_inference(fused=True)`` the trunks 
 RRDB kernel (ops/rrdb.py: per RRDB, or the whole trunk in one launch when packed with
 ``resident_trunk``; bf16 or float32, as the encoder dtype is), in the forward as in the
 reverse, and the inverse steps the inverse-chain kernel (ops/chain.py); otherwise the
-plain step-by-step path runs.
+plain step-by-step path runs.  With a spatial ``mesh`` (``parallel/mesh.py``; None, the
+default, is the unsharded pass) u is this rank's band of rows, and every unit runs on
+the band plus the rows of halo it reads, on either path: each 3x3 conv 1, each RRDB 15
+(a resident trunk 15 nb), a K-step chain its nets' sum (2K for FCN nets), its hoisted
+cond terms one more (``parallel/halo.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops import chain, coupling, densities, nets, rrdb
+from ..parallel import halo
 from . import stack
 from .flowstep import FlowStepSpec
 
@@ -113,52 +118,80 @@ class ConditionalFlowSpec:
         return params
 
     # ------------------------------------------------------------------- encoder
-    def _trunk(self, params: dict, name: str, x: torch.Tensor, cd) -> torch.Tensor:
+    def _trunk(self, params: dict, name: str, x: torch.Tensor, cd, mesh=None) -> torch.Tensor:
         packed = params.get(f"{name}_fused")
         if packed is not None:
-            return rrdb.trunk_apply(packed, x)
-        return nets.apply_rrdb_trunk(params[name], x, cd, remat=self.remat_trunks)
+            return rrdb.trunk_apply(packed, x, mesh)
+        return nets.apply_rrdb_trunk(params[name], x, cd, remat=self.remat_trunks, mesh=mesh)
 
-    def cond_feature(self, params: dict, u: torch.Tensor) -> torch.Tensor:
+    def cond_feature(self, params: dict, u: torch.Tensor, mesh=None) -> torch.Tensor:
+        """The encoder's cond features of u; ``mesh``: on this rank's band of u, each conv
+        and RRDB (or trunk kernel) on the band plus the halo it reads."""
         cd = self.encoder_compute_dtype
-        first = nets.conv2d(u, params["conv_first"]["w"], params["conv_first"]["b"], cd)
-        feat1 = self._trunk(params, "trunk0", first, cd)
+        first = nets.conv2d(u, params["conv_first"]["w"], params["conv_first"]["b"], cd, mesh)
+        feat1 = self._trunk(params, "trunk0", first, cd, mesh)
         tc = params["trunk_conv1"]
-        feat2 = nets.conv2d(self._trunk(params, "trunk1", feat1, cd), tc["w"], tc["b"], cd)
+        feat2 = nets.conv2d(self._trunk(params, "trunk1", feat1, cd, mesh), tc["w"], tc["b"], cd,
+                            mesh)
         if not self.sr:
             return feat2 + first
         return torch.cat([feat1, feat2 + first], -1)
 
-    def _prior(self, params: dict, cond: torch.Tensor):
+    def _prior(self, params: dict, cond: torch.Tensor, mesh=None):
         """(mean, logs); the rescaling prior bounds logs as the couplings do."""
-        h = nets.apply_conv_zeros(params["f"], cond)
+        h = nets.apply_conv_zeros(params["f"], cond, mesh=mesh)
         mean, logs = h[..., 0::2], h[..., 1::2]
         return mean, logs if self.sr else coupling.clamp_logscale(logs)
 
-    def _run_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """Invert the steps: the chain kernel when packed, else the plain path."""
-        ss = self.step_spec
+    def _run_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
+        """Invert the steps: the chain kernel when packed, else the plain path; ``mesh``:
+        on this rank's band plus the chain's halo (``stack.on_band``)."""
+        ss, steps = self.step_spec, params["steps"]
         packed = params.get("steps_fused")
-        if packed is None:
-            fn = stack.inverse_stack_hoisted if self.hoists else stack.inverse_stack
-            return fn(ss, params["steps"], z, cond, remat=self.remat_steps)[0]
-        uc = stack.compute_u_contribs(ss, params["steps"], cond)
-        return chain.inverse_chain(packed, z, uc.to(packed["w1"].dtype).contiguous())
+        if packed is not None:
+            dt = packed["w1"].dtype
+            return stack.on_band(
+                lambda z, uc: chain.inverse_chain(packed, z, uc.to(dt).contiguous()), z, cond,
+                chain.halo_rows(packed), mesh, stack.Hoist(ss, steps))
+        rows = nets.halo_rows(steps)
+        if self.hoists:
+            return stack.on_band(
+                lambda z, uc: stack.inverse_stack_uc(ss, steps, z, uc, remat=self.remat_steps)[0],
+                z, cond, rows, mesh, stack.Hoist(ss, steps))
+        return stack.on_band(
+            lambda z, u: stack.inverse_stack(ss, steps, z, u, remat=self.remat_steps)[0], z, cond,
+            rows, mesh)
 
     # ------------------------------------------------------------------- forward
-    def _forward_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor, logdet):
+    def _forward_steps(self, params: dict, z: torch.Tensor, cond: torch.Tensor, logdet,
+                       mesh=None):
         if self.n_flow_step == 0:
             return z, logdet
+        ss, steps = self.step_spec, params["steps"]
         fn = stack.forward_stack_hoisted if self.hoists else stack.forward_stack
-        return fn(self.step_spec, params["steps"], z, cond, logdet, remat=self.remat_steps)
+        if not halo.sharded(mesh):
+            return fn(ss, steps, z, cond, logdet, remat=self.remat_steps)
+        if logdet is not None:
+            raise NotImplementedError("a logdet over a spatial mesh needs the sums of spatial "
+                                      "training, which is not ported")
+        if self.hoists:
+            return stack.on_band(lambda z, uc: stack.forward_stack_uc(ss, steps, z, uc)[0], z,
+                                 cond, nets.halo_rows(steps), mesh, stack.Hoist(ss, steps)), None
+        return stack.on_band(lambda z, u: fn(ss, steps, z, u)[0], z, cond, nets.halo_rows(steps),
+                             mesh), None
 
-    def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None):
+    def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None, mesh=None):
         """Run the steps on a.  SR: add the prior's log-density of the result into
         logdet (shape (B,)) and return (logdet, cond); rescaling: return (fake_z,
-        cond), the result whitened against the prior."""
-        cond = self.cond_feature(params, u)
-        z, logdet = self._forward_steps(params, a, cond, logdet)
-        mean, logs = self._prior(params, cond)
+        cond), the result whitened against the prior.  ``mesh``: a and u are this rank's
+        bands (rescaling only: the SR log-density sums over the whole image)."""
+        if self.sr and halo.sharded(mesh):
+            raise NotImplementedError("the SR log-density over a spatial mesh needs the sums "
+                                      "of spatial training, which is not ported")
+        cond = self.cond_feature(params, u, mesh)
+        z, logdet = self._forward_steps(params, a, cond, logdet, mesh)
+        mean, logs = self._prior(params, cond, mesh)
         if self.sr:
             return logdet + densities.gaussian_logp(mean, logs, z), cond
         return (z - mean) * torch.exp(-logs), cond
@@ -189,16 +222,19 @@ class ConditionalFlowSpec:
         return new, (z - mean) * torch.exp(-logs), cond
 
     # ------------------------------------------------------------------- reverse
-    def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None):
+    def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None,
+                mesh=None):
         """Sample a from the conditional prior at temperature eps_std (or take the
         explicit whitened latent ``eps``: z = mean + exp(logs) * eps, eps_std unused)
-        and invert the steps.  Returns (a, cond)."""
-        cond = self.cond_feature(params, u)
-        mean, logs = self._prior(params, cond)
+        and invert the steps.  Returns (a, cond).  ``mesh``: u and eps are this rank's
+        parts, and a sample is drawn for the whole batch and image
+        (``densities.gaussian_sample``)."""
+        cond = self.cond_feature(params, u, mesh)
+        mean, logs = self._prior(params, cond, mesh)
         if eps is None:
-            z = densities.gaussian_sample(generator, mean, logs, eps_std)
+            z = densities.gaussian_sample(generator, mean, logs, eps_std, mesh)
         else:
             z = mean + torch.exp(logs) * eps
         if self.n_flow_step > 0:
-            z = self._run_steps(params, z, cond)
+            z = self._run_steps(params, z, cond, mesh)
         return z, cond

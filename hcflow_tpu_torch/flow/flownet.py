@@ -15,6 +15,12 @@ level.
   whitened latents of both kinds, which ``reverse_flow(..., eps_list=...)`` inverts;
   ``calibrate`` is the forward with every data-dependent ActNorm init.
 
+With a spatial ``mesh`` (``parallel/mesh.py``; None, the default, is the unsharded pass)
+a rank serves its band of the image's rows: the reverse and the rescaling forward run
+every unit on the band plus the halo it reads (``parallel/halo.py``); squeezes, the
+split, the concat and the nearest upsample are local to a band, whose height doubles at
+every level up.
+
 The rescaling main chains alternate Affine3shift steps (``lr_vs_others`` True at even
 k, False at odd k) with DenseBlock nets and no permutation; their steps differ in
 shape, so a chain is a list of per-step dicts like every other chain here.
@@ -27,7 +33,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import chain, chain3s, rrdb
+from ..ops import chain, chain3s, nets, rrdb
 from ..ops.squeeze import (
     haar_squeeze2d,
     haar_unsqueeze2d,
@@ -35,6 +41,7 @@ from ..ops.squeeze import (
     squeeze2d,
     unsqueeze2d,
 )
+from ..parallel import halo
 from . import stack
 from .conditional import ConditionalFlowSpec
 from .flowstep import FlowStepSpec
@@ -149,16 +156,27 @@ class FlowNetSpec:
         return haar_unsqueeze2d(x) if self.squeeze == "haar" else unsqueeze2d(x)
 
     # --------------------------------------------------------------- main chains
-    def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor, logdet=None):
+    def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor, logdet=None,
+                      mesh=None):
         # as the JAX package: the homogeneous chains recompute with remat_steps, the
         # alternating rescaling chains do not
         remat = self.remat_steps and not lv.alternate_lrvsothers
-        for k, p in enumerate(main):
-            z, logdet = stack.run_step(lv.main_step_spec(k).forward, p, z, None, logdet,
-                                       remat=remat)
-        return z, logdet
 
-    def _split_forward(self, params: dict, hr: torch.Tensor, logdet=None, calibrate=False):
+        def run(z, logdet=logdet):
+            for k, p in enumerate(main):
+                z, logdet = stack.run_step(lv.main_step_spec(k).forward, p, z, None, logdet,
+                                           remat=remat)
+            return z, logdet
+
+        if not halo.sharded(mesh):
+            return run(z)
+        if logdet is not None:
+            raise NotImplementedError("a logdet over a spatial mesh needs the sums of spatial "
+                                      "training, which is not ported")
+        return halo.banded(lambda t: run(t)[0], z, nets.halo_rows(main), mesh, "chain"), None
+
+    def _split_forward(self, params: dict, hr: torch.Tensor, logdet=None, calibrate=False,
+                       mesh=None):
         """Squeeze and main steps at every level: (ys, a_s, logdet, new main chains)."""
         z = hr
         ys, a_s, mains = [], [], []
@@ -172,27 +190,35 @@ class FlowNetSpec:
                     new.append(p)
                 mains.append(new)
             else:
-                z, logdet = self._main_forward(lv, main, z, logdet)
+                z, logdet = self._main_forward(lv, main, z, logdet, mesh)
             ys.append(z[..., : lv.split_channels])
             a_s.append(z[..., lv.split_channels :])
             z = ys[-1]
         return ys, a_s, logdet, mains
 
-    def _main_inverse(self, lv: LevelSpec, level_params: dict, z: torch.Tensor) -> torch.Tensor:
-        """The chain kernels when packed, else the plain step loop."""
+    def _main_inverse(self, lv: LevelSpec, level_params: dict, z: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
+        """The chain kernels when packed, else the plain step loop; ``mesh``: on this
+        rank's band plus the chain's halo."""
         if lv.n_main == 0:
             return z
         packed3s = level_params.get("main3s_fused")
         if packed3s is not None:
-            return chain3s.inverse_chain(packed3s, z)[0]
+            return halo.banded(lambda t: chain3s.inverse_chain(packed3s, t)[0], z,
+                               chain3s.halo_rows(packed3s), mesh, "chain")
         packed = level_params.get("main_fused")
         if packed is not None:
-            return chain.inverse_chain(packed, z)
+            return halo.banded(lambda t: chain.inverse_chain(packed, t), z,
+                               chain.halo_rows(packed), mesh, "chain")
         remat = self.remat_steps and not lv.alternate_lrvsothers
-        for k in reversed(range(lv.n_main)):
-            z = stack.run_step(lv.main_step_spec(k).inverse, level_params["main"][k], z,
-                               remat=remat)[0]
-        return z
+        main = level_params["main"]
+
+        def run(z):
+            for k in reversed(range(lv.n_main)):
+                z = stack.run_step(lv.main_step_spec(k).inverse, main[k], z, remat=remat)[0]
+            return z
+
+        return halo.banded(run, z, nets.halo_rows(main), mesh, "chain")
 
     def _cond_input(self, i: int, y_i: torch.Tensor, cond_feats) -> torch.Tensor:
         """cat(y_i, up_2(cf_{i+1}), up_4(cf_{i+2}), ...)."""
@@ -202,19 +228,23 @@ class FlowNetSpec:
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, -1)
 
     # -------------------------------------------------------------------- forward
-    def normal_flow(self, params: dict, hr: torch.Tensor, logdet=None):
+    def normal_flow(self, params: dict, hr: torch.Tensor, logdet=None, mesh=None):
         """HR (NHWC) -> LR z.  SR: returns (z, logdet), logdet (B,) accumulating every
         step's log-determinant and every level's prior log-density (from zeros when
-        None); rescaling: returns (z, [whitened latent fake_z per level])."""
+        None); rescaling: returns (z, [whitened latent fake_z per level]).  ``mesh``
+        (rescaling only): hr is this rank's band, and so are the outputs."""
+        if self.sr and halo.sharded(mesh):
+            raise NotImplementedError("the SR forward (the NLL) over a spatial mesh needs the "
+                                      "sums of spatial training, which is not ported")
         if self.sr and logdet is None:
             logdet = hr.new_zeros(hr.shape[0])
-        ys, a_s, logdet, _ = self._split_forward(params, hr, logdet)
+        ys, a_s, logdet, _ = self._split_forward(params, hr, logdet, mesh=mesh)
         cond_feats = [None] * self.L
         fake_zs = [None] * self.L
         for i in reversed(range(self.L)):
             u = self._cond_input(i, ys[i], cond_feats)
             out, cond_feats[i] = self.levels[i].cond_spec.forward(
-                params[f"level{i}"]["cond"], a_s[i], u, logdet)
+                params[f"level{i}"]["cond"], a_s[i], u, logdet, mesh)
             if self.sr:
                 logdet = out
             else:
@@ -236,19 +266,22 @@ class FlowNetSpec:
 
     # -------------------------------------------------------------------- reverse
     def reverse_flow(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
-                     eps_list=None) -> torch.Tensor:
+                     eps_list=None, mesh=None) -> torch.Tensor:
         """LR (NHWC) -> HR, sampling the split-off latents at temperature eps_std from
-        ``generator``, or taking the explicit whitened latents ``eps_list[level]``."""
+        ``generator``, or taking the explicit whitened latents ``eps_list[level]``.
+        ``mesh``: lr is this rank's part and so is the HR returned; ``eps_list`` stays
+        global (every rank takes its part), and a sample is drawn for the whole image."""
         z = lr
         cond_feats = [None] * self.L
         for i in reversed(range(self.L)):
             lv = self.levels[i]
             u = self._cond_input(i, z, cond_feats)
+            eps = None if eps_list is None else eps_list[i]
+            if eps is not None and mesh is not None:
+                eps = mesh.shard(eps)
             a, cond_feats[i] = lv.cond_spec.reverse(
-                params[f"level{i}"]["cond"], u, eps_std, generator,
-                eps=None if eps_list is None else eps_list[i],
-            )
-            z = self._main_inverse(lv, params[f"level{i}"], torch.cat([z, a], -1))
+                params[f"level{i}"]["cond"], u, eps_std, generator, eps=eps, mesh=mesh)
+            z = self._main_inverse(lv, params[f"level{i}"], torch.cat([z, a], -1), mesh)
             z = self._unsqueeze(z)
         return z
 

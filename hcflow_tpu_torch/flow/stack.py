@@ -6,7 +6,8 @@ down to 0.  With ``remat`` and grad enabled each step's activations are recomput
 in the backward pass (``torch.utils.checkpoint``), the counterpart of the JAX
 package's ``_maybe_remat``, which checkpoints the scan body: the recomputation runs
 under the TF32 settings of the first forward (``nets.exact_f32`` sets them globally,
-and the backward pass may run outside it).
+and the backward pass may run outside it).  Under a spatial mesh a chain of steps runs
+on this rank's band plus the rows of halo that its nets read (:func:`on_band`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import invconv, nets
+from ..parallel import halo
 from .flowstep import FlowStepSpec
 
 
@@ -77,10 +79,42 @@ def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torc
     return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype)
 
 
+def on_band(run, z, u, rows: int, mesh, hoist=None):
+    """``run(z, c)`` for a chain of steps that reads ``rows`` rows each side of an output
+    row (``nets.halo_rows`` of its steps), c the cond input u, or ``hoist(u)`` where
+    given (:class:`Hoist`, which reads ``hoist.rows`` more).  Without
+    a spatial axis that is all; with one, run takes this rank's band of z plus its halo
+    and u's rows beside them, and its output is cut back to the band."""
+    if not halo.sharded(mesh):
+        return run(z, u if hoist is None else hoist(u))
+    ze, have = halo.exchange(z, rows, mesh, "chain")
+    c = None
+    if u is not None:
+        ue, hu = halo.exchange(u, rows + (0 if hoist is None else hoist.rows), mesh, "cond")
+        c = halo.crop(ue if hoist is None else hoist(ue), hu, have)
+    return halo.crop(run(ze, c), have)
+
+
+class Hoist:
+    """:func:`compute_u_contribs` of a chain as :func:`on_band` takes it: callable on u,
+    with the rows of halo it reads each side (conv1's radius)."""
+
+    def __init__(self, spec: FlowStepSpec, steps: list):
+        self.spec, self.steps = spec, steps
+        self.rows = nets.halo_rows(steps[0]["coupling"]["f"]["conv1"]["w"])
+
+    def __call__(self, u):
+        return compute_u_contribs(self.spec, self.steps, u)
+
+
 def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
                           remat: bool = False):
     """Forward with every step's cond term precomputed by :func:`compute_u_contribs`."""
-    uc = compute_u_contribs(spec, steps, u)
+    return forward_stack_uc(spec, steps, z, compute_u_contribs(spec, steps, u), logdet, remat)
+
+
+def forward_stack_uc(spec: FlowStepSpec, steps: list, z, uc, logdet=None, remat: bool = False):
+    """Forward with the steps' cond terms ``uc`` (:func:`compute_u_contribs`) given."""
     hid = spec.hidden_channels
     for k in range(len(steps)):
         z, logdet = run_step(spec.forward_hoisted, steps[k], z,
@@ -91,7 +125,11 @@ def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
 def inverse_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
                           remat: bool = False):
     """Inverse with every step's cond term precomputed by :func:`compute_u_contribs`."""
-    uc = compute_u_contribs(spec, steps, u)
+    return inverse_stack_uc(spec, steps, z, compute_u_contribs(spec, steps, u), logdet, remat)
+
+
+def inverse_stack_uc(spec: FlowStepSpec, steps: list, z, uc, logdet=None, remat: bool = False):
+    """Inverse with the steps' cond terms ``uc`` (:func:`compute_u_contribs`) given."""
     hid = spec.hidden_channels
     for k in reversed(range(len(steps))):
         z, logdet = run_step(spec.inverse_hoisted, steps[k], z,

@@ -48,23 +48,26 @@ class HCFlowRescalingSpec:
         device = device_for(device)
         return to_device(self.flow.init(torch.Generator().manual_seed(seed)), device)
 
-    def forward(self, params: dict, hr: torch.Tensor, grad: bool = False):
+    def forward(self, params: dict, hr: torch.Tensor, grad: bool = False, mesh=None):
         """HR -> (LR clamped to [0, 1], [whitened latent per level]); NHWC.  Serving
-        runs without autograd; ``grad=True`` records the graph (the training step)."""
+        runs without autograd; ``grad=True`` records the graph (the training step).
+        ``mesh`` (``parallel.mesh.make_mesh``): hr is this rank's part of the global HR
+        (``mesh.shard``), and the outputs are its parts."""
         with torch.set_grad_enabled(grad):
-            z, fake_zs = self.flow.normal_flow(params, hr)
+            z, fake_zs = self.flow.normal_flow(params, hr, mesh=mesh)
             return z.clamp(0.0, 1.0), fake_zs
 
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
-                eps_list=None, grad: bool = False) -> torch.Tensor:
+                eps_list=None, grad: bool = False, mesh=None) -> torch.Tensor:
         """LR -> HR at temperature eps_std; NHWC, clamped to [0, 1].
 
         ``generator`` draws the latents (a generator on lr's device); ``eps_list``
         gives them explicitly instead, one whitened latent per level.  ``grad=True``
-        records the graph (the training step's inverse leg).
+        records the graph (the training step's inverse leg).  ``mesh``: as
+        :meth:`forward`; ``eps_list`` stays global.
         """
         with torch.set_grad_enabled(grad):
-            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
+            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list, mesh)
             return hr.clamp(0.0, 1.0)
 
     @torch.no_grad()

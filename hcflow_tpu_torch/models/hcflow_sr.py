@@ -96,15 +96,18 @@ class HCFlowSRSpec:
 
     # ------------------------------------------------------------ reverse flow
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
-                eps_list=None, grad: bool = False) -> torch.Tensor:
+                eps_list=None, grad: bool = False, mesh=None) -> torch.Tensor:
         """LR -> HR sample at temperature eps_std; NHWC, clamped to [0, 1].
 
         ``generator`` draws the latents (a generator on lr's device); ``eps_list``
         gives them explicitly instead, one whitened latent per level.  Serving runs
         without autograd; ``grad=True`` records the graph (the pixel step's loss).
+        ``mesh`` (``parallel.mesh.make_mesh``): lr is this rank's part of the global LR
+        (``mesh.shard``) and the HR returned its part (``mesh.gather`` joins them);
+        ``eps_list`` stays global.
         """
         with torch.set_grad_enabled(grad):
-            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list)
+            hr = self.flow.reverse_flow(params, lr, eps_std, generator, eps_list, mesh)
             return hr.clamp(0.0, 1.0)
 
     # ------------------------------------------------------------- calibration

@@ -36,6 +36,7 @@ fragment; the plain version reads either pack.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -125,6 +126,13 @@ def _dims(packed):
     """(K, c1, c, hid, S) of a pack, padded or not (S: the width of the shift half)."""
     K, c = packed["wt"].shape[:2]
     return K, c // 2, c, packed["w2"].shape[-1], packed["w3"].shape[-1] // 2
+
+
+def halo_rows(packed: dict) -> int:
+    """Rows of halo each side that the chain reads around an output row: per step
+    conv1's and conv3's radius (3x3: one each; conv2 is 1x1), 2K in all."""
+    K = packed["wt"].shape[0]
+    return K * sum((math.isqrt(packed[n].shape[1]) - 1) // 2 for n in ("w1", "w3"))
 
 
 def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:

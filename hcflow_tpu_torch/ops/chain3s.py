@@ -30,6 +30,7 @@ weights at pack time; the padding never reaches z.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +117,13 @@ def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
 def _dims(packed):
     K, c = packed["an_s"].shape
     return K, c, nets.taps_shape(packed["we1"])[3]
+
+
+def halo_rows(packed: dict) -> int:
+    """Rows of halo each side that the chain reads around an output row: per step its
+    dense block's five 3x3 convs, one row each, 5K in all."""
+    ws = [packed[f"w{t}{i}"] for t in "eo" for i in range(1, 6) if f"w{t}{i}" in packed]
+    return sum(w.shape[0] * ((math.isqrt(w.shape[1]) - 1) // 2) for w in ws)
 
 
 def inverse_chain3s_plain(packed: dict, z: torch.Tensor):

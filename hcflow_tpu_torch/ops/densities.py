@@ -20,10 +20,16 @@ def gaussian_logp(mean, logs, x):
     return gaussian_likelihood(mean, logs, x).sum(dim=(1, 2, 3))
 
 
-def gaussian_sample(generator, mean, logs, eps_std) -> torch.Tensor:
+def gaussian_sample(generator, mean, logs, eps_std, mesh=None) -> torch.Tensor:
     """mean + exp(logs) * eps with eps ~ N(0, eps_std^2), drawn from ``generator``
-    (a generator on the device of ``mean``, or None for the global one)."""
-    eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    (a generator on the device of ``mean``, or None for the global one).  Under a
+    ``mesh`` (``parallel.mesh.Mesh``) mean is this rank's part: eps is drawn for the
+    whole batch and image and this rank takes its part, so that a seed gives the same
+    image however the ranks split it."""
+    shape = mean.shape if mesh is None else mesh.global_shape(mean.shape)
+    eps = torch.randn(shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    if mesh is not None:
+        eps = mesh.shard(eps)
     return mean + torch.exp(logs) * (eps * eps_std)
 
 

@@ -4,6 +4,8 @@ nets' own ActNorms.
 
 Functions take NHWC tensors and OIHW weights (PyTorch's conv layout); each conv runs
 as ``F.conv2d`` on an NCHW view of the NHWC tensor, which is channels-last memory.
+Under a spatial mesh (``mesh``, None by default) a conv and an RRDB run on this rank's
+band of rows plus the halo they read (``parallel/halo.py``, :func:`halo_rows`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import halo
 from . import actnorm
 
 _DTYPES = {"bfloat16": torch.bfloat16}  # compute_dtype None is the float32 recipe
@@ -50,13 +53,28 @@ def exact_f32():
     return tf32((False, False))
 
 
-def conv2d(x, w, b=None, compute_dtype=None) -> torch.Tensor:
+def halo_rows(params) -> int:
+    """Rows of halo each side that a net of convs in sequence reads around an output
+    row: the sum of its conv weights' radii (an FCN's 3x3, 1x1 and 3x3: 2; a
+    DenseBlock's or an RDB's five 3x3: 5; an RRDB's fifteen: 15; a flow step: its
+    coupling's nets).  ``params``: a nested dict/list holding OIHW weights."""
+    if isinstance(params, dict):
+        return sum(halo_rows(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(halo_rows(v) for v in params)
+    return (params.shape[2] - 1) // 2 if params.ndim == 4 else 0
+
+
+def conv2d(x, w, b=None, compute_dtype=None, mesh=None) -> torch.Tensor:
     """'same'-padded stride-1 conv, NHWC x OIHW -> NHWC float32.
 
     compute_dtype=None: full float32.  compute_dtype='bfloat16': bf16 operands, the
     output rounded through bf16 and upcast, as hcflow_tpu/ops/nets.py:48-55 writes it.
+    ``mesh``: on this rank's band plus the rows of halo the kernel reads.
     """
     pad = (w.shape[2] - 1) // 2
+    if halo.sharded(mesh):
+        return halo.banded(lambda t: conv2d(t, w, b, compute_dtype), x, pad, mesh, "conv")
     xc = x.permute(0, 3, 1, 2)
     if compute_dtype is not None:
         dt = _DTYPES[compute_dtype]
@@ -186,9 +204,9 @@ def init_conv_zeros(cin, cout, ksize=3):
     }
 
 
-def apply_conv_zeros(params, x, logscale_factor: float = 3.0):
+def apply_conv_zeros(params, x, logscale_factor: float = 3.0, mesh=None):
     """Always float32: its output feeds the invertible arithmetic."""
-    y = conv2d(x, params["w"], params["b"])
+    y = conv2d(x, params["w"], params["b"], mesh=mesh)
     return y * torch.exp(params["logs"] * logscale_factor)
 
 
@@ -289,13 +307,17 @@ def init_rrdb_trunk(generator, nb, nf=64, gc=32):
     return [init_rrdb(generator, nf, gc) for _ in range(nb)]
 
 
-def apply_rrdb_trunk(params, x, compute_dtype=None, remat: bool = False):
+def apply_rrdb_trunk(params, x, compute_dtype=None, remat: bool = False, mesh=None):
     """The trunk's RRDBs in order.  ``remat`` (with grad enabled): each RRDB's
     activations are recomputed in the backward pass instead of kept, so only the
     RRDBs' inputs stay (``torch.utils.checkpoint``, as the JAX package's
-    ``jax.checkpoint`` of the scan body)."""
+    ``jax.checkpoint`` of the scan body).  ``mesh``: each RRDB on this rank's band plus
+    its halo, as the RRDB kernel runs (ops/rrdb.py)."""
     for p in params:
-        if remat and torch.is_grad_enabled():
+        if halo.sharded(mesh):
+            x = halo.banded(lambda t, p=p: apply_rrdb(p, t, compute_dtype), x, halo_rows(p),
+                            mesh, "rrdb")
+        elif remat and torch.is_grad_enabled():
             x = checkpoint(apply_rrdb, p, x, compute_dtype, use_reentrant=False)
         else:
             x = apply_rrdb(p, x, compute_dtype)

@@ -44,10 +44,12 @@ wrappers raise on a float32 pack without them (:func:`check_pack`).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .. import _build
+from ..parallel import halo
 from . import nets
 
 # CUDA kernel launches made by rrdb_apply (16 per RRDB), by recipe: "bf16", "f32"
@@ -263,13 +265,25 @@ def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def trunk_apply(packed, x: torch.Tensor) -> torch.Tensor:
+def halo_rows(packed: dict) -> int:
+    """Rows of halo each side that a pack's convs read around an output row, one a 3x3
+    conv in sequence: 15 for a per-RRDB pack, 15 nb for a resident-trunk pack (its
+    weights stack 3 nb dense blocks' convs)."""
+    return sum((w.shape[0] if w.ndim == 4 else 1) * ((math.isqrt(w.shape[-3]) - 1) // 2)
+               for w in packed["w"])
+
+
+def trunk_apply(packed, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """A trunk of RRDBs on NHWC x; float32 out.  ``packed`` from
     :func:`pack_rrdb_trunk`: a list runs the per-RRDB kernel once per RRDB, a stacked
-    dict (``resident=True``) the resident-trunk kernel once."""
+    dict (``resident=True``) the resident-trunk kernel once.  ``mesh``: each kernel
+    call on this rank's band plus the halo it reads (:func:`halo_rows`), exchanged
+    before it."""
     x = x.float().contiguous()
     if isinstance(packed, dict):
-        return trunk_apply_resident(packed, x)
+        return halo.banded(lambda t: trunk_apply_resident(packed, t.contiguous()), x,
+                           halo_rows(packed), mesh, "trunk")
     for p in packed:
-        x = rrdb_apply(p, x)
+        x = halo.banded(lambda t, p=p: rrdb_apply(p, t.contiguous()), x, halo_rows(p), mesh,
+                        "rrdb")
     return x

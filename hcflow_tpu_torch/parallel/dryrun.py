@@ -1,7 +1,7 @@
-"""A dry run of data-parallel training over several processes: the counterpart of the
-JAX package's ``__graft_entry__.dryrun_multichip`` (1-D data parallelism only; the
-JAX package's spatial sharding of image height needs a halo exchange the port does not
-have).
+"""A dry run of data-parallel training over several processes, the counterpart of the
+JAX package's ``__graft_entry__.dryrun_multichip`` (1-D data parallelism only: training
+on a ('data', 'spatial') mesh is not ported), and spatially sharded serving
+(:func:`serve_spatial`).
 
 ``dryrun_multigpu(world)`` starts ``world`` processes (``launch``), which join one
 process group and take the passes of every trainer family on a fixed global batch
@@ -24,6 +24,13 @@ relative.  Every rank records a digest of its params after each pass; they must 
 equal.  The ActNorm calibration on the gathered global batch must equal rank 0's
 calibration on the global batch bit for bit.  Returns rank 0's report.
 
+``serve_spatial(world, cases)`` serves requests (:class:`ServeCase`: the x4 or x8 SR
+reverse, or the rescaling downscale -> quantize -> upscale) on a ('data', 'spatial')
+mesh of ``world`` ranks, each rank its band of the image's rows, and returns each
+rank's band, the gathered image, the kernel launches and halo exchanges of a pass, ms
+per pass and peak memory; :func:`serve` is one rank's request, or with no mesh the
+unsharded one.
+
     python -m hcflow_tpu_torch.parallel.dryrun [--world N] [--cpu]
 """
 
@@ -35,12 +42,13 @@ import hashlib
 import multiprocessing as mp
 import os
 import socket
+import statistics
 import tempfile
 import traceback
 
 import torch
 
-from . import mesh
+from . import halo, mesh
 
 D_LOSS_RTOL = 1e-5
 
@@ -67,13 +75,16 @@ def _child(rank, world, local_rank, port, backend, cpu, threads, fn, args, out):
             torch.distributed.destroy_process_group()
 
 
-def launch(world: int, fn, args=(), cpu: bool = True):
+def launch(world: int, fn, args=(), cpu: bool = False):
     """``fn(*args)`` in ``world`` new processes (``spawn``) that form one process group,
     as the launcher's would: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` (rank modulo the
     cards; every rank on the CPU with ``cpu``) and a free local port; gloo on the CPU or
     where the cards are fewer than the ranks, else NCCL.  Each process takes this
     process's torch thread count.  Returns every rank's result (``fn`` returns what
-    ``torch.save`` takes); raises if a rank fails or takes more than 15 minutes."""
+    ``torch.save`` takes); raises if a rank fails or takes more than 15 minutes, and
+    without a card unless ``cpu``."""
+    if not cpu and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass cpu=True to run the ranks on the CPU")
     cards = 1 if cpu else torch.cuda.device_count()
     backend = "gloo" if cpu or world > cards else "nccl"
     port, threads = free_port(), torch.get_num_threads()
@@ -267,6 +278,187 @@ def dryrun_multigpu(world: int, cpu: bool = False, tol: float = 1e-4) -> dict:
     if not report["calibrate_equal"]:
         raise AssertionError("calibration on the gathered batch differs from one process's")
     return report
+
+
+# -------------------------------------------------------------- spatial serving
+@dataclasses.dataclass
+class ServeCase:
+    """One serving request on fixed inputs, for :func:`serve` and :func:`serve_spatial`.
+
+    ``model``: an ``HCFlowSRSpec`` (the reverse maps ``image``, the global LR, to HR) or
+    an ``HCFlowRescalingSpec`` (the forward downscales ``image``, the global HR; the LR
+    is quantized and the reverse upscales it); ``params`` on the CPU, packed on the
+    device by ``precompute_inference(params, fused, resident_trunk=resident)``; the
+    latents at temperature ``heat`` drawn from a generator on the device seeded
+    ``seed``, or the global whitened latents ``eps_list``; :func:`serve_spatial` serves
+    it on a mesh of ``mesh_shape`` (data, spatial) with ``halo_cut`` rows withheld from
+    every exchange (a control); ``reps`` passes are timed after the counted one."""
+
+    model: object
+    params: dict
+    image: torch.Tensor
+    heat: float
+    fused: bool = True
+    resident: bool = False
+    seed: int = 0
+    eps_list: list = None
+    mesh_shape: tuple = (1, 2)
+    halo_cut: int = 0
+    reps: int = 0
+
+
+def kernel_launches() -> dict:
+    """The kernels' launch counters since the last :func:`reset_counters`, by kernel and
+    variant."""
+    from ..ops import chain, chain3s, conv, rrdb
+
+    return {"chain": dict(chain.launches_by), "rrdb": dict(rrdb.launches_by),
+            "rrdb_trunk": dict(rrdb.trunk_launches_by), "chain3s": dict(chain3s.launches_by),
+            "conv3x3": conv.launches}
+
+
+def reset_counters() -> None:
+    """Set every kernel's launch counter and the halo exchange counters to 0."""
+    from ..ops import chain, chain3s, conv, rrdb
+
+    for counts in (chain.launches_by, rrdb.launches_by, rrdb.trunk_launches_by,
+                   chain3s.launches_by, halo.exchanges_by, halo.bytes_by):
+        counts.clear()
+    conv.launches = 0
+
+
+def serve(case: ServeCase, m=None, device="cuda") -> dict:
+    """One request of ``case`` on ``device``: without a mesh ``m`` the unsharded pass,
+    with one this rank's part of it (its band of ``case.image``).  After a warm-up
+    request, one request with the counters at 0, then ``case.reps`` timed ones (CUDA
+    events, after a barrier under a process group).  Returns ``out`` (the HR) and ``lr``
+    (the rescaling LR, else None) on the device, the kernel ``launches``, halo
+    ``exchanges`` and ``bytes`` of the counted request, ``times_ms`` and their median
+    ``ms`` (None without reps), and ``peak_bytes`` (on the card: the most memory
+    allocated from the counted request on)."""
+    from ..models import HCFlowRescalingSpec, quantize
+    from ..models.hcflow_sr import to_device
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    model = case.model
+    params = model.flow.precompute_inference(to_device(case.params, dev), fused=case.fused,
+                                             resident_trunk=case.resident)
+    image = case.image.to(dev)
+    if m is not None:
+        image = m.shard(image)
+    eps = None if case.eps_list is None else [e.to(dev) for e in case.eps_list]
+
+    def request():
+        g = None if eps is not None else torch.Generator(dev).manual_seed(case.seed)
+        if isinstance(model, HCFlowRescalingSpec):
+            lr = model.forward(params, image, mesh=m)[0]
+            return lr, model.reverse(params, quantize(lr), case.heat, g, eps, mesh=m)
+        return None, model.reverse(params, image, case.heat, g, eps, mesh=m)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    request()  # warm-up: cuDNN's plans, the kernels' libraries
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    lr, out = request()
+    sync()
+    rec = {"out": out, "lr": lr, "launches": kernel_launches(),
+           "exchanges": dict(halo.exchanges_by), "bytes": dict(halo.bytes_by), "times_ms": []}
+    if case.reps and not cuda:
+        raise ValueError("timed passes need the card (CUDA events)")
+    if case.reps:
+        mesh.barrier()
+    for _ in range(case.reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        request()
+        end.record()
+        torch.cuda.synchronize(dev)
+        rec["times_ms"].append(start.elapsed_time(end))
+    rec["ms"] = statistics.median(rec["times_ms"]) if rec["times_ms"] else None
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    return rec
+
+
+def serve_ranks(path: str, cpu: bool) -> list:
+    """What each rank of :func:`serve_spatial` runs: the cases saved at ``path``, each on
+    a mesh of its ``mesh_shape`` (one mesh a shape, made by every rank in the same
+    order).  Returns per case this rank's record of :func:`serve` with the tensors on
+    the CPU and its ``out`` / ``lr`` band, and on rank 0 ``image`` / ``lr_image``, the
+    gathered ones."""
+    cases = torch.load(path, weights_only=False)
+    dev = mesh.rank_device(cpu)
+    meshes, results = {}, []
+    for case in cases:
+        shape = tuple(case.mesh_shape)
+        if shape not in meshes:
+            meshes[shape] = mesh.make_mesh(mesh_shape=shape)
+        m = dataclasses.replace(meshes[shape], halo_cut=case.halo_cut)
+        rec = serve(case, m, dev)
+        rec["image"] = m.gather(rec["out"])
+        rec["lr_image"] = None if rec["lr"] is None else m.gather(rec["lr"])
+        if m.rank != 0:
+            rec["image"] = rec["lr_image"] = None
+        results.append({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in rec.items()})
+    return results
+
+
+def serve_spatial(world: int, cases: list, cpu: bool = False, rank_fn=serve_ranks,
+                  args=()) -> list:
+    """Serve each of ``cases`` (:class:`ServeCase`) on a mesh of ``world`` ranks started
+    by :func:`launch` (gloo where the ranks share a card or run on the CPU); returns each
+    rank's ``rank_fn(path of the saved cases, cpu, *args)``, by default
+    :func:`serve_ranks`'s records, ``results[rank][case]``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cases.pt")
+        torch.save(cases, path)
+        return launch(world, rank_fn, (path, cpu, *args), cpu=cpu)
+
+
+STEP_HALO = {"FCN": 2, "DenseBlock": 5}  # an FCN's 3x3, 1x1, 3x3; a DenseBlock's five 3x3
+RRDB_HALO = 15  # three dense blocks of five 3x3 convs
+
+
+def expected_exchanges(flow, lr_band: tuple, spatial: int, resident: bool = False,
+                       forward: bool = False) -> tuple:
+    """The halo exchanges a rank makes in one reverse pass of ``flow`` (a FlowNetSpec;
+    with ``forward`` also the rescaling forward, which runs the same units), counted
+    from the model's structure, independently of the counters: per level conv_first,
+    trunk_conv1 and the prior head (unit "conv", one row each), each RRDB ("rrdb", 15
+    rows) or with ``resident`` each trunk ("trunk", 15 nb), the split-off chain's cond
+    features ("cond": 2K + 1 rows for hoisted FCN steps, else its nets' sum) and z
+    ("chain"), the main chain's z ("chain").  An exchange sends the band's top and
+    bottom min(rows, h) rows of float32.  ``lr_band``: (B, h, W) of the rank's LR band.
+    Returns ({unit: count}, {unit: bytes})."""
+    counts, nbytes = {}, {}
+    B, h, W = lr_band
+
+    def add(unit, rows, f, c):
+        if rows and spatial > 1:
+            n = 2 if forward else 1
+            counts[unit] = counts.get(unit, 0) + n
+            nbytes[unit] = nbytes.get(unit, 0) + n * 2 * min(rows, h * f) * B * W * f * c * 4
+
+    for lv in flow.levels:
+        f, cs = 2 ** (flow.L - 1 - lv.level), lv.cond_spec
+        add("conv", 1, f, cs.conv_first_in)
+        for nb in cs.rrdb_nb:
+            if resident:
+                add("trunk", RRDB_HALO * nb, f, cs.rrdb_nf)
+            for _ in range(0 if resident else nb):
+                add("rrdb", RRDB_HALO, f, cs.rrdb_nf)
+        add("conv", 1, f, cs.rrdb_nf)
+        add("conv", 1, f, cs.cond_channels)
+        rows = cs.n_flow_step * STEP_HALO[cs.nn_module]
+        add("cond", rows + (1 if cs.hoists else 0) if rows else 0, f, cs.cond_channels)
+        add("chain", rows, f, cs.a_channels)
+        add("chain", lv.n_main * STEP_HALO[flow.nn_module], f, lv.channels)
+    return counts, nbytes
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Data parallelism over processes, one card each: the counterpart of the JAX package's
-``hcflow_tpu/parallel/mesh.py`` (a 1-D 'data' mesh), on ``torch.distributed``.
+"""Data parallelism and spatial sharding over processes, one card each: the counterpart
+of the JAX package's ``hcflow_tpu/parallel/mesh.py`` on ``torch.distributed``.
 
 The semantics stay the JAX package's: the global batch is ``datasets.train.batch_size``
 per node, split over the ranks, and a step equals the one-process step on that global
@@ -19,11 +19,21 @@ batch up to the order of its sums:
   clips and takes the skip decision on the same gradient and the params stay
   bit-identical; ``DataParallel.mean`` and :func:`moments` are differentiable means
   over the global batch (the discriminators' BatchNorm, the relativistic GAN loss);
-- ``any_rank`` agrees flags (a stop request, a device failure) over the ranks.
+- ``any_rank`` agrees flags (a stop request, a device failure) over the ranks;
+- :func:`make_mesh` lays the ranks out on a 2-D ('data', 'spatial') mesh as the JAX
+  package lays devices out (data major, spatial minor), with a process group per data
+  row (the ranks that hold bands of the same images) and per spatial column.
+  :meth:`Mesh.shard`, the counterpart of ``spatial_sharding``, takes a rank's batch
+  rows on the data axis (as ``shard_batch``) and a contiguous band of the image height
+  on the spatial axis; :meth:`Mesh.gather` puts the images back together.  A band's
+  neighbours' rows reach it through ``parallel/halo.py``, which XLA's SPMD partitioner
+  writes for the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 
 import torch
@@ -149,3 +159,117 @@ class DataParallel:
         if self.world == 1:
             return t.mean()
         return dist_nn.all_reduce(t.sum()) / (t.numel() * self.world)
+
+
+# ------------------------------------------------------------------ the 2-D mesh
+AXES = ("data", "spatial")
+
+
+def rank_layout(world: int, axis_names=AXES, mesh_shape=None) -> list:
+    """The ranks of a mesh as nested lists, ``[data][spatial]``, as the JAX package's
+    ``make_mesh`` reshapes its devices: ``mesh_shape`` when given; else one axis for
+    ``("data",)``, and for two axes spatial 2 where the world is even (1 where it is
+    odd), data the rest."""
+    axis_names = tuple(axis_names)
+    if axis_names not in (AXES[:1], AXES):
+        raise ValueError(f"the port's meshes have the axes ('data',) or {AXES}, not {axis_names}")
+    if mesh_shape is not None:
+        shape = tuple(mesh_shape)
+    elif len(axis_names) == 1:
+        shape = (world,)
+    else:
+        spatial = 2 if world % 2 == 0 else 1
+        shape = (world // spatial, spatial)
+    if len(shape) != len(axis_names) or math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} over axes {axis_names} does not hold "
+                         f"{world} ranks")
+    return torch.arange(world).reshape(shape).tolist()
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on a ('data', 'spatial') mesh of ``shape`` (data, spatial):
+    rank ``d * spatial + s`` holds batch rows d, d + data, ... of the global batch and
+    band s of the image height.  ``spatial_group`` is this rank's data row (the ranks
+    that exchange halos), ``data_group`` its spatial column; both are None where the
+    axis has one rank.  ``halo_cut`` rows are withheld from every halo exchange: 0
+    serves; a control sets 1 to show that a check sees a halo one row short."""
+
+    shape: tuple
+    rank: int = 0
+    spatial_group: object = None
+    data_group: object = None
+    halo_cut: int = 0
+
+    @property
+    def data(self) -> int:
+        return self.shape[0]
+
+    @property
+    def spatial(self) -> int:
+        return self.shape[1]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    def _check(self, B: int, H: int) -> None:
+        """The JAX package's device_put refuses a batch or a height its axis does not
+        divide; so does the port (no ragged split)."""
+        if B % self.data:
+            raise ValueError(f"a batch of {B} does not split over {self.data} data ranks")
+        if H % self.spatial:
+            raise ValueError(f"an image height of {H} rows does not split over {self.spatial} "
+                             "spatial ranks")
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a global NHWC tensor: its batch rows (as
+        :func:`shard_batch`) and its band of rows, a view."""
+        B, H = x.shape[:2]
+        self._check(B, H)
+        h, s = H // self.spatial, self.spatial_index
+        return x[self.data_index :: self.data, s * h : (s + 1) * h]
+
+    def global_shape(self, shape) -> tuple:
+        """The global shape of which a rank's part has ``shape``."""
+        return (shape[0] * self.data, shape[1] * self.spatial, *shape[2:])
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global tensor from every rank's part (every rank calls it; equal on every
+        rank), in the order :meth:`shard` takes it apart."""
+        if self.data * self.spatial == 1:
+            return x
+        parts = [torch.empty_like(x) for _ in range(self.data * self.spatial)]
+        dist.all_gather(parts, x.contiguous())
+        rows = [torch.cat(parts[d * self.spatial : (d + 1) * self.spatial], 1)
+                for d in range(self.data)]
+        return torch.stack(rows, 1).flatten(0, 1)
+
+
+def make_mesh(world: int = None, axis_names=AXES, mesh_shape=None) -> Mesh:
+    """This rank's :class:`Mesh` over the process group's ``world`` ranks (all of them by
+    default), laid out by :func:`rank_layout`.  Every rank calls it, in the same order:
+    it makes a process group for each data row and each spatial column."""
+    world = world_size() if world is None else world
+    if world != world_size():
+        raise ValueError(f"a mesh of {world} ranks in a process group of {world_size()}")
+    layout = rank_layout(world, axis_names, mesh_shape)
+    rows = layout if len(layout) and isinstance(layout[0], list) else [[r] for r in layout]
+    shape = (len(rows), len(rows[0]))
+    if world == 1:
+        return Mesh(shape)
+    rank = dist.get_rank()
+    spatial_group = data_group = None
+    for row in rows:  # every rank makes every group
+        g = dist.new_group(row) if len(row) > 1 else None
+        if rank in row:
+            spatial_group = g
+    for col in zip(*rows):
+        g = dist.new_group(list(col)) if len(col) > 1 else None
+        if rank in col:
+            data_group = g
+    return Mesh(shape, rank, spatial_group, data_group)

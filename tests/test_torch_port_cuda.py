@@ -652,3 +652,33 @@ def test_train_cli_world_1_on_nccl(gen, tmp_path):
     rec, = launch(1, _parallel_ranks.train_cli, (opt, 2, None, None, False), cpu=False)
     assert rec["step"] == 2 and rec["validations"] == 1
     assert rec["saves"] == ["1_G.ckpt", "1.state", "2_G.ckpt", "2.state", "latest_G.ckpt"]
+
+
+def test_spatial_serving_two_ranks_on_one_card(gen):
+    """The x4 SR reverse in the bf16 serving recipe at a small width (the kernels' widths:
+    RRDB nf 32 / gc 16, chains hid 32), batch 1, LR 32x24, on a (1, 2) mesh: 2 ranks on
+    the one card over gloo (parallel.dryrun.serve_spatial), against the unsharded pass on
+    the card within phase 3's limits of chip_smoke.py (5e-2 x max, 1e-2 x mean); each
+    rank's kernel launches the unsharded pass's, its halo exchanges as counted."""
+    from hcflow_tpu_torch.models import HCFlowSRSpec
+    from hcflow_tpu_torch.models.hcflow_sr import to_device
+    from hcflow_tpu_torch.parallel import dryrun
+
+    model = HCFlowSRSpec.for_scale(4, compute_dtype="bfloat16", K=(4, 4), after_splitoff=(2, 2),
+                                   rrdb_nb=(1, 1), rrdb_nf=32, rrdb_gc=16, hidden_channels=32,
+                                   so_hidden_channels=32)
+    params = to_device(_perturb(model.init(0, device="cuda"), gen), "cpu")
+    lr = torch.rand(1, 32, 24, 3, generator=torch.Generator().manual_seed(1))
+    case = dryrun.ServeCase(model, params, lr, 0.9, seed=3)
+    ref = dryrun.serve(case, None, "cuda")
+    assert sum(ref["launches"]["rrdb"].values()) == 4 * rrdb.LAUNCHES_PER_RRDB
+    assert sum(ref["launches"]["chain"].values()) == 4 * 2
+    counts, nbytes = dryrun.expected_exchanges(model.flow, (1, 16, 24), 2)
+    ranks = dryrun.serve_spatial(2, [case])
+    for r in ranks:
+        assert r[0]["launches"] == ref["launches"]
+        assert r[0]["exchanges"] == counts and r[0]["bytes"] == nbytes
+    got, want = ranks[0][0]["image"], ref["out"].cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    d = (got - want).abs()
+    assert d.max() <= 5e-2 * want.abs().max() and d.mean() <= 1e-2 * want.abs().mean()

@@ -111,7 +111,7 @@ def cli(tmp_path_factory):
     data = train_data(base / "data")
     opt = train_option_file(base / "opt.yml", "train_SR_DF2K_4X_HCFlow+.yml", data, base / "run",
                             val_freq=1)
-    return dryrun.launch(2, _parallel_ranks.train_cli, (opt, 3, 1, 1)), base / "run"
+    return dryrun.launch(2, _parallel_ranks.train_cli, (opt, 3, 1, 1), cpu=True), base / "run"
 
 
 def test_only_rank_0_writes_checkpoints_and_validates(cli):
@@ -141,4 +141,4 @@ def test_batch_size_the_world_does_not_divide_raises(cli, tmp_path):
     odd = tmp_path / "odd.yml"
     odd.write_text(yaml.safe_dump(o))
     with pytest.raises(RuntimeError, match="not a multiple of the world size 2"):
-        dryrun.launch(2, _parallel_ranks.train_cli, (str(odd), 1))
+        dryrun.launch(2, _parallel_ranks.train_cli, (str(odd), 1), cpu=True)
