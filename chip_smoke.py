@@ -103,9 +103,10 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    same config as 2 ranks on the one card over gloo (RANK 0 / 1, LOCAL_RANK 0, a global
    batch of 16, 8 a rank): the ranks' params bit-identical after every pass, only rank
    0 writing checkpoints and validating, ms per pass and peak memory per rank; then
-   dryrun_multigpu(2) (two SR NLL steps, an HCFlow++ iteration, a rescaling step: each
-   pass's all-reduced gradient within 1e-4 x max |g| of the one-process pass on the
-   global batch, the D loss within 1e-5); (c) the x4 NLL step at full width with and
+   dryrun_multigpu(2, mesh_shape=(2, 1)) (two SR NLL steps, one with remat_steps, an
+   HCFlow++ iteration, a rescaling step: each pass's all-reduced gradient within 1e-4 x
+   max |g| of the one-process pass on the global batch in every leaf, the D loss within
+   1e-5); (c) the x4 NLL step at full width with and
    without remat_steps: gradients within 1e-5 x max |g|, TF32 off in every conv's
    backward and in the recomputed convs, both peak memories; (d) the x4 SR model with
    flow_permutation shuffle and a reverse split-off permutation in the bf16 recipe,
@@ -126,7 +127,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    exchanges and bytes the count from the model's structure
    (dryrun.expected_exchanges); ms a pass (median of 3, CUDA events in the rank after a
    barrier) and peak memory a rank beside the unsharded pass's;
-13. print the kernels' JSON line, the card line, then the JSON status line last.
+13. training on a ('data', 'spatial') mesh of (1, 2) at full width: one
+   parallel.dryrun.dryrun_multigpu launch of 2 ranks on the one card over gloo, each
+   holding a band of the images' rows (80 of GT 160), batch 2 (the configs' 16 cut for
+   time over gloo), weights perturbed from a seed: (a) the x4 NLL step of
+   HCFlowSRSpec.for_scale(4) in the shipped training recipe (bf16 encoders, float32
+   couplings); (b) the pixel step; (c) the fea/GAN step and the D step
+   (discriminator_vgg_160 in float64 on the gathered images, random VGG19 features on the
+   bands); (d) the rescaling joint step, default_x4 at GT 160; (e) (a) with every halo
+   one row short.  Each pass's all-reduced gradient is held against the one-process pass
+   on the global batch (computed in rank 0's process first, same params, noise and
+   latents) in every leaf: ST_BF16_TOL x the leaf's max |g| for the bf16-encoder passes,
+   ST_TOL for the float32 ones; (e) must break ST_BF16_TOL; the ranks' param digests
+   equal after every pass.  Each rank's forward and backward halo exchanges and bytes,
+   ms a pass (median of ST_REPS, CUDA events) and peak memory, beside the unsharded
+   pass's, with the card's name and power limit;
+14. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
@@ -249,6 +265,19 @@ TRAIN_PASSES = {"make_sr_nll_step": "nll", "make_sr_pixel_step": "pixel",
 # Sharded against unsharded: the bf16 paths within phase 3's kernel-vs-plain limits
 # (MODEL_MAX_RTOL, MODEL_MEAN_RTOL), the float32 path within F32_PATH_RTOL x max.
 SP_WORLD, SP_X4_LR, SP_X8_LR, SP_RS_HR, SP_REPS = 2, 512, 256, 2048, 3
+# phase 13: training on a (1, 2) mesh, 2 ranks on the one card over gloo, GT 160 (bands of
+# 80 HR rows, 20 LR rows), batch 2, the median of ST_REPS timed passes.  Each gradient
+# leaf within ST_BF16_TOL (bf16 encoders) or ST_TOL (float32 models) x its own max |g| of
+# the one-process pass; the halo control (e) must break ST_BF16_TOL.  Measured on an H100
+# 80GB HBM3 at 700 W (one run, worst leaf): (a) 5.8e-3, (b) 5.8e-3, (c) fea/GAN 1.16e-2
+# (bf16 encoders: cuDNN sums a band's convs in another order, and a bf16 rounding moves),
+# (d) 3.1e-3 (float32; a fake LR value that moves across a 1/255 step of the
+# straight-through quantizer would move the reverse leg's input: not yet shown), D 1.4e-14
+# (float64); the control 9.3e-2.  Each limit sits ~3x above its passes' readings, the
+# bf16 one 3x below the control's.  The whole gradient's max error over its max is also
+# printed: the flow's ActNorm and invconv leaves dominate it, and it cannot see a halo.
+ST_HR, ST_ROWS, ST_REPS = 160, 2, 3
+ST_TOL, ST_BF16_TOL = 1e-2, 3e-2
 
 
 def log(msg):
@@ -2168,8 +2197,9 @@ def _ddp(torch, launches):
 
         # dryrun_multigpu(2): each pass kind's all-reduced gradient against one process
         t0 = time.perf_counter()
-        rep = dryrun_multigpu(2)
-        log(f"  dryrun_multigpu(2) on the card (gloo, {time.perf_counter() - t0:.1f} s): "
+        rep = dryrun_multigpu(2, mesh_shape=(2, 1))
+        log(f"  dryrun_multigpu(2, mesh_shape=(2, 1)) on the card (gloo, "
+            f"{time.perf_counter() - t0:.1f} s): "
             + ", ".join(f"{k} {v['rel']:.2e}" for k, v in rep["passes"].items())
             + f" x max |g| (tol 1e-4); D loss rel {rep['d_loss']['rel']:.2e} (tol 1e-5); "
             f"params equal on both ranks after every pass: {rep['digests_equal']}")
@@ -2415,6 +2445,71 @@ def phase_spatial(torch, gen):
     return out
 
 
+def _st_plan():
+    """Phase 13's passes: the ++ iteration of the full-width x4 model in the shipped
+    training recipe and the full-width rescaling model, at GT ST_HR, ST_ROWS images."""
+    from hcflow_tpu_torch.parallel import dryrun
+
+    return dryrun.TrainPlan(nll=None, plusplus=dict(encoder_dtype="bfloat16"), rescaling={},
+                            hr=ST_HR, rs_hr=ST_HR, rows=ST_ROWS, reps=ST_REPS, keep=False)
+
+
+def _fwd_bwd(counts):
+    """(forward, backward) totals of a rank's exchange counters."""
+    return (sum(v for k, v in counts.items() if not k.endswith(".grad")),
+            sum(v for k, v in counts.items() if k.endswith(".grad")))
+
+
+def phase_spatial_train(torch, card):
+    """Training on a (1, 2) mesh at full width: 2 ranks on the one card over gloo
+    (dryrun.dryrun_multigpu with _st_plan()), each a band of the images' rows: (a) the x4
+    NLL step (bf16 encoders, float32 couplings), (b) the pixel step, (c) the fea/GAN and
+    D steps, (d) the rescaling joint step, each pass's all-reduced gradient against the
+    one-process pass in every leaf; (e) (a) with every halo one row short must break
+    (a)'s limit.  Raises on a failed check (dryrun_multigpu raises on its own)."""
+    from hcflow_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    rep = dryrun.dryrun_multigpu(SP_WORLD, cpu=DEV == "cpu", tol=ST_TOL, mesh_shape=(1, SP_WORLD),
+                                 plan=_st_plan(), bf16_tol=ST_BF16_TOL)
+    wall = time.perf_counter() - t0
+    labels = {"plusplus_nll": "(a) NLL", "pixel": "(b) pixel", "feagan": "(c) fea/GAN",
+              "D": "(c) D", "rescaling": "(d) rescaling joint"}
+    out = {"card": card, "wall_s": wall, "mesh": rep["mesh"]["shape"], "passes": {}}
+    digests = dict(rep["digests"])
+    for name, label in labels.items():
+        p, ranks = rep["passes"][name], [r[name] for r in rep["ranks"]]
+        log(f"  {label}: worst leaf {p['max_abs_err']:.3e} of max |g| {p['max_abs_grad']:.3e}, "
+            f"{p['rel']:.3e} x (limit {p['tol']:g}); over the whole gradient's max "
+            f"{p['whole']:.3e} x; digests equal on both ranks "
+            f"({digests[name][:12]}); [{card}]")
+        ref = p["ref"]
+        for r, rec in enumerate(ranks):
+            (nf, nb), (bf, bb) = _fwd_bwd(rec["exchanges"]), _fwd_bwd(rec["bytes"])
+            log(f"    rank {r}: {nf} forward exchanges ({bf / 1e6:.3f} MB sent), {nb} backward "
+                f"({bb / 1e6:.3f} MB) {rec['exchanges']}; {_ms(rec['ms'])} a pass "
+                f"({', '.join(f'{t:.3f}' for t in rec['times_ms'])}), peak "
+                f"{_gb(rec['peak_bytes'])} GB; unsharded {_ms(ref['ms'])} "
+                f"({', '.join(f'{t:.3f}' for t in ref['times_ms'])}), peak "
+                f"{_gb(ref['peak_bytes'])} GB [{card}]")
+        out["passes"][name] = dict(
+            label=label, rel=p["rel"], max_abs_err=p["max_abs_err"], max_abs_grad=p["max_abs_grad"],
+            tol=p["tol"], whole=p["whole"], unsharded_ms=ref["ms"], unsharded_times_ms=ref["times_ms"],
+            unsharded_peak_gb=_gb(ref["peak_bytes"]),
+            ranks=[dict(exchanges=rec["exchanges"], bytes=rec["bytes"], ms=rec["ms"],
+                        times_ms=rec["times_ms"], peak_gb=_gb(rec["peak_bytes"]))
+                   for rec in ranks])
+    c = rep["control"]
+    log(f"  (e) (a) with every halo one row short (a control): worst leaf {c['max_abs_err']:.3e} "
+        f"of max |g| {c['max_abs_grad']:.3e}, {c['rel']:.3e} x: breaks (a)'s {c['tol']:g}; over "
+        f"the whole gradient's max {c['whole']:.3e} x [{card}]")
+    log(f"  D loss on the ranks within {rep['d_loss']['rel']:.3e} of one process's; phase 13 "
+        f"took {wall:.1f} s; the 2 ranks share one card, so their ms say nothing of the gain "
+        "across cards; no kernel runs in training (the plain path)")
+    out.update(control=c, d_loss=rep["d_loss"], digests_equal=rep["digests_equal"])
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -2563,6 +2658,10 @@ def main(argv=None):
     log("phase 12: spatially sharded serving at full width, batch 1: x4 SR (bf16, float32), "
         "x8 SR and x4 rescaling on a (1, 2) mesh, 2 ranks on the card over gloo")
     spatial = phase_spatial(torch, gen)
+    log("phase 13: training on a (1, 2) mesh at full width, GT 160, batch 2: the x4 NLL, pixel, "
+        "fea/GAN and D steps (bf16 encoders, float32 couplings) and the rescaling joint step, "
+        "2 ranks on the card over gloo")
+    spatial_train = phase_spatial_train(torch, card)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -2581,7 +2680,7 @@ def main(argv=None):
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
                        "serve": serve, "train_cli": train_cli, "parallel": par,
-                       "spatial": spatial}, f, indent=1,
+                       "spatial": spatial, "spatial_train": spatial_train}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))

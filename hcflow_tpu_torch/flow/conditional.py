@@ -33,7 +33,10 @@ plain step-by-step path runs.  With a spatial ``mesh`` (``parallel/mesh.py``; No
 default, is the unsharded pass) u is this rank's band of rows, and every unit runs on
 the band plus the rows of halo it reads, on either path: each 3x3 conv 1, each RRDB 15
 (a resident trunk 15 nb), a K-step chain its nets' sum (2K for FCN nets), its hoisted
-cond terms one more (``parallel/halo.py``).
+cond terms one more (``parallel/halo.py``).  The SR forward (the NLL) runs its steps on
+the band alone, each net's 3x3 convs exchanging one row, so that its logdet and the
+prior's log-density sum over the band's own pixels: the band's share of the image's,
+which the caller sums over the spatial group.  Every path is differentiable.
 """
 
 from __future__ import annotations
@@ -168,27 +171,22 @@ class ConditionalFlowSpec:
                        mesh=None):
         if self.n_flow_step == 0:
             return z, logdet
-        ss, steps = self.step_spec, params["steps"]
+        ss, steps, remat = self.step_spec, params["steps"], self.remat_steps
         fn = stack.forward_stack_hoisted if self.hoists else stack.forward_stack
-        if not halo.sharded(mesh):
-            return fn(ss, steps, z, cond, logdet, remat=self.remat_steps)
-        if logdet is not None:
-            raise NotImplementedError("a logdet over a spatial mesh needs the sums of spatial "
-                                      "training, which is not ported")
+        if not halo.sharded(mesh) or logdet is not None:  # a logdet: each conv exchanges
+            return fn(ss, steps, z, cond, logdet, remat=remat, mesh=mesh)
         if self.hoists:
-            return stack.on_band(lambda z, uc: stack.forward_stack_uc(ss, steps, z, uc)[0], z,
-                                 cond, nets.halo_rows(steps), mesh, stack.Hoist(ss, steps)), None
-        return stack.on_band(lambda z, u: fn(ss, steps, z, u)[0], z, cond, nets.halo_rows(steps),
-                             mesh), None
+            return stack.on_band(lambda z, uc: stack.forward_stack_uc(ss, steps, z, uc,
+                                                                      remat=remat)[0],
+                                 z, cond, nets.halo_rows(steps), mesh, stack.Hoist(ss, steps)), None
+        return stack.on_band(lambda z, u: fn(ss, steps, z, u, remat=remat)[0], z, cond,
+                             nets.halo_rows(steps), mesh), None
 
     def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None, mesh=None):
         """Run the steps on a.  SR: add the prior's log-density of the result into
         logdet (shape (B,)) and return (logdet, cond); rescaling: return (fake_z,
         cond), the result whitened against the prior.  ``mesh``: a and u are this rank's
-        bands (rescaling only: the SR log-density sums over the whole image)."""
-        if self.sr and halo.sharded(mesh):
-            raise NotImplementedError("the SR log-density over a spatial mesh needs the sums "
-                                      "of spatial training, which is not ported")
+        bands; SR adds the band's share of the log-density."""
         cond = self.cond_feature(params, u, mesh)
         z, logdet = self._forward_steps(params, a, cond, logdet, mesh)
         mean, logs = self._prior(params, cond, mesh)

@@ -16,10 +16,12 @@ level.
   ``calibrate`` is the forward with every data-dependent ActNorm init.
 
 With a spatial ``mesh`` (``parallel/mesh.py``; None, the default, is the unsharded pass)
-a rank serves its band of the image's rows: the reverse and the rescaling forward run
-every unit on the band plus the halo it reads (``parallel/halo.py``); squeezes, the
+a rank serves or trains its band of the image's rows: the reverse and the rescaling
+forward run every unit on the band plus the halo it reads (``parallel/halo.py``); the SR
+forward, which sums a logdet, runs each chain on the band alone, its nets exchanging a
+row before each 3x3 conv, and returns the band's share of the logdet; squeezes, the
 split, the concat and the nearest upsample are local to a band, whose height doubles at
-every level up.
+every level up.  Every path is differentiable, the exchanges too.
 
 The rescaling main chains alternate Affine3shift steps (``lr_vs_others`` True at even
 k, False at odd k) with DenseBlock nets and no permutation; their steps differ in
@@ -162,17 +164,14 @@ class FlowNetSpec:
         # alternating rescaling chains do not
         remat = self.remat_steps and not lv.alternate_lrvsothers
 
-        def run(z, logdet=logdet):
+        def run(z, logdet=logdet, mesh=None):
             for k, p in enumerate(main):
                 z, logdet = stack.run_step(lv.main_step_spec(k).forward, p, z, None, logdet,
-                                           remat=remat)
+                                           mesh, remat=remat)
             return z, logdet
 
-        if not halo.sharded(mesh):
-            return run(z)
-        if logdet is not None:
-            raise NotImplementedError("a logdet over a spatial mesh needs the sums of spatial "
-                                      "training, which is not ported")
+        if not halo.sharded(mesh) or logdet is not None:  # a logdet: each conv exchanges
+            return run(z, mesh=mesh)
         return halo.banded(lambda t: run(t)[0], z, nets.halo_rows(main), mesh, "chain"), None
 
     def _split_forward(self, params: dict, hr: torch.Tensor, logdet=None, calibrate=False,
@@ -231,11 +230,9 @@ class FlowNetSpec:
     def normal_flow(self, params: dict, hr: torch.Tensor, logdet=None, mesh=None):
         """HR (NHWC) -> LR z.  SR: returns (z, logdet), logdet (B,) accumulating every
         step's log-determinant and every level's prior log-density (from zeros when
-        None); rescaling: returns (z, [whitened latent fake_z per level]).  ``mesh``
-        (rescaling only): hr is this rank's band, and so are the outputs."""
-        if self.sr and halo.sharded(mesh):
-            raise NotImplementedError("the SR forward (the NLL) over a spatial mesh needs the "
-                                      "sums of spatial training, which is not ported")
+        None); rescaling: returns (z, [whitened latent fake_z per level]).  ``mesh``: hr
+        is this rank's band, and so are the outputs (SR: the band's share of the
+        logdet)."""
         if self.sr and logdet is None:
             logdet = hr.new_zeros(hr.shape[0])
         ys, a_s, logdet, _ = self._split_forward(params, hr, logdet, mesh=mesh)

@@ -5,7 +5,9 @@ is the forward that also data-initialises the step's ActNorms.  The kinds are th
 package's (``hcflow_tpu/flow/flowstep.py``): permutation ``invconv`` (plain weight,
 or LU-decomposed with ``lu_decomposed``), ``reverse``, ``shuffle`` or ``none``;
 coupling ``Affine``, ``Affine3shift``, ``AffineInjector`` (needs cond) or
-``noCoupling``, with an ``FCN`` or ``DenseBlock`` net.
+``noCoupling``, with an ``FCN`` or ``DenseBlock`` net.  The forward takes a spatial
+``mesh``: the coupling's nets exchange their halos conv by conv, and ActNorm and the
+permutation, local to a pixel, add the band's share of the logdet.
 """
 
 from __future__ import annotations
@@ -67,17 +69,19 @@ class FlowStepSpec:
             return (permute.inverse if inverse else permute.forward)(params["permute"], z, logdet)
         return z, logdet
 
-    def forward(self, params: dict, z: torch.Tensor, u=None, logdet=None):
+    def forward(self, params: dict, z: torch.Tensor, u=None, logdet=None, mesh=None):
         z, logdet = actnorm.forward(params["actnorm"], z, logdet)
         z, logdet = self._permute(params, z, logdet)
         cs = self.coupling_spec
-        return (z, logdet) if cs is None else cs.forward(params["coupling"], z, u, logdet)
+        return (z, logdet) if cs is None else cs.forward(params["coupling"], z, u, logdet, mesh)
 
-    def forward_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None):
+    def forward_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None,
+                        mesh=None):
         """Forward with the coupling's cond term precomputed (see stack.py)."""
         z, logdet = actnorm.forward(params["actnorm"], z, logdet)
         z, logdet = self._permute(params, z, logdet)
-        return self.coupling_spec.forward_hoisted(params["coupling"], z, u_contrib, logdet)
+        return self.coupling_spec.forward_hoisted(params["coupling"], z, u_contrib, logdet,
+                                                  mesh)
 
     def inverse(self, params: dict, z: torch.Tensor, u=None, logdet=None):
         cs = self.coupling_spec

@@ -7,7 +7,10 @@ in the backward pass (``torch.utils.checkpoint``), the counterpart of the JAX
 package's ``_maybe_remat``, which checkpoints the scan body: the recomputation runs
 under the TF32 settings of the first forward (``nets.exact_f32`` sets them globally,
 and the backward pass may run outside it).  Under a spatial mesh a chain of steps runs
-on this rank's band plus the rows of halo that its nets read (:func:`on_band`).
+on this rank's band plus the rows of halo that its nets read (:func:`on_band`), or, in a
+forward that sums a logdet, on the band alone with the ``mesh`` passed to every step
+(its nets exchange a row before each 3x3 conv), so that each pixel's log-determinant
+counts once.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ def run_step(fn, *args, remat: bool = False):
 
 
 def forward_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logdet=None,
-                  remat: bool = False):
+                  remat: bool = False, mesh=None):
     for p in steps:
-        z, logdet = run_step(spec.forward, p, z, u, logdet, remat=remat)
+        z, logdet = run_step(spec.forward, p, z, u, logdet, mesh, remat=remat)
     return z, logdet
 
 
@@ -66,7 +69,8 @@ def inverse_stack(spec: FlowStepSpec, steps: list, z: torch.Tensor, u=None, logd
     return z, logdet
 
 
-def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torch.Tensor:
+def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor,
+                       mesh=None) -> torch.Tensor:
     """All K steps' conv1 cond contributions as ONE wide conv.
 
     conv1 is linear and bias-free, and u is the same for every step, so the K cond
@@ -76,7 +80,7 @@ def compute_u_contribs(spec: FlowStepSpec, steps: list, u: torch.Tensor) -> torc
     """
     cond = spec.cond_channels
     w_u = torch.cat([p["coupling"]["f"]["conv1"]["w"][:, -cond:] for p in steps], 0)
-    return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype)
+    return nets.conv2d(u, w_u, compute_dtype=spec.compute_dtype, mesh=mesh)
 
 
 def on_band(run, z, u, rows: int, mesh, hoist=None):
@@ -108,17 +112,19 @@ class Hoist:
 
 
 def forward_stack_hoisted(spec: FlowStepSpec, steps: list, z, u, logdet=None,
-                          remat: bool = False):
+                          remat: bool = False, mesh=None):
     """Forward with every step's cond term precomputed by :func:`compute_u_contribs`."""
-    return forward_stack_uc(spec, steps, z, compute_u_contribs(spec, steps, u), logdet, remat)
+    return forward_stack_uc(spec, steps, z, compute_u_contribs(spec, steps, u, mesh), logdet,
+                            remat, mesh)
 
 
-def forward_stack_uc(spec: FlowStepSpec, steps: list, z, uc, logdet=None, remat: bool = False):
+def forward_stack_uc(spec: FlowStepSpec, steps: list, z, uc, logdet=None, remat: bool = False,
+                     mesh=None):
     """Forward with the steps' cond terms ``uc`` (:func:`compute_u_contribs`) given."""
     hid = spec.hidden_channels
     for k in range(len(steps)):
         z, logdet = run_step(spec.forward_hoisted, steps[k], z,
-                             uc[..., k * hid : (k + 1) * hid], logdet, remat=remat)
+                             uc[..., k * hid : (k + 1) * hid], logdet, mesh, remat=remat)
     return z, logdet
 
 

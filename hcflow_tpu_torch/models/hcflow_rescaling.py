@@ -71,6 +71,10 @@ class HCFlowRescalingSpec:
             return hr.clamp(0.0, 1.0)
 
     @torch.no_grad()
-    def calibrate(self, params: dict, hr: torch.Tensor) -> dict:
-        """The one-time data-dependent ActNorm init on a real batch; returns new params."""
+    def calibrate(self, params: dict, hr: torch.Tensor, mesh=None) -> dict:
+        """The one-time data-dependent ActNorm init on a real batch; returns new params.
+        ``mesh``: hr is this rank's part; every rank calibrates on the gathered global
+        batch, as one process does."""
+        if mesh is not None:
+            hr = mesh.gather(hr)
         return self.flow.calibrate(params, hr)[0]

@@ -7,6 +7,11 @@ latents whose prior log-density accumulates into logdet; the fake LR is quantize
 -6; the NLL is in bits per dimension.  Reverse: sample the per-level latents at
 temperature eps_std conditioned on the LR image, invert the flow, clamp to [0, 1].
 ``calibrate`` is the one-time data-dependent ActNorm init on a real batch.
+
+On a ('data', 'spatial') mesh (``parallel.mesh.make_mesh``) a rank holds its batch rows
+and a band of their rows: the forward sums the bands' objectives over the spatial group
+(differentiably), so that every rank of it returns the NLL of its whole images, and
+``calibrate`` calibrates on the gathered global batch, as one process does.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import math
 import torch
 
 from ..flow.flownet import FlowNetSpec
+from ..parallel import halo
 from ..ops.densities import gaussian_logp
 from ..ops.quant import quantize_ste
 
@@ -67,30 +73,38 @@ class HCFlowSRSpec:
         device = device_for(device)
         return to_device(self.flow.init(torch.Generator().manual_seed(seed)), device)
 
-    def _dequantize(self, hr: torch.Tensor, generator, noise):
+    def _dequantize(self, hr: torch.Tensor, generator, noise, mesh=None):
         """(hr + noise / quant, logdet -log(quant) * pixels); noise in [0, 1) drawn from
-        ``generator`` (on hr's device) unless given: one of the two is required."""
+        ``generator`` (on hr's device) unless given: one of the two is required.
+        ``mesh``: hr is this rank's part, the noise drawn for the global batch and this
+        rank's part taken, and the logdet counts the part's pixels."""
         B, H, W, _ = hr.shape
         if noise is None:
             if generator is None:
                 raise ValueError("pass the dequantization noise or a generator to draw it")
-            noise = torch.rand(hr.shape, generator=generator, device=hr.device, dtype=hr.dtype)
+            kw = dict(generator=generator, device=hr.device, dtype=hr.dtype)
+            noise = (torch.rand(hr.shape, **kw) if mesh is None
+                     else mesh.draw(torch.rand, hr.shape, **kw))
         logdet = hr.new_full((B,), -math.log(self.quant) * (H * W))
         return hr + noise / self.quant, logdet
 
     # ------------------------------------------------------------- normal flow
     def forward(self, params: dict, hr: torch.Tensor, lr: torch.Tensor, generator=None,
-                noise=None):
+                noise=None, mesh=None):
         """HR -> (fake LR in [0, 1], NLL in bits/dim, the batch mean); hr and lr NHWC in
         [0, 1].  ``noise``: explicit dequantization noise in [0, 1) of hr's shape (zeros
         for a deterministic NLL); else drawn from ``generator``.  Differentiable: the
-        NLL step's loss."""
+        NLL step's loss.  ``mesh``: hr, lr and the noise are this rank's parts (bands of
+        its batch rows), the fake LR returned its part; the NLL is its rows' whole
+        images', equal on every rank of a spatial group."""
         pixels = hr.shape[1] * hr.shape[2]
-        x, logdet = self._dequantize(hr, generator, noise)
-        z, logdet = self.flow.normal_flow(params, x, logdet)
+        x, logdet = self._dequantize(hr, generator, noise, mesh)
+        z, logdet = self.flow.normal_flow(params, x, logdet, mesh)
         fake_lr = quantize_ste(z)
         # a narrow Gaussian, approximating a Dirac delta, ties the fake LR to the true LR
         objective = logdet + gaussian_logp(lr, torch.full_like(lr, -6.0), fake_lr)
+        if halo.sharded(mesh):  # every term is a sum over pixels: sum the bands'
+            objective, pixels = mesh.spatial_sum(objective), pixels * mesh.spatial
         nll = (-objective / (math.log(2.0) * pixels)).mean()
         return fake_lr.clamp(0.0, 1.0), nll
 
@@ -113,9 +127,12 @@ class HCFlowSRSpec:
     # ------------------------------------------------------------- calibration
     @torch.no_grad()
     def calibrate(self, params: dict, hr: torch.Tensor, lr: torch.Tensor = None,
-                  generator=None, noise=None) -> dict:
+                  generator=None, noise=None, mesh=None) -> dict:
         """The one-time data-dependent ActNorm init on a real batch (hr dequantized as
         the forward does); returns new params.  lr is not read (the JAX package's
-        signature carries it)."""
+        signature carries it).  ``mesh``: hr and the noise are this rank's parts; every
+        rank calibrates on the gathered global batch, as one process does."""
+        if mesh is not None:
+            hr, noise = mesh.gather(hr), None if noise is None else mesh.gather(noise)
         x, logdet = self._dequantize(hr, generator, noise)
         return self.flow.calibrate(params, x, logdet)[0]

@@ -7,7 +7,9 @@ The pretrained ImageNet weights are not in the repository: ``load_npz`` reads a
 converted file (the JAX package's ``.npz``, HWIO convs; ``cli/convert.py vgg`` writes
 one from a torchvision state_dict), and ``random_features`` is the documented opt-in
 substitute (``train.feature_fallback: random``).  Params: ``conv{b}_{c}`` {"w" OIHW,
-"b"}.  NHWC in, NHWC out; the convs run in float32 without TF32.
+"b"}.  NHWC in, NHWC out; the convs run in float32 without TF32.  On a spatial mesh the
+features run on this rank's band, each conv exchanging one row each side
+(``nets.conv2d``); the 2x2 pools need a band height that is a multiple of 2 per pool.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from .. import convert
 from ..ops import nets
+from ..parallel import halo
 from .hcflow_sr import device_for
 
 # VGG19 cfg 'E': the conv widths of each block
@@ -43,6 +46,17 @@ class VGG19FeatureSpec:
     def conv_names(self):
         return _conv_names()
 
+    @property
+    def pools(self) -> int:
+        """The 2x2 max pools before the feature layer (4 before conv5_4)."""
+        idx = 0
+        for b, chans in enumerate(_BLOCKS):
+            idx += 2 * len(chans)
+            if idx > self.feature_layer:
+                return b
+            idx += 1
+        return len(_BLOCKS)
+
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Random N(0, 0.02) weights from ``seed`` (the architecture only; drawn on the
         CPU from a torch generator, so they differ from the JAX package's)."""
@@ -55,8 +69,14 @@ class VGG19FeatureSpec:
             cin = cout
         return params
 
-    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """x: NHWC in [0, 1]; returns the conv5_4 features (before the ReLU), NHWC."""
+    def apply(self, params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """x: NHWC in [0, 1]; returns the conv5_4 features (before the ReLU), NHWC.
+        ``mesh``: x is this rank's band, and so are the features; raises on a band height
+        that the pools do not divide."""
+        if halo.sharded(mesh) and x.shape[1] % 2 ** self.pools:
+            raise ValueError(f"VGG19 features on bands of {x.shape[1]} rows: their "
+                             f"{self.pools} 2x2 pools need a band height that is a multiple "
+                             f"of {2 ** self.pools}")
         if self.use_input_norm:
             x = (x - x.new_tensor(_IMAGENET_MEAN)) / x.new_tensor(_IMAGENET_STD)
         # torchvision's feature indices walk conv, relu, ..., pool; stop at the conv at
@@ -65,7 +85,7 @@ class VGG19FeatureSpec:
         for b, chans in enumerate(_BLOCKS):
             for c in range(len(chans)):
                 p = params[f"conv{b + 1}_{c + 1}"]
-                x = nets.conv2d(x, p["w"], p["b"])
+                x = nets.conv2d(x, p["w"], p["b"], mesh=mesh)
                 if idx == self.feature_layer:
                     return x
                 x = F.relu(x)

@@ -11,7 +11,10 @@
 
 The net (``FCN`` or ``DenseBlock``) output is split even/odd into (shift, scale) (the
 reference's "cross" split) and the scale is bounded by
-``logscale = 0.318 * atan(2 * scale)``.
+``logscale = 0.318 * atan(2 * scale)``.  The forward takes a spatial ``mesh`` (None by
+default): its nets then exchange one row each side before each 3x3 conv
+(``nets.conv2d``), so that the affine arithmetic and its logdet see only the band's own
+pixels.
 """
 
 from __future__ import annotations
@@ -69,10 +72,10 @@ class CouplingSpec:
                                                   self.in_channels * 2)
         return params
 
-    def _net(self, params: dict, x: torch.Tensor, net: str = "f") -> torch.Tensor:
+    def _net(self, params: dict, x: torch.Tensor, net: str = "f", mesh=None) -> torch.Tensor:
         if self.nn_module == "FCN":
-            return nets.apply_fcn(params[net], x, self.compute_dtype)
-        return nets.apply_dense_block(params[net], x, self.compute_dtype)
+            return nets.apply_fcn(params[net], x, self.compute_dtype, mesh)
+        return nets.apply_dense_block(params[net], x, self.compute_dtype, mesh)
 
     def _f_input(self, z1, u):
         return z1 if self.cond_channels is None else torch.cat([z1, u], -1)
@@ -91,24 +94,26 @@ class CouplingSpec:
             logdet = logdet + logscale.sum(dim=(1, 2, 3))
         return torch.cat([z1, z2], -1), logdet
 
-    def forward(self, params: dict, z: torch.Tensor, u=None, logdet=None):
+    def forward(self, params: dict, z: torch.Tensor, u=None, logdet=None, mesh=None):
         if self.kind == "AffineInjector":  # the injector's affine on every channel first
-            shift, scale = cross_split(self._net(params, u, "f_injector"))
+            shift, scale = cross_split(self._net(params, u, "f_injector", mesh))
             logscale = clamp_logscale(scale)
             z = (z + shift) * torch.exp(logscale)
             if logdet is not None:
                 logdet = logdet + logscale.sum(dim=(1, 2, 3))
         if self.kind == "Affine3shift" and not self.lr_vs_others:
             z2, z1 = z[..., :3], z[..., 3:]
-            z2 = z2 + self._net(params, self._f_input(z1, u))
+            z2 = z2 + self._net(params, self._f_input(z1, u), mesh=mesh)
             return torch.cat([z2, z1], -1), logdet
         n1 = 3 if self.kind == "Affine3shift" else self.c1
         z1, z2 = z[..., :n1], z[..., n1:]
-        return self._forward_from(self._net(params, self._f_input(z1, u)), z1, z2, logdet)
+        h = self._net(params, self._f_input(z1, u), mesh=mesh)
+        return self._forward_from(h, z1, z2, logdet)
 
-    def forward_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None):
+    def forward_hoisted(self, params: dict, z: torch.Tensor, u_contrib, logdet=None,
+                        mesh=None):
         z1, z2 = z[..., : self.c1], z[..., self.c1 :]
-        h = nets.apply_fcn_hoisted(params["f"], z1, u_contrib, self.compute_dtype)
+        h = nets.apply_fcn_hoisted(params["f"], z1, u_contrib, self.compute_dtype, mesh)
         return self._forward_from(h, z1, z2, logdet)
 
     # ------------------------------------------------------------------- inverse

@@ -26,10 +26,9 @@ def gaussian_sample(generator, mean, logs, eps_std, mesh=None) -> torch.Tensor:
     ``mesh`` (``parallel.mesh.Mesh``) mean is this rank's part: eps is drawn for the
     whole batch and image and this rank takes its part, so that a seed gives the same
     image however the ranks split it."""
-    shape = mean.shape if mesh is None else mesh.global_shape(mean.shape)
-    eps = torch.randn(shape, generator=generator, device=mean.device, dtype=mean.dtype)
-    if mesh is not None:
-        eps = mesh.shard(eps)
+    kw = dict(generator=generator, device=mean.device, dtype=mean.dtype)
+    eps = torch.randn(mean.shape, **kw) if mesh is None else mesh.draw(torch.randn, mean.shape,
+                                                                         **kw)
     return mean + torch.exp(logs) * (eps * eps_std)
 
 

@@ -5,7 +5,9 @@ nets' own ActNorms.
 Functions take NHWC tensors and OIHW weights (PyTorch's conv layout); each conv runs
 as ``F.conv2d`` on an NCHW view of the NHWC tensor, which is channels-last memory.
 Under a spatial mesh (``mesh``, None by default) a conv and an RRDB run on this rank's
-band of rows plus the halo they read (``parallel/halo.py``, :func:`halo_rows`).
+band of rows plus the halo they read (``parallel/halo.py``, :func:`halo_rows`), under
+autograd too (the exchange's backward returns the halo's gradient to its owner); a net
+given a mesh exchanges one row each side before each of its 3x3 convs.
 """
 
 from __future__ import annotations
@@ -182,8 +184,8 @@ def init_conv_actnorm(generator, cin, cout, ksize, scale=0.1):
     }
 
 
-def apply_conv_actnorm(params, x, compute_dtype=None):
-    y = conv2d(x, params["w"], compute_dtype=compute_dtype)
+def apply_conv_actnorm(params, x, compute_dtype=None, mesh=None):
+    y = conv2d(x, params["w"], compute_dtype=compute_dtype, mesh=mesh)
     return actnorm.forward(params["actnorm"], y)[0]
 
 
@@ -219,10 +221,10 @@ def init_fcn(generator, cin, cout, hidden, kernel_hidden=1):
     }
 
 
-def apply_fcn(params, x, compute_dtype=None):
-    x = torch.relu(apply_conv_actnorm(params["conv1"], x, compute_dtype))
-    x = torch.relu(apply_conv_actnorm(params["conv2"], x, compute_dtype))
-    return apply_conv_zeros(params["conv3"], x)
+def apply_fcn(params, x, compute_dtype=None, mesh=None):
+    x = torch.relu(apply_conv_actnorm(params["conv1"], x, compute_dtype, mesh))
+    x = torch.relu(apply_conv_actnorm(params["conv2"], x, compute_dtype, mesh))
+    return apply_conv_zeros(params["conv3"], x, mesh=mesh)
 
 
 def calib_fcn(params, x):
@@ -233,16 +235,16 @@ def calib_fcn(params, x):
         params["conv3"], torch.relu(x))
 
 
-def apply_fcn_hoisted(params, z1, u_contrib, compute_dtype=None):
+def apply_fcn_hoisted(params, z1, u_contrib, compute_dtype=None, mesh=None):
     """FCN whose conv1 contribution from the cond channels is precomputed.
 
     conv1 is linear and bias-free, so conv1(cat(z1, u)) = conv1_z(z1) + conv1_u(u).
     """
     w_z = params["conv1"]["w"][:, : z1.shape[-1]]
-    h = conv2d(z1, w_z, compute_dtype=compute_dtype) + u_contrib
+    h = conv2d(z1, w_z, compute_dtype=compute_dtype, mesh=mesh) + u_contrib
     h = torch.relu(actnorm.forward(params["conv1"]["actnorm"], h)[0])
-    h = torch.relu(apply_conv_actnorm(params["conv2"], h, compute_dtype))
-    return apply_conv_zeros(params["conv3"], h)
+    h = torch.relu(apply_conv_actnorm(params["conv2"], h, compute_dtype, mesh))
+    return apply_conv_zeros(params["conv3"], h, mesh=mesh)
 
 
 # ----------------------------------------------------------------------- DenseBlock
@@ -259,14 +261,14 @@ def init_dense_block(generator, cin, cout, gc=32):
     return p
 
 
-def apply_dense_block(params, x, compute_dtype=None):
+def apply_dense_block(params, x, compute_dtype=None, mesh=None):
     """``x_i = lrelu(conv_i(cat(x, x_1..x_{i-1})))`` for i = 1..4, then conv5 over all."""
     feats = [x]
     for i in range(1, 5):
         c = params[f"conv{i}"]
-        feats.append(lrelu(conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype)))
+        feats.append(lrelu(conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype, mesh)))
     c = params["conv5"]
-    return conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype)
+    return conv2d(torch.cat(feats, -1), c["w"], c["b"], compute_dtype, mesh)
 
 
 # --------------------------------------------------------------- RDB / RRDB encoder
@@ -312,13 +314,14 @@ def apply_rrdb_trunk(params, x, compute_dtype=None, remat: bool = False, mesh=No
     activations are recomputed in the backward pass instead of kept, so only the
     RRDBs' inputs stay (``torch.utils.checkpoint``, as the JAX package's
     ``jax.checkpoint`` of the scan body).  ``mesh``: each RRDB on this rank's band plus
-    its halo, as the RRDB kernel runs (ops/rrdb.py)."""
+    its halo, as the RRDB kernel runs (ops/rrdb.py); under ``remat`` the RRDB on the
+    extended band is recomputed, the exchange is not."""
+
+    def rrdb(p, t):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(apply_rrdb, p, t, compute_dtype, use_reentrant=False)
+        return apply_rrdb(p, t, compute_dtype)
+
     for p in params:
-        if halo.sharded(mesh):
-            x = halo.banded(lambda t, p=p: apply_rrdb(p, t, compute_dtype), x, halo_rows(p),
-                            mesh, "rrdb")
-        elif remat and torch.is_grad_enabled():
-            x = checkpoint(apply_rrdb, p, x, compute_dtype, use_reentrant=False)
-        else:
-            x = apply_rrdb(p, x, compute_dtype)
+        x = halo.banded(lambda t, p=p: rrdb(p, t), x, halo_rows(p), mesh, "rrdb")
     return x

@@ -1,28 +1,38 @@
-"""A dry run of data-parallel training over several processes, the counterpart of the
-JAX package's ``__graft_entry__.dryrun_multichip`` (1-D data parallelism only: training
-on a ('data', 'spatial') mesh is not ported), and spatially sharded serving
-(:func:`serve_spatial`).
+"""A dry run of training on a ('data', 'spatial') mesh of processes, the counterpart of
+the JAX package's ``__graft_entry__.dryrun_multichip`` and
+``tests/test_sharding.py::test_full_plusplus_iteration_sharded``, and spatially sharded
+serving (:func:`serve_spatial`).
 
-``dryrun_multigpu(world)`` starts ``world`` processes (``launch``), which join one
-process group and take the passes of every trainer family on a fixed global batch
-made from a seed, each rank its rows of it, as ``cli/train.py`` runs them:
+``dryrun_multigpu(world, mesh_shape=None)`` starts ``world`` processes (``launch``),
+which join one process group and lay themselves out on a ('data', 'spatial') mesh as
+``dryrun_multichip`` lays its devices out (spatial 2 where the world is even, data the
+rest; or ``mesh_shape``: (world, 1) is plain data parallelism).  On a fixed global batch
+made from a seed, each rank takes its part (``Mesh.shard``: its batch rows and a band of
+their image rows) and the passes of every trainer family, as :class:`TrainPlan` sizes
+them (by default ``dryrun_multichip``'s tiny topologies; the params perturbed from a seed
+so that every net does work, :func:`perturb`):
 
-1. two SR NLL steps;
-2. one full HCFlow++ iteration: NLL, pixel, fea/GAN (random VGG19 features, a VGG
-   discriminator of input 32 with BatchNorm over the global batch, the relativistic
-   GAN loss), D.  The discriminator runs in float64: in float32 its gradient moves by
-   up to 1e-2 x max |g| when a sum is taken in another order (a leaky-ReLU input near
-   0 changes side, and BatchNorm over a few values spreads it), as between the two
-   frameworks (``tests/test_torch_port_heads.py``); in float64 the ranks' BatchNorm
-   gradient is within 1e-13 of one process's;
+1. two SR NLL steps, then one with ``remat_steps`` (and ``remat_trunks``, the default);
+2. one full HCFlow++ iteration: NLL, pixel, fea/GAN (random VGG19 features on the band,
+   a VGG discriminator on the spatial group's gathered images with BatchNorm over the
+   global batch, the relativistic GAN loss), D.  The discriminator runs in float64: in
+   float32 its gradient moves by up to 1e-2 x max |g| when a sum is taken in another
+   order (a leaky-ReLU input near 0 changes side, and BatchNorm over a few values
+   spreads it), as between the two frameworks (``tests/test_torch_port_heads.py``); in
+   float64 the ranks' BatchNorm gradient is within 1e-13 of one process's;
 3. one rescaling joint step.
 
 Before each pass rank 0 also computes the one-process pass on the global batch with
 the same params, latents and noise; the pass's all-reduced gradient must lie within
-``tol`` x max |g| of it, and the D loss (averaged over the ranks) within 1e-5 of it,
-relative.  Every rank records a digest of its params after each pass; they must be
-equal.  The ActNorm calibration on the gathered global batch must equal rank 0's
-calibration on the global batch bit for bit.  Returns rank 0's report.
+``tol`` x max |g| of it in every leaf, max |g| the leaf's own (``bf16_tol`` for a model
+with bf16 nets; :func:`_leaf_err`), and the D loss
+(averaged over the ranks) within 1e-5 of it, relative.  On a spatial axis the ++
+iteration's NLL pass is also run with every halo one row short (``Mesh.halo_cut``), a
+control whose gradient must break that limit.  Every rank records a digest of its params
+after each pass, and its halo exchanges (forward and ``"<unit>.grad"``), bytes, ms and
+peak memory per pass; the digests must be equal.  The ActNorm calibration on the mesh
+(on the gathered global batch) must equal rank 0's calibration on the global batch bit
+for bit.  Returns rank 0's report with every rank's records.
 
 ``serve_spatial(world, cases)`` serves requests (:class:`ServeCase`: the x4 or x8 SR
 reverse, or the rescaling downscale -> quantize -> upscale) on a ('data', 'spatial')
@@ -31,7 +41,7 @@ rank's band, the gathered image, the kernel launches and halo exchanges of a pas
 per pass and peak memory; :func:`serve` is one rank's request, or with no mesh the
 unsharded one.
 
-    python -m hcflow_tpu_torch.parallel.dryrun [--world N] [--cpu]
+    python -m hcflow_tpu_torch.parallel.dryrun [--world N] [--mesh-shape D,S] [--cpu]
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import math
 import multiprocessing as mp
 import os
 import socket
@@ -131,7 +142,104 @@ def _cpu(tree):
     return tree_map(lambda t: t.detach().cpu(), tree)
 
 
-def _rank(tol: float, cpu: bool) -> dict:
+TINY = dict(rrdb_nb=(1, 1), rrdb_nf=8, rrdb_gc=4, after_splitoff=(1, 1), hidden_channels=8,
+            so_hidden_channels=8)  # dryrun_multichip's topologies, with K below
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """The models and sizes of :func:`dryrun_multigpu`'s passes.  ``nll``: the kwargs of
+    ``HCFlowSRSpec.for_scale(4, ...)`` for the NLL steps and the calibration (None: no
+    such passes); ``plusplus``: the ++ iteration's; ``rescaling``: those of
+    ``HCFlowRescalingSpec.default_x4(...)``; ``hr`` / ``rs_hr``: the HR size of the SR /
+    rescaling passes (the discriminator's input size is ``hr``); ``rows``: the batch rows
+    a data rank holds; ``reps``: timed passes after each counted one (on the card);
+    ``keep``: report the first NLL pass's and the pixel pass's inputs and gradients."""
+
+    nll: dict = dataclasses.field(default_factory=lambda: dict(TINY, K=(3, 3)))
+    plusplus: dict = dataclasses.field(default_factory=lambda: dict(TINY, K=(2, 2)))
+    rescaling: dict = dataclasses.field(default_factory=lambda: dict(TINY, K=(2, 2)))
+    hr: int = 32
+    rs_hr: int = 16
+    rows: int = 2
+    reps: int = 0
+    keep: bool = True
+
+
+def perturb(tree, seed: int, scale: float = 0.1):
+    """The params plus noise from a CPU generator seeded ``seed`` (the same on every
+    machine): a conv weight scale / sqrt(fan_in) x N(0, 1), any other float leaf 0.02 x
+    N(0, 1), as chip_smoke.py's, so that the zero-initialised layers (the couplings'
+    last convs, the prior heads) do work and a check sees every net's halo."""
+    from ..train.trainer import tree_map
+
+    g = torch.Generator().manual_seed(seed)
+
+    def go(t):
+        if not t.is_floating_point():  # a permutation's indices
+            return t
+        std = scale / math.sqrt(t[0].numel()) if t.ndim == 4 else 0.02
+        return t + std * torch.randn(t.shape, generator=g).to(t.device)
+
+    return tree_map(go, tree)
+
+
+def _measured(first, again, reps: int, dev, barrier: bool):
+    """first() with the halo counters at 0, then ``reps`` timed calls of again() (CUDA
+    events; after a barrier with ``barrier``); returns (first()'s result, {exchanges,
+    bytes, times_ms, ms, peak_bytes (on the card: the most allocated from first() on)})."""
+    cuda = dev.type == "cuda"
+    if reps and not cuda:
+        raise ValueError("timed passes need the card (CUDA events)")
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    out = first()
+    rec = {"exchanges": dict(halo.exchanges_by), "bytes": dict(halo.bytes_by), "times_ms": []}
+    if reps and barrier:
+        mesh.barrier()
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again()
+        end.record()
+        torch.cuda.synchronize(dev)
+        rec["times_ms"].append(start.elapsed_time(end))
+    rec["ms"] = statistics.median(rec["times_ms"]) if rec["times_ms"] else None
+    if cuda:
+        torch.cuda.synchronize(dev)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    return out, rec
+
+
+LEAF_FLOOR = 1e-6  # of the largest leaf's max |g|: the least scale a leaf is held to
+
+
+def _leaf_err(grads, ref) -> tuple:
+    """The worst leaf of a gradient against the reference: (max |g - ref| / its scale, max
+    abs error, scale, the whole gradient's max abs error / its max |ref|), a leaf's scale
+    its max |ref|, at least LEAF_FLOOR x the whole gradient's.  (Under the NLL's narrow LR
+    Gaussian the flow's ActNorms and invconvs take gradients ~10^4 x the nets': against
+    the whole gradient's max, a check would not see a net's halo.)"""
+    top = max(float(r.abs().max()) for r in ref)
+    worst, whole = (0.0, 0.0, top), 0.0
+    for g, r in zip(grads, ref):
+        sc = max(float(r.abs().max()), LEAF_FLOOR * top)
+        e = float((g - r).abs().max())
+        whole = max(whole, e / top)
+        if e > worst[0] * sc:
+            worst = (e / sc, e, sc)
+    return (*worst, whole)
+
+
+def _bf16(model) -> bool:
+    f = model.flow
+    return "bfloat16" in (f.compute_dtype, f.encoder_dtype)
+
+
+def train_rank(tol: float, bf16_tol: float, cpu: bool, mesh_shape, plan: TrainPlan) -> dict:
+    """What each rank of :func:`dryrun_multigpu` runs; returns its report."""
     from ..models import HCFlowRescalingSpec, HCFlowSRSpec, vgg
     from ..models.discriminators import VGGDiscriminatorSpec
     from ..train.losses import l1
@@ -141,73 +249,101 @@ def _rank(tol: float, cpu: bool) -> dict:
                                  make_sr_feagan_step, make_sr_nll_step, make_sr_pixel_step,
                                  sample_latents, tree_map)
 
-    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
-    main = rank == 0
+    world = torch.distributed.get_world_size()
+    m = mesh.make_mesh(mesh_shape=mesh_shape)
+    main = m.rank == 0
     dev = mesh.rank_device(cpu)
     reducer = mesh.DataParallel(world)
-    B = 2 * world  # the global batch
+    B, hw, rhw = plan.rows * m.data, plan.hr, plan.rs_hr  # the global batch
     g = torch.Generator().manual_seed(1)
-    hr, hr_r = (torch.rand(B, 32, 32, 3, generator=g).to(dev),
-                torch.rand(B, 16, 16, 3, generator=g).to(dev))
-    lr, lr_r = hr.reshape(B, 8, 4, 8, 4, 3).mean((2, 4)), hr_r.reshape(B, 4, 4, 4, 4, 3).mean((2, 4))
+    hr, hr_r = (torch.rand(B, hw, hw, 3, generator=g).to(dev),
+                torch.rand(B, rhw, rhw, 3, generator=g).to(dev))
+    lr = hr.reshape(B, hw // 4, 4, hw // 4, 4, 3).mean((2, 4))
+    lr_r = hr_r.reshape(B, rhw // 4, 4, rhw // 4, 4, 3).mean((2, 4))
     noise = [torch.rand(hr.shape, generator=g).to(dev) for _ in range(3)]
+    mine = m.shard
+    report = {"passes": {}, "digests": [], "records": {}, "control": None}
 
-    def mine(x):
-        return mesh.shard_batch(x, rank, world)
+    def snapshot(params):  # a copy on the CPU, kept where the report keeps tensors
+        return tree_map(lambda t: t.detach().cpu().clone(), params) if main and plan.keep else None
 
-    report = {"passes": {}, "digests": []}
+    def keep(name, params, grads, **inputs):
+        if main and plan.keep:
+            report[name] = {"params": params, "grads": _cpu(grads),
+                            **{k: v.cpu() if isinstance(v, torch.Tensor) else _cpu(v)
+                               for k, v in inputs.items()}}
 
-    def check(name, step, state, args, ref_step, ref_args, ref_state_of=None):
-        """Run the data-parallel pass; on rank 0 also its one-process reference on the
-        global batch from the same params, and compare the gradients."""
-        ref = None
+    def check(name, step, state, args, ref_step, ref_args, tx, model=None, control=None):
+        """Run the pass on the mesh; on rank 0 first its one-process reference on the
+        global batch from the same params (and ``control``, the pass with every halo one
+        row short), and compare the gradients."""
+        lim = bf16_tol if model is not None and _bf16(model) else tol
+        ref = cut = None
+
+        def fresh():
+            return dataclasses.replace(init_state(detached(state.params), tx), step=state.step)
+
+        if control is not None:
+            cut = control(fresh(), *args)[-1]["grads"]
         if main:
-            rs = init_state(detached(state.params), ref_state_of or tx)
-            ref = ref_step(dataclasses.replace(rs, step=state.step), *ref_args)
-        out = step(state, *args)
-        grads = out[-1]["grads"]
+            rs, ts = fresh(), fresh() if plan.reps else None
+            ref, rrec = _measured(lambda: ref_step(rs, *ref_args), lambda: ref_step(ts, *ref_args),
+                                  plan.reps, dev, barrier=False)
+        ts = fresh() if plan.reps else None
+        out, rec = _measured(lambda: step(state, *args), lambda: step(ts, *args), plan.reps, dev,
+                             barrier=True)
         report["digests"].append((name, digest(out[0].params)))
+        report["records"][name] = rec
         if main:
-            r_grads = ref[-1]["grads"]
-            scale = max(float(t.abs().max()) for t in r_grads)
-            err = max(float((a - b).abs().max()) for a, b in zip(grads, r_grads))
-            report["passes"][name] = {"max_abs_err": err, "max_abs_grad": scale,
-                                      "rel": err / scale}
-            if not err <= tol * scale:
-                raise AssertionError(f"{name}: the all-reduced gradient is {err:.3e} from "
-                                     f"the one-process gradient (tol {tol:g} x {scale:.3e})")
+            e, ae, sc, whole = _leaf_err(out[-1]["grads"], ref[-1]["grads"])
+            report["passes"][name] = {"rel": e, "max_abs_err": ae, "max_abs_grad": sc, "tol": lim,
+                                      "whole": whole, "ref": rrec}
+            if not e <= lim:
+                raise AssertionError(f"{name}: the all-reduced gradient is {ae:.3e} from the "
+                                     f"one-process gradient in a leaf of max |g| {sc:.3e} "
+                                     f"(tol {lim:g})")
+            if cut is not None:
+                e, ae, sc, whole = _leaf_err(cut, ref[-1]["grads"])
+                report["control"] = {"pass": name, "rel": e, "max_abs_err": ae,
+                                      "max_abs_grad": sc, "tol": lim, "whole": whole}
+                if e <= lim:
+                    raise AssertionError(f"{name} with every halo one row short: the gradient "
+                                         f"stays within {lim:g} x max |g| of every leaf ({e:.3e})")
         return out, ref
 
-    # 1. SR NLL steps, the HCFlow recipe
     topt = {"lr_G": 2.5e-4, "max_grad_clip": 5, "max_grad_norm": 100, "beta1": 0.9,
             "beta2": 0.99, "lr_steps": [100]}
-    model = HCFlowSRSpec.for_scale(4, rrdb_nb=(1, 1), rrdb_nf=8, rrdb_gc=4, K=(3, 3),
-                                   after_splitoff=(1, 1), hidden_channels=8,
-                                   so_hidden_channels=8)
     tx = make_optimizer(topt, schedule_from_opt(topt))
-    params = mesh.replicate(model.init(0, device=dev))
-    calibrated = model.calibrate(params, mesh.gather_batch(mine(hr)), noise=noise[0])
-    if main:
-        report["calibrate_equal"] = digest(calibrated) == digest(
-            model.calibrate(params, hr, noise=noise[0]))
-        report["nll"] = {"params": _cpu(params), "hr": hr.cpu(), "lr": lr.cpu(),
-                         "noise": noise[1].cpu()}
-    state = init_state(params, tx)
-    nll = make_sr_nll_step(model, tx, reducer=reducer)
-    nll_ref = make_sr_nll_step(model, tx)
-    for i in (1, 2):
-        (state, m), ref = check(f"nll{i}", nll, state, (mine(hr), mine(lr), None, mine(noise[i])),
-                                nll_ref, (hr, lr, None, noise[i]))
-        if main and i == 1:
-            report["nll"]["grads"] = _cpu(m["grads"])
-    if state.step != 2:
-        raise AssertionError(f"G step {state.step} after two NLL steps")
+
+    # 1. SR NLL steps, the HCFlow recipe: two, then one with remat_steps and remat_trunks
+    if plan.nll is not None:
+        model = HCFlowSRSpec.for_scale(4, **plan.nll)
+        params = mesh.replicate(perturb(model.init(0, device=dev), 10))
+        calibrated = model.calibrate(params, mine(hr), noise=mine(noise[0]), mesh=m)
+        if main:
+            report["calibrate_equal"] = digest(calibrated) == digest(
+                model.calibrate(params, hr, noise=noise[0]))
+        state = init_state(params, tx)
+        for i in (1, 2):
+            before = snapshot(state.params)
+            (state, mt), _ = check(f"nll{i}", make_sr_nll_step(model, tx, reducer=reducer, mesh=m),
+                                   state, (mine(hr), mine(lr), None, mine(noise[i])),
+                                   make_sr_nll_step(model, tx), (hr, lr, None, noise[i]), tx,
+                                   model)
+            if i == 1:
+                keep("nll", before, mt["grads"], hr=hr, lr=lr, noise=noise[1])
+        if state.step != 2:
+            raise AssertionError(f"G step {state.step} after two NLL steps")
+        rm = dataclasses.replace(model, flow=dataclasses.replace(model.flow, remat_steps=True,
+                                                                 remat_trunks=True))
+        (state, _), _ = check("nll_remat", make_sr_nll_step(rm, tx, reducer=reducer, mesh=m),
+                              state, (mine(hr), mine(lr), None, mine(noise[0])),
+                              make_sr_nll_step(rm, tx), (hr, lr, None, noise[0]), tx, rm)
 
     # 2. one HCFlow++ iteration: NLL, pixel, fea/GAN, D
-    model = HCFlowSRSpec.for_scale(4, rrdb_nb=(1, 1), rrdb_nf=8, rrdb_gc=4, K=(2, 2),
-                                   after_splitoff=(1, 1), hidden_channels=8,
-                                   so_hidden_channels=8)
-    d_specs = VGGDiscriminatorSpec(input_size=32, sync_bn=True), VGGDiscriminatorSpec(input_size=32)
+    model = HCFlowSRSpec.for_scale(4, **plan.plusplus)
+    d_specs = (VGGDiscriminatorSpec(input_size=hw, sync_bn=True),
+               VGGDiscriminatorSpec(input_size=hw))
 
     def d64(spec):  # the discriminator in float64 on float32 images
         return lambda p, x: spec.apply(p, x.double()).float()
@@ -216,29 +352,34 @@ def _rank(tol: float, cpu: bool) -> dict:
     dtx = make_d_optimizer({}, schedule_from_opt({"lr_G": 5e-5}))
     f_params = vgg.random_features(seed=0, device=dev)
     f_apply = vgg.VGG19FeatureSpec().apply
-    state = init_state(mesh.replicate(model.init(1, device=dev)), tx)
+    state = init_state(mesh.replicate(perturb(model.init(1, device=dev), 11)), tx)
     d_state = init_state(mesh.replicate(tree_map(torch.Tensor.double,
                                                  d_specs[1].init(5, device=dev))), dtx)
     eps_pix = sample_latents(model, lr.shape, 0.0, torch.Generator(dev).manual_seed(2), dev)
     eps_fg = sample_latents(model, lr.shape, 0.9, torch.Generator(dev).manual_seed(3), dev)
-    (state, _), _ = check("plusplus_nll", make_sr_nll_step(model, tx, reducer=reducer), state,
-                          (mine(hr), mine(lr), None, mine(noise[0])), make_sr_nll_step(model, tx),
-                          (hr, lr, None, noise[0]))
+    cut = dataclasses.replace(m, halo_cut=1)
     (state, _), _ = check(
-        "pixel", make_sr_pixel_step(model, tx, 1.0, l1, reducer=reducer), state,
-        (mine(hr), mine(lr), None, [mine(e) for e in eps_pix]),
-        make_sr_pixel_step(model, tx, 1.0, l1), (hr, lr, None, eps_pix))
+        "plusplus_nll", make_sr_nll_step(model, tx, reducer=reducer, mesh=m), state,
+        (mine(hr), mine(lr), None, mine(noise[0])), make_sr_nll_step(model, tx),
+        (hr, lr, None, noise[0]), tx, model,
+        control=make_sr_nll_step(model, tx, reducer=reducer, mesh=cut) if m.spatial > 1 else None)
+    before = snapshot(state.params)
+    (state, mt), _ = check(
+        "pixel", make_sr_pixel_step(model, tx, 1.0, l1, reducer=reducer, mesh=m), state,
+        (mine(hr), mine(lr), None, eps_pix), make_sr_pixel_step(model, tx, 1.0, l1),
+        (hr, lr, None, eps_pix), tx, model)
+    keep("pixel", before, mt["grads"], hr=hr, lr=lr)
     fg = dict(gan_type="ragan", gan_weight=0.5, fea_weight=0.05, fea_criterion=l1,
               f_apply=f_apply)
-    (state, fake_h, _), ref = check(
-        "feagan", make_sr_feagan_step(model, tx, 0.9, d_apply=d_sync, reducer=reducer, **fg),
-        state, (mine(hr), mine(lr), d_state.params, f_params, None, [mine(e) for e in eps_fg]),
+    (state, fake_h, _), _ = check(
+        "feagan", make_sr_feagan_step(model, tx, 0.9, d_apply=d_sync, reducer=reducer, mesh=m,
+                                      **fg),
+        state, (mine(hr), mine(lr), d_state.params, f_params, None, eps_fg),
         make_sr_feagan_step(model, tx, 0.9, d_apply=d_plain, **fg),
-        (hr, lr, d_state.params, f_params, None, eps_fg))
-    fake_all = mesh.gather_batch(fake_h)
-    (d_state, dm), ref = check("D", make_d_step(d_sync, dtx, reducer=reducer), d_state,
-                               (mine(hr), fake_h), make_d_step(d_plain, dtx),
-                               (hr, fake_all), dtx)
+        (hr, lr, d_state.params, f_params, None, eps_fg), tx, model)
+    fake_all = m.gather(fake_h)
+    (d_state, dm), ref = check("D", make_d_step(d_sync, dtx, reducer=reducer, mesh=m), d_state,
+                               (mine(hr), fake_h), make_d_step(d_plain, dtx), (hr, fake_all), dtx)
     d_loss = reducer.average([dm["l_d_real"] + dm["l_d_fake"]])[0].item()
     if main:
         d_ref = (ref[-1]["l_d_real"] + ref[-1]["l_d_fake"]).item()
@@ -250,33 +391,44 @@ def _rank(tol: float, cpu: bool) -> dict:
         raise AssertionError(f"G step {state.step}, D step {d_state.step} after an iteration")
 
     # 3. the rescaling joint step
-    rmodel = HCFlowRescalingSpec.default_x4(rrdb_nb=(1, 1), rrdb_nf=8, rrdb_gc=4, K=(2, 2),
-                                            after_splitoff=(1, 1), hidden_channels=8,
-                                            so_hidden_channels=8)
+    rmodel = HCFlowRescalingSpec.default_x4(**plan.rescaling)
     rtopt = dict(topt, lr_G=2e-4)
     rtx = make_optimizer(rtopt, schedule_from_opt(rtopt))
-    rstate = init_state(mesh.replicate(rmodel.init(0, device=dev)), rtx)
+    rstate = init_state(mesh.replicate(perturb(rmodel.init(0, device=dev), 12)), rtx)
     eps_r = sample_latents(rmodel, lr_r.shape, 1.0, torch.Generator(dev).manual_seed(4), dev,
                            deepest_first=False)
-    check("rescaling", make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0, reducer=reducer), rstate,
-          (mine(hr_r), mine(lr_r), None, [mine(e) for e in eps_r]),
-          make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0), (hr_r, lr_r, None, eps_r), rtx)
+    check("rescaling", make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0, reducer=reducer, mesh=m),
+          rstate, (mine(hr_r), mine(lr_r), None, eps_r),
+          make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0), (hr_r, lr_r, None, eps_r), rtx,
+          rmodel)
+    report["mesh"] = {"shape": m.shape, "rank": m.rank}
     return report
 
 
-def dryrun_multigpu(world: int, cpu: bool = False, tol: float = 1e-4) -> dict:
+def dryrun_multigpu(world: int, cpu: bool = False, tol: float = 1e-4, mesh_shape=None,
+                    plan: TrainPlan = None, bf16_tol: float = 1e-2, rank_fn=train_rank) -> dict:
     """The dry run over ``world`` processes (one card each while the cards last, else
-    several on one card over gloo; with ``cpu`` on the CPU); returns rank 0's report:
-    each pass's gradient error against the one-process pass (``passes``), the D loss's,
-    ``calibrate_equal``, the first NLL pass's params, batch, noise and all-reduced
-    gradient (``nll``) and ``digests_equal`` (the ranks' params after every pass)."""
-    results = launch(world, _rank, (tol, cpu), cpu=cpu)
+    several on one card over gloo; with ``cpu`` on the CPU) on a mesh of ``mesh_shape``
+    (default: spatial 2 where the world is even) and the passes of ``plan`` (default:
+    :class:`TrainPlan`'s); returns rank 0's report: each pass's gradient error against
+    the one-process pass and the reference's record (``passes``), the halo control
+    (``control``), the D loss's error, ``calibrate_equal`` (with an NLL family), the first
+    NLL pass's and the pixel pass's params, batch, noise and all-reduced gradient
+    (``nll``, ``pixel``; with ``plan.keep``), ``digests_equal`` (the ranks' params after
+    every pass) and ``ranks``: every rank's records by pass (exchanges, bytes, ms, peak).
+    ``rank_fn(tol, bf16_tol, cpu, mesh shape, plan)``: what a rank runs, a function that
+    returns :func:`train_rank`'s report (with what else it adds)."""
+    plan = plan or TrainPlan()
+    layout = mesh.rank_layout(world, mesh.AXES, mesh_shape)
+    shape = (len(layout), len(layout[0]))
+    results = launch(world, rank_fn, (tol, bf16_tol, cpu, shape, plan), cpu=cpu)
     report = results[0]
+    report["ranks"] = [r["records"] for r in results]
     report["digests_equal"] = all(r["digests"] == report["digests"] for r in results)
     if not report["digests_equal"]:
         raise AssertionError("the ranks' params differ after a pass")
-    if not report["calibrate_equal"]:
-        raise AssertionError("calibration on the gathered batch differs from one process's")
+    if not report.get("calibrate_equal", True):
+        raise AssertionError("calibration on the mesh differs from one process's")
     return report
 
 
@@ -464,10 +616,18 @@ def expected_exchanges(flow, lr_band: tuple, spatial: int, resident: bool = Fals
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, default=2)
+    ap.add_argument("--mesh-shape", type=lambda t: tuple(int(v) for v in t.split(",")),
+                    help="the ('data', 'spatial') mesh, e.g. 2,2 (default: spatial 2 where the "
+                    "world is even, data the rest)")
     ap.add_argument("--cpu", action="store_true")
     a = ap.parse_args()
-    rep = dryrun_multigpu(a.world, cpu=a.cpu)
+    rep = dryrun_multigpu(a.world, cpu=a.cpu, mesh_shape=a.mesh_shape)
+    print(f"mesh (data, spatial) {rep['mesh']['shape']}")
     for name, r in rep["passes"].items():
-        print(f"{name}: all-reduced gradient within {r['rel']:.3e} x max |g| of one process")
+        print(f"{name}: all-reduced gradient within {r['rel']:.3e} x each leaf's max |g| of one "
+              f"process (tol {r['tol']:g})")
+    if rep["control"]:
+        print(f"{rep['control']['pass']} with every halo one row short: {rep['control']['rel']:.3e}"
+              " x a leaf's max |g| (breaks the limit)")
     print(f"D loss within {rep['d_loss']['rel']:.3e} relative; params equal on every rank; "
-          "calibration on the gathered batch bit for bit")
+          "calibration on the mesh bit for bit")

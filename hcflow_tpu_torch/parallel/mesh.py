@@ -25,9 +25,19 @@ batch up to the order of its sums:
   row (the ranks that hold bands of the same images) and per spatial column.
   :meth:`Mesh.shard`, the counterpart of ``spatial_sharding``, takes a rank's batch
   rows on the data axis (as ``shard_batch``) and a contiguous band of the image height
-  on the spatial axis; :meth:`Mesh.gather` puts the images back together.  A band's
-  neighbours' rows reach it through ``parallel/halo.py``, which XLA's SPMD partitioner
-  writes for the JAX package.
+  on the spatial axis; :meth:`Mesh.gather` puts the images back together, and
+  :meth:`Mesh.draw` draws a global tensor from a generator and keeps this rank's part.
+  A band's neighbours' rows reach it through ``parallel/halo.py``, which XLA's SPMD
+  partitioner writes for the JAX package;
+- training on the mesh: every rank takes the backward pass of its own loss and
+  ``DataParallel.average`` divides the gradients' sum by the world size.  The collectives
+  on the way (the halo exchange, :meth:`Mesh.spatial_sum`, :meth:`Mesh.gather_rows`,
+  the all-reduces of :func:`moments` and ``DataParallel.mean``) are differentiable, each
+  backward the transpose of its forward, so the averaged gradient is the gradient of the
+  mean of the ranks' losses.  That mean is the global loss when a rank's loss is a mean
+  over its band's pixels (bands are equal) or a loss every rank of a spatial group
+  computes alike on its whole images (the NLL after ``spatial_sum``, the
+  discriminators' losses on ``gather_rows``).
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import os
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
+
+from . import halo
 
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE")
 
@@ -238,6 +250,27 @@ class Mesh:
         """The global shape of which a rank's part has ``shape``."""
         return (shape[0] * self.data, shape[1] * self.spatial, *shape[2:])
 
+    def draw(self, sample, shape, **kw) -> torch.Tensor:
+        """This rank's part, of ``shape``, of a global tensor drawn as ``sample(global
+        shape, **kw)`` (``torch.rand`` or ``torch.randn`` with a generator): a seed gives
+        the same global tensor however the ranks split it."""
+        return self.shard(sample(self.global_shape(shape), **kw))
+
+    def spatial_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over this rank's spatial group (every rank of it calls it; equal on
+        each), differentiable: the backward sums the group's gradients."""
+        if self.spatial == 1:
+            return t
+        return dist_nn.all_reduce(t, group=self.spatial_group)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole images of this rank's batch rows from the bands of its spatial group
+        (every rank of it calls it; equal on each), differentiable: the backward gives a
+        band the sum over the group of the gradients of its rows."""
+        if self.spatial == 1:
+            return x
+        return _GatherRows.apply(x, self)
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global tensor from every rank's part (every rank calls it; equal on every
         rank), in the order :meth:`shard` takes it apart."""
@@ -248,6 +281,26 @@ class Mesh:
         rows = [torch.cat(parts[d * self.spatial : (d + 1) * self.spatial], 1)
                 for d in range(self.data)]
         return torch.stack(rows, 1).flatten(0, 1)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m = m
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(m.spatial)]
+        dist.all_gather(parts, x, group=m.spatial_group)
+        halo.count("gather", x)
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.m
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=m.spatial_group)
+        halo.count("gather.grad", g)
+        h = g.shape[1] // m.spatial
+        return g[:, m.spatial_index * h : (m.spatial_index + 1) * h], None
 
 
 def make_mesh(world: int = None, axis_names=AXES, mesh_shape=None) -> Mesh:

@@ -24,6 +24,19 @@ updates on the same gradient, and the ranks' params stay bit-identical; the
 relativistic GAN loss takes its batch means over the global batch through it.  The
 metrics are this rank's.
 
+A ('data', 'spatial') mesh (``parallel.mesh.make_mesh``): every factory also takes an
+optional ``mesh``, and a rank passes its part of the batch: its rows and, on a spatial
+axis, a band of their image rows (``Mesh.shard``).  The model calls run on the band with
+the halo exchange; the NLL is summed over the spatial group (every rank of it holds the
+NLL of its whole images); the pixel, feature, LR, latent and HR losses are means over
+the band's pixels (the bands are equal, so their mean over the ranks is the global
+mean); the discriminators see the spatial group's gathered images
+(``Mesh.gather_rows``), VGG19 features run on the band.  ``DataParallel.average`` of the
+gradients over the whole world is then the gradient of the global loss (the
+``parallel/mesh.py`` docstring says why).  With a mesh, latents given as ``eps_list``
+and those drawn from ``generator`` are the global batch's (every rank takes its part);
+the dequantization noise given is this rank's part, like hr.
+
 Integer leaves of the params (a permutation's indices) are fixed: they get no
 gradient and no update.
 
@@ -42,6 +55,7 @@ params with packed kernel weights are refused (no kernel has a backward pass).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -50,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import nets
 from ..ops.quant import quantize_ste
+from ..parallel import halo
 from .losses import gan_loss, l1, l2
 
 
@@ -206,7 +221,7 @@ def _apply(tx: Optimizer, state: TrainState, grads: list, advance_step: bool) ->
 
 
 # ---------------------------------------------------------------------- SR steps
-def make_sr_nll_step(model, tx: Optimizer, nll_weight: float = 1.0, reducer=None):
+def make_sr_nll_step(model, tx: Optimizer, nll_weight: float = 1.0, reducer=None, mesh=None):
     """G pass 1: the forward flow's NLL (HCFlow_SR_model.py:195-203).
 
     ``step(state, hr, lr, generator=None, noise=None) -> (state, metrics)``: the
@@ -216,7 +231,8 @@ def make_sr_nll_step(model, tx: Optimizer, nll_weight: float = 1.0, reducer=None
 
     def step(state: TrainState, hr, lr, generator=None, noise=None):
         with nets.exact_f32():
-            _, nll = model.forward(state.params, hr, lr, generator=generator, noise=noise)
+            _, nll = model.forward(state.params, hr, lr, generator=generator, noise=noise,
+                                   mesh=mesh)
             grads = _grads(nll_weight * nll, state.params, reducer)
             gnorm = global_norm(grads)
             state = _apply(tx, state, grads, advance_step=True)
@@ -232,7 +248,7 @@ def _clip_global_norm(grads: list, max_norm: float) -> list:
 
 def make_sr_pixel_step(model, tx: Optimizer, pixel_weight: float, criterion: Callable,
                        warmup_steps: int = 0, warmup_start: int = 0,
-                       reverse_grad_clip: Optional[float] = None, reducer=None):
+                       reverse_grad_clip: Optional[float] = None, reducer=None, mesh=None):
     """G pass 2: the reverse at eps_std 0 and an HR pixel loss (HCFlow_SR_model.py:207-218).
 
     ``warmup_steps`` ramps the pixel weight linearly from 0 over that many iterations
@@ -249,7 +265,7 @@ def make_sr_pixel_step(model, tx: Optimizer, pixel_weight: float, criterion: Cal
             ramp = min(max((state.step - warmup_start) / float(warmup_steps), 0.0), 1.0)
         with nets.exact_f32():
             fake_h = model.reverse(state.params, lr, 0.0, generator=generator,
-                                   eps_list=eps_list, grad=True)
+                                   eps_list=eps_list, grad=True, mesh=mesh)
             loss = pixel_weight * ramp * criterion(fake_h, hr)
             grads = _grads(loss, state.params, reducer)
             if reverse_grad_clip:
@@ -260,9 +276,16 @@ def make_sr_pixel_step(model, tx: Optimizer, pixel_weight: float, criterion: Cal
     return step
 
 
-def _adversarial(gan_type: str, d_apply, d_params, fake_h, hr, mean=torch.mean):
+def _whole(mesh, *xs):
+    """xs as whole images: gathered over the spatial group of a spatial ``mesh``."""
+    return [mesh.gather_rows(x) for x in xs] if halo.sharded(mesh) else list(xs)
+
+
+def _adversarial(gan_type: str, d_apply, d_params, fake_h, hr, mean=torch.mean, mesh=None):
     """The generator's adversarial loss on fake_h; ragan against the detached real
-    logits (HCFlow_SR_model.py:236-249), with the batch means ``mean`` takes."""
+    logits (HCFlow_SR_model.py:236-249), with the batch means ``mean`` takes.  ``mesh``:
+    on the spatial group's gathered images."""
+    fake_h, hr = _whole(mesh, fake_h, hr)
     pred_fake = d_apply(d_params, fake_h)
     if gan_type == "ragan":
         with torch.no_grad():
@@ -272,8 +295,11 @@ def _adversarial(gan_type: str, d_apply, d_params, fake_h, hr, mean=torch.mean):
     return gan_loss(gan_type, pred_fake, True)
 
 
-def _feature(f_apply, f_params, fea_criterion, fake_h, hr):
-    """The perceptual loss: fake_h's features against HR's (detached)."""
+def _feature(f_apply, f_params, fea_criterion, fake_h, hr, mesh=None):
+    """The perceptual loss: fake_h's features against HR's (detached); ``mesh``: on this
+    rank's band."""
+    if halo.sharded(mesh):
+        f_apply = functools.partial(f_apply, mesh=mesh)
     with torch.no_grad():
         real_fea = f_apply(f_params, hr)
     return fea_criterion(f_apply(f_params, fake_h), real_fea)
@@ -283,7 +309,8 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
                         gan_weight: float = 0.0, fea_weight: float = 0.0,
                         fea_criterion: Optional[Callable] = None,
                         d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None,
-                        reverse_grad_clip: Optional[float] = None, reducer=None):
+                        reverse_grad_clip: Optional[float] = None, reducer=None,
+                        mesh=None):
     """G pass 3: the reverse at eps_std_reverse, perceptual and adversarial losses
     (HCFlow_SR_model.py:223-254).
 
@@ -295,15 +322,15 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
     def step(state: TrainState, hr, lr, d_params, f_params, generator=None, eps_list=None):
         with nets.exact_f32():
             fake_h = model.reverse(state.params, lr, eps_std_reverse, generator=generator,
-                                   eps_list=eps_list, grad=True)
+                                   eps_list=eps_list, grad=True, mesh=mesh)
             total, metrics = 0.0, {}
             if fea_weight and f_apply is not None:
                 metrics["l_g_fea"] = fea_weight * _feature(f_apply, f_params, fea_criterion,
-                                                           fake_h, hr)
+                                                           fake_h, hr, mesh)
                 total = total + metrics["l_g_fea"]
             if gan_weight and d_apply is not None:
                 metrics["l_g_gan"] = gan_weight * _adversarial(gan_type, d_apply, d_params,
-                                                               fake_h, hr, _mean(reducer))
+                                                               fake_h, hr, _mean(reducer), mesh)
                 total = total + metrics["l_g_gan"]
             grads = _grads(total, state.params, reducer)
             if reverse_grad_clip:
@@ -315,16 +342,17 @@ def make_sr_feagan_step(model, tx: Optimizer, eps_std_reverse: float, gan_type: 
     return step
 
 
-def make_d_step(d_apply, d_tx: Optimizer, gan_type: str = "gan", reducer=None):
+def make_d_step(d_apply, d_tx: Optimizer, gan_type: str = "gan", reducer=None, mesh=None):
     """D pass: the discriminator's update on real and fake HR (HCFlow_SR_model.py:256-287).
 
     ``step(d_state, hr, fake_h) -> (d_state, metrics)``; advances ``d_state.step``.
-    metrics: ``l_d_real``, ``l_d_fake``, ``D_real``, ``D_fake`` and ``grads``."""
+    metrics: ``l_d_real``, ``l_d_fake``, ``D_real``, ``D_fake`` and ``grads``.  ``mesh``:
+    hr and fake_h are this rank's bands; D sees the spatial group's gathered images."""
 
     mean = _mean(reducer)
 
     def step(d_state: TrainState, hr, fake_h):
-        fake_h = fake_h.detach()
+        hr, fake_h = _whole(mesh, hr, fake_h.detach())
         with nets.exact_f32():
             pred_real = d_apply(d_state.params, hr)
             pred_fake = d_apply(d_state.params, fake_h)
@@ -378,7 +406,7 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
                         gan_weight: float = 0.0, fea_weight: float = 0.0,
                         fea_criterion: Optional[Callable] = None,
                         d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None,
-                        reducer=None):
+                        reducer=None, mesh=None):
     """The joint forward and inverse update through the straight-through quantizer
     (HCFlow_Rescaling_model.py:204-264):
 
@@ -403,17 +431,19 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
     def joint(state, hr, lr, d_params, f_params, generator, eps_list):
         p = state.params
         with nets.exact_f32():
-            fake_lr, fake_zs = model.forward(p, hr, grad=True)
+            fake_lr, fake_zs = model.forward(p, hr, grad=True, mesh=mesh)
             l_lr = weight_lr * lr_criterion(fake_lr, lr)
             z_flat = torch.cat([z.reshape(z.shape[0], -1) for z in fake_zs], 1)
             l_z = weight_z * (z_flat ** 2).mean()
             fake_lr_q = quantize_ste(fake_lr)
             if eps_list is None:
-                eps_list = sample_latents(model, fake_lr_q.shape, eps_std_reverse, generator,
-                                          hr.device, deepest_first=False)
+                shape = fake_lr_q.shape if mesh is None else mesh.global_shape(fake_lr_q.shape)
+                eps_list = sample_latents(model, shape, eps_std_reverse, generator, hr.device,
+                                          deepest_first=False)
 
             def reverse(z):
-                return model.reverse(p, z, eps_std_reverse, eps_list=eps_list, grad=True)
+                return model.reverse(p, z, eps_std_reverse, eps_list=eps_list, grad=True,
+                                     mesh=mesh)
 
             fake_hr = checkpoint(reverse, fake_lr_q, use_reentrant=False)
             l_hr = weight_hr * hr_criterion(fake_hr, hr)
@@ -421,11 +451,11 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
             metrics = {"l_g_lr": l_lr, "l_g_z": l_z, "l_g_hr": l_hr}
             if fea_weight and f_apply is not None:
                 metrics["l_g_fea"] = fea_weight * _feature(f_apply, f_params, fea_criterion,
-                                                           fake_hr, hr)
+                                                           fake_hr, hr, mesh)
                 total = total + _finite(metrics["l_g_fea"])
             if gan_weight and d_apply is not None:
                 metrics["l_g_gan"] = gan_weight * _adversarial(gan_type, d_apply, d_params,
-                                                               fake_hr, hr, _mean(reducer))
+                                                               fake_hr, hr, _mean(reducer), mesh)
                 total = total + _finite(metrics["l_g_gan"])
             grads = _grads(total, p, reducer)
             state = _apply(tx, state, grads, advance_step=True)

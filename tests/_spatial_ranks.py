@@ -24,9 +24,12 @@ def run(path, cpu, shapes):
     """For each mesh shape in ``shapes``: this rank's place on the mesh and the ranks of
     its two groups; a stack of n random 3x3 convs run on bands of 2 rows with a halo of
     n rows, gathered, against the stack on the whole image (the max abs difference, on
-    rank 0).  Then the serving cases saved at ``path`` (``dryrun.serve_ranks``)."""
+    rank 0), and the gradient of a weighted sum of its output with respect to the input
+    and the weights (the input's bands gathered, the weights' summed over the ranks)
+    against the whole image's (max abs difference over max |whole|, on rank 0).  Then
+    the serving cases saved at ``path`` (``dryrun.serve_ranks``)."""
     rank = dist.get_rank()
-    meshes, stacks = {}, {}
+    meshes, stacks, grads = {}, {}, {}
     g = torch.Generator().manual_seed(0)
     ws = [0.3 * torch.randn(3, 3, 3, 3, generator=g) for _ in range(max(STACK_DEPTHS))]
     for shape in shapes:
@@ -43,4 +46,85 @@ def run(path, cpu, shapes):
                 want, got = nets.conv2d(want, w), nets.conv2d(got, w)
             got = m.gather(halo.crop(got, have))
             stacks[(shape, n)] = (got - want).abs().max().item()
-    return {"meshes": meshes, "stacks": stacks, "serve": dryrun.serve_ranks(path, cpu)}
+            grads[(shape, n)] = _stack_grad(m, x, ws[:n], n, g)
+    return {"meshes": meshes, "stacks": stacks, "grads": grads,
+            "serve": dryrun.serve_ranks(path, cpu)}
+
+
+def _stack_grad(m, x, ws, rows, g) -> float:
+    """d/d(x, ws) of sum(v * stack(x)) on bands with a halo of ``rows`` (the exchange's
+    backward) against the whole image's: max abs difference / max |whole|."""
+    v = torch.randn(x.shape, generator=g)
+    ws = [w.clone().requires_grad_() for w in ws]
+    xw = x.clone().requires_grad_()
+    y = xw
+    for w in ws:
+        y = nets.conv2d(y, w)
+    want = torch.autograd.grad((y * v).sum(), [xw, *ws])
+    xb = m.shard(x).clone().requires_grad_()
+    y, have = halo.exchange(xb, rows, m, "test")
+    for w in ws:
+        y = nets.conv2d(y, w)
+    got = torch.autograd.grad((halo.crop(y, have) * m.shard(v)).sum(), [xb, *ws])
+    for t in got[1:]:  # every rank's share of the weights' gradient
+        dist.all_reduce(t)
+    got = [m.gather(got[0]), *got[1:]]
+    return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+
+
+def train(tol, bf16_tol, cpu, shape, plan):
+    """``dryrun.train_rank`` (tests/test_torch_port_spatial_train.py), then
+    :func:`trunk_remat` on the same mesh."""
+    report = dryrun.train_rank(tol, bf16_tol, cpu, shape, plan)
+    report["trunk_remat"] = trunk_remat(shape)
+    return report
+
+
+def trunk_remat(shape) -> dict:
+    """A trunk of 2 RRDBs (nf 8, gc 4) on bands of 4 rows (halo 15: from ranks further
+    away), with and without ``remat``: the elements of the tensors its autograd graph
+    saves (``saved_tensors_hooks``) beside those of the RRDBs' inputs on band + halo
+    (``inputs``, what a checkpoint saves), its halo exchanges, and the
+    gradient of a weighted sum of its output (input bands gathered, weights summed over
+    the ranks) against the whole image's (max abs difference over max |whole|), and the
+    remat gradient against the plain one (max abs difference)."""
+    from hcflow_tpu_torch.train.trainer import param_leaves, tree_map
+
+    m = mesh.make_mesh(mesh_shape=shape)
+    g = torch.Generator().manual_seed(3)
+    params = dryrun.perturb(nets.init_rrdb_trunk(g, 2, nf=8, gc=4), 5)
+    x = torch.randn(2 * m.data, 4 * m.spatial, 5, 8, generator=g)
+    v = torch.randn(x.shape, generator=g)
+
+    def grads(xin, band):
+        ps = tree_map(lambda t: t.clone().requires_grad_(), params)
+        xin = xin.clone().requires_grad_()
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel())
+            return t
+
+        dryrun.reset_counters()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y = nets.apply_rrdb_trunk(ps, xin, remat=band == "remat", mesh=m if band else None)
+        gs = list(torch.autograd.grad((y * (m.shard(v) if band else v)).sum(),
+                                      [xin, *param_leaves(ps)]))
+        if band:
+            for t in gs[1:]:
+                dist.all_reduce(t)
+            gs[0] = m.gather(gs[0])
+        return gs, sum(saved), dict(halo.exchanges_by)
+
+    whole, _, _ = grads(x, None)
+    s, j, h = m.spatial, m.spatial_index, 4
+    out = {"saved": {}, "exchanges": {},
+           "inputs": 2 * m.shard(x).numel() // h * (h + min(15, j * h) + min(15, (s - 1 - j) * h))}
+    for band in ("plain", "remat"):
+        gs, out["saved"][band], out["exchanges"][band] = grads(m.shard(x), band)
+        out[band] = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gs, whole))
+        out.setdefault("gs", {})[band] = gs
+    out["remat_vs_plain"] = max((a - b).abs().max().item()
+                                for a, b in zip(out["gs"]["remat"], out["gs"]["plain"]))
+    del out["gs"]
+    return out

@@ -626,9 +626,23 @@ def test_remat_steps_gradient_on_the_card(gen):
 def test_dryrun_multigpu_two_ranks_on_the_card(gen):
     from hcflow_tpu_torch.parallel.dryrun import dryrun_multigpu
 
-    rep = dryrun_multigpu(2)
+    rep = dryrun_multigpu(2, mesh_shape=(2, 1))
     assert rep["digests_equal"] and rep["calibrate_equal"]
     assert all(r["rel"] <= 1e-4 for r in rep["passes"].values()) and rep["d_loss"]["rel"] <= 1e-5
+
+
+def test_dryrun_multigpu_spatial_mesh_on_the_card(gen):
+    """Training on a (1, 2) mesh, 2 ranks on the one card over gloo, each a band of the
+    images' rows: every pass's all-reduced gradient within 1e-4 x max |g| of the
+    one-process pass on the card in every leaf, the ranks' params equal, the calibration
+    one process's, a halo one row short breaking the NLL's limit."""
+    from hcflow_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    rep = dryrun_multigpu(2, mesh_shape=(1, 2))
+    assert rep["mesh"]["shape"] == (1, 2)
+    assert rep["digests_equal"] and rep["calibrate_equal"]
+    assert all(r["rel"] <= 1e-4 for r in rep["passes"].values()) and rep["d_loss"]["rel"] <= 1e-5
+    assert rep["control"]["rel"] > 1e-4
 
 
 def test_train_cli_world_1_on_nccl(gen, tmp_path):

@@ -1,10 +1,11 @@
 """Data parallelism of the port (``hcflow_tpu_torch/parallel/``) on the CPU, in
 2-process gloo groups started by ``parallel.dryrun.launch``:
 
-- ``dryrun_multigpu(2)``: two SR NLL steps, an HCFlow++ iteration (NLL, pixel,
-  fea/GAN and D with BatchNorm over the global batch) and a rescaling joint step, each
-  pass's all-reduced gradient within 1e-5 x max |g| of the one-process pass on the
-  global batch with the same params, latents and noise (the discriminator in float64,
+- ``dryrun_multigpu(2, mesh_shape=(2, 1))`` (data parallelism alone): two SR NLL steps,
+  one with ``remat_steps``, an HCFlow++ iteration (NLL, pixel, fea/GAN and D with
+  BatchNorm over the global batch) and a rescaling joint step, each pass's all-reduced
+  gradient within 1e-5 x max |g| of the one-process pass on the global batch in every
+  leaf, with the same params, latents and noise (the discriminator in float64,
   see the dry run's docstring), the D loss within 1e-5 relative, the ranks' params
   bit-identical after every pass, the ActNorm calibration on the gathered batch equal
   to one process's bit for bit;
@@ -31,12 +32,12 @@ from _torch_port_util import few_threads  # noqa: F401
 from _torch_port_util import TOL, _check_grads, close_scaled, jax_run, to_jax, train_data
 from _torch_port_util import train_option_file
 
-PASSES = ["nll1", "nll2", "plusplus_nll", "pixel", "feagan", "D", "rescaling"]
+PASSES = ["nll1", "nll2", "nll_remat", "plusplus_nll", "pixel", "feagan", "D", "rescaling"]
 
 
 @pytest.fixture(scope="module")
 def report():
-    return dryrun.dryrun_multigpu(2, cpu=True, tol=1e-5)
+    return dryrun.dryrun_multigpu(2, cpu=True, tol=1e-5, mesh_shape=(2, 1))
 
 
 @pytest.mark.parametrize("name", PASSES)

@@ -4,7 +4,9 @@ mesh, ``parallel/halo.py``'s halo exchange) on the CPU, in gloo ranks started by
 (1, 4)), each running every case of its world (tests/_spatial_ranks.py).
 
 - the halo exchange: a stack of n random 3x3 convs on bands of 2 rows with a halo of n
-  rows equals the stack on the whole image, also where n exceeds a band (spatial 4);
+  rows equals the stack on the whole image, also where n exceeds a band (spatial 4), and
+  so does its gradient with respect to the input and the weights (the exchange's
+  backward: each halo row's gradient returned to the rank that owns the row);
 - ``make_mesh``: the rank layout is the JAX package's device layout, and each rank's
   groups are its data row and spatial column;
 - the x4 SR reverse at the TINY topology with explicit global latents, float32 and bf16,
@@ -34,7 +36,7 @@ from _torch_port_util import few_threads  # noqa: F401
 from _torch_port_util import TINY, TOL, jax_run, perturb, randn, to_jax
 from hcflow_tpu_torch.convert import params_from_jax
 from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec, quantize
-from hcflow_tpu_torch.parallel import dryrun, halo, mesh
+from hcflow_tpu_torch.parallel import dryrun, mesh
 
 WORLD_MESHES = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 B, LH, LW = 2, 8, 6  # x4 LR; 4 rows a band at spatial 2, 2 at spatial 4 (HR 32 x 24)
@@ -256,6 +258,14 @@ def test_conv_stack_on_bands_with_a_halo_equals_the_whole_image(world, shape, de
     assert ranks[0]["stacks"][(shape, depth)] <= 1e-6
 
 
+@pytest.mark.parametrize("world,shape,depth", [
+    (w, s, n) for w, shapes in WORLD_MESHES.items() for s in shapes
+    for n in _spatial_ranks.STACK_DEPTHS])
+def test_conv_stack_gradient_on_bands_equals_the_whole_image(world, shape, depth):
+    _, ranks = _launch(world)
+    assert ranks[0]["grads"][(shape, depth)] <= 1e-6
+
+
 @pytest.mark.parametrize("world,shape", [(w, s) for w, ss in WORLD_MESHES.items() for s in ss])
 def test_mesh_ranks_and_groups(world, shape):
     _, ranks = _launch(world)
@@ -291,21 +301,6 @@ def test_an_indivisible_height_or_batch_raises():
         mesh.Mesh((2, 1)).shard(torch.zeros(3, 4, 4, 3))
     with pytest.raises(ValueError, match="does not hold 4 ranks"):
         mesh.rank_layout(4, mesh_shape=(1, 8))
-
-
-def test_the_halo_exchange_refuses_autograd():
-    """The exchange has no backward (spatial training is not ported)."""
-    x = torch.zeros(1, 4, 4, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        halo.exchange(x, 1, mesh.Mesh((1, 2)), "conv")
-
-
-def test_the_sr_forward_on_a_spatial_mesh_raises():
-    """The SR NLL sums over the image: it needs spatial training, not ported."""
-    case = _cases()["x4 sample"][0]
-    hr = torch.rand(B, 4 * LH, 4 * LW, 3)
-    with pytest.raises(NotImplementedError, match="spatial training"):
-        case.model.flow.normal_flow(case.params, hr, mesh=mesh.Mesh((1, 2)))
 
 
 @pytest.mark.parametrize("fused", [True, False])
