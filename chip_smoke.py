@@ -5,8 +5,9 @@
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases:
 
 1. print the card's name and power limit and whether PyYAML, OpenCV and Pillow import;
-   build the five CUDA kernels from hcflow_tpu_torch/csrc with nvcc (sm_90a, in
-   parallel) and print their ptxas register, spill and wgmma lines and the build time;
+   build the five CUDA kernels from hcflow_tpu_torch/csrc with nvcc (sm_90a) and the
+   zstd decoder with the host's C++ compiler, in parallel, and print the kernels' ptxas
+   register, spill and wgmma lines and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at every shape of
    the main paths, with bf16 weights perturbed from a seed, and time both: the x4 SR
    path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
@@ -142,7 +143,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    equal after every pass.  Each rank's forward and backward halo exchanges and bytes,
    ms a pass (median of ST_REPS, CUDA events) and peak memory, beside the unsharded
    pass's, with the card's name and power limit;
-14. print the kernels' JSON line, the card line, then the JSON status line last.
+14. the orbax checkpoint backend (utils/orbax.py, utils/ocdbt.py and the zstd decoder
+   csrc/zstd_decode.cpp, built in phase 1 with the host's C++ compiler) at full width:
+   (a) cli.train.main on a copy of configs/train_faces_x4_nll_onchip.yml, which keeps
+   path.checkpoint_backend orbax and resume_state auto, on phase 10's synthetic
+   LRHR_PKL data with only the dataroots, path.root, the save frequency (2), val_freq
+   (4) and print_freq changed: 2 iterations with a save at 2, then --max_steps 4, which
+   resumes from 2.state: the resumed params and Adam moments equal the saved ones bit for
+   bit, list_checkpoints shows the directories retention keeps, one validation through
+   the bf16 RRDB and float32 chain kernels; (b) 4_G.ckpt through load_any (equal to the
+   trained params) and its pickle copy served on the kernel path at phase 3's shapes
+   under the same latents: identical SR batches, exact launches; (c) cli.test.main on a
+   copy of configs/test_faces_x4_onchip.yml serving that directory on 2 synthetic pairs;
+   (d) three zstd frames tensorstore wrote (TS_FRAMES: Huffman literals, FSE sequences,
+   more than one block) decoded to their pinned SHA-256; the seconds and MB/s of saving
+   and loading the x4 _G.ckpt and .state through each backend, in turns;
+15. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
@@ -2510,6 +2526,383 @@ def phase_spatial_train(torch, card):
     return out
 
 
+# ------------------------------------------- phase 14: the orbax checkpoint backend
+ORBAX_SAVE_AT, ORBAX_STEPS = 2, 4
+ORBAX_TURNS = ("orbax", "pickle", "pickle", "orbax")  # the save / load timings' order
+# zstd frames that tensorstore's zarr driver wrote as chunks (compressor zstd): (what, decoded
+# bytes, SHA-256 of the decoded bytes, the frame as hex)
+TS_FRAMES = (
+    ("132000 bytes of text, level 3: Huffman literals in 4 streams, FSE sequences, 2 blocks",
+     132000, "ebe11e37167f33d17e85d0546fc87b4dc98852b877b53e8505bbbd2f481d6bbf",
+     "28b52ffd0040a48f00565c481490650704a21da61f1cbf2695c8ddddf9f4fa971c4300410041009c2e509bf7c9d1"
+     "a8242f38299fd61befcd1ca883ed7bc9879ceb651e771eb81707430e14d3233db5277284f80984d62a3e58030757"
+     "defdfa6ea6279037ee372703a202b15fa07bb0bc0c064f98d436c78136d093e151ad2def1ad98a5fc28f53f1539c"
+     "887c0f1fe007cf1d238337cdbedb1b21fb40d284933f1c750e55d78b346c3ab0347db6dd77d0b73a1c29f50ef0fc"
+     "74eaab15395a2f9ef79ee312e3728c171c6063594972243ee9388dd8dbecb3ef4d0959b11c28a4a560f2082d78b9"
+     "8b9974e754472235221ecf392a941facf3056943f847ef84889430e7b217ba1dd0d7c5a423670bad16e99c8c8b7b"
+     "59d9f9b0a2fda7ce1b8d9fb08a319c996ef64a96094a202f038822a8d4bfff0f280310204004e304478cf9001400"
+     "00015e0001fe320454a245200002a02a82403b493f4322a7ec037ffaa35bbf85717ea0c62800fd9e63c58a546dea"
+     "ec7da0560f4b7202f0194d5ac116c9f6108364b59242857be456ac859a2726722a8c711350bfaf363b6cd7c537b5"
+     "8b7010b4b02ceffce4c025b303c00211e3e66d5553041f1b80fa3b5a6649b468284d23afcdc671599a77a8d7b069"
+     "04f1e9deec575a79b27d048e6a445ab5ba86cf08823c6861d6f5da70dc957a2b76ef63f464c32f6de13e9b0bdd83"
+     "a0ff034db78aa362826b4d2aac91a458b0a68e64359d5207c3a325e7f16df7fa5dfe613cd91ef976a71ef97a7f7f"
+     "0a54ac2040417fc6870002c983e78cadb06befd680e0a42a9be1e95561a5be491f2442024ece685554f09256248c"
+     "d48f3d601bac476de291d3eecd2e95d24a29eee948099e3fd90874f3244028b2b537f6f524148288b8c3dae61877"
+     "27f732c92b96bc4b815a0c4ba3071f08cc08766a2ba1401061b4e7f47554da6a1d6101d62fa005bb23ea29620735"
+     "da755248f4757393de08a9961e4527fc8e533409f9bac1cb7b72db043dc91927801d2584157637317642617b32d4"
+     "8a4b64f5b72df43f87d34e3f014f7cbf0a8437dd2f4886c4ca92b8a64e84fd3c20628fc7ad191003680698a8cc99"
+     "948bf52d7f7d8d74236ad5aab35f7d6258c0c5c49ebb521658f133066b252afe23d31a14b561ac4241567a8a5bc2"
+     "3af57fc24a1d24471130cb81c19c995e0be64b6fbd544b9a26b84887d5c2b499d1514fad950a3f72ae792ab56206"
+     "dd1d3e28dd43e51bc1afadec537b49aa5fa74570242ac35f34dfd9ed7c10796e453a7b929f23b7888fbb79547016"
+     "25ace43aa74d406603a4d4cb25505f27a6038070f9b19240bf4e8bf83a63dd7db57fc70d91b322dfd0e6775e12b5"
+     "a7121e6b509e1b199179ba2cfbcad90c8d610eb9b0ac9e80babe9237de50043a054b5410e0a0424c4d3c96231805"
+     "589bde2c0fd09b38956211b768ace367cd3ef43125eee14662e968b524ac0d2829f993700167884e454f51b7a640"
+     "4dc931be0aea27bb99d0a7a1e0c9681c8ea05b992672ea85184054a10fe1f49f96025ada86d9f07a23a60a6ea6b5"
+     "fd1d50ebfc20491bec7260657afa16df93fb8c5d549f17096ed344ef23a84014654493f9971e06c21292fd00a04d"
+     "cf651f3250322bb3ecb7ae72c86400e145d2b35e9af2f268743d1ca5364c402d4dcc16dcbf788902ed24f6c96760"
+     "710cf85c82fbefa45abbc3538779aee3cac491b593fd1b920ec4076e91a999a854d18fe3cd5a162f862840ddd7ce"
+     "4e944f9311b5a995ea491976d046ac9e96a6a21ee12a5ea835b1d469891c01024acf2e2a37273e7703ad7bb14a21"
+     "960c3165a46c3105cd5be9d392d0bfa90e38e815246721cdfa795ab80baab26b356d4d0c21b3147bb1cddb377069"
+     "99b20bf1a8a366d948f2f058728cf7a47a6b8267043725d015595a180f63cce484dc2e2786044c5ce3aa5f21e579"
+     "8202aaf9029cc280538fe2bb444e37e7a37f3692ebb2d6cd601d49eaf34e5705ba1d1eb08b4b7e1b649640c6bdb5"
+     "4be26bc23c5bbb019e972df9f4ab68718fec65a48b0df7bf8d1f789e2795f19ef443df5b564f62c2158067f86145"
+     "98d8362d1fa240829ea9cb51fb31e989d22829844ba1f6d2adc5b05c9fb250d1fa96394a070ce01297272f10bad7"
+     "c54fab3599bb05054fa9a819abcf142aad880a7fe4916d2ed49d8cfb579c546981491dbc35ad98da4669c94911f2"
+     "901b33bacab1e59374155330440701092ac4d4e9450478145073c0a4067abb4e4514ad39671dbcaa6e9bf9fc4565"
+     "e3709b8b49f61c576656672fb0087ee58bdaa86b026581c0bd259ff6e3ec33dc5617d617356da5d66b63b27e3080"
+     "93de2e522d550ecdd077646215444775e3804c7dfd5357ba9efcf1902de2630f38f545dbf2368bfe91ea7c41af0e"
+     "394a69d34fd3c2ece5530672268b3800551127c00149a7126913ab404c0fd0a6977a29551c0e3398b26ca0dbaa07"
+     "fdd5a172681fd753459ce62da947baa0bfc96fc9c039c72f0d40d75b572a656e4ee2600ed2dc77f3eeadb9271522"
+     "24a689f61677f78f506c685a2ca1d533388ff0d614a677c5c90a53a5a500246cec6af2927274992867b86ef4ec9f"
+     "3103d667f3d407e141f0e1b2e766c433162997e44c0184ff65ee518544665c5ba7076cd00702f67a5df2830ee365"
+     "90a16b1401d5521e7362a99492c76c04947b789a7bea69cb6454ec223642a9a29ca9afaad43a2d1b9622a5a9c6c8"
+     "a17bbb4e45a489314675ec161e9bbb63ca346b6d0c8e23a4a347d3a5048a45e5b467d67a54f1bffe1388cc1d11db"
+     "670a15959b96ca875fd82bc1a69caecb8f7a0cbba54a94ff4a13f417cb86b12561fd0e2d6ada126a95393c8b1bb6"
+     "da5e22864a37d28d2a912445e1959b2c2ae5a1a67576d65638431c54ead84107870e9815486c93a7c100c8d1cba6"
+     "dd8ff39951325241373da54e659321b31a134766767ccbefe15cd026feb78624290878caebb3a77c090b921c943d"
+     "b54fd435a3cd55675300fa85b4507f9b9607ad4dfbc4bbebe67dd8d30a22219938a9d98942236cf8910182f68a3a"
+     "d26a390cf656ae65887af813284bd006e6a79393dadb7b6aa3275da01f47a88eebaf8162e898c28b34c859284e0b"
+     "c551198213ff66072dc0a06904b47c98d62590b146be270fde914a28cf8d7bdc895e9b4d42e16d5cb1598dbdc422"
+     "fc155df446cd2ccb02997b4bba76a47d86f3add5e056de54a5fd0a87aff83d5ae00f23fad20730a0a17c0e86cd4c"
+     "169c25278af9613321d728d72356059a94d16fcfba40cc087a22484bff0ce9a16b8a086479f80cd32844b77fed8b"
+     "9347000b2628b1e27769813a2e61df86ce93668c394790a842d62c251528349927625a3415cf0874709d7a53042e"
+     "eaf147bc21bb0b18a747a50fa898e1f3fb52c0207f5807a8cf5f3fbfdc546a374469a9b20a11a82785255258f3fe"
+     "e32ae0bcf9b02da04762da15ecbb0bac0813daa6e5431588d03b75296a3f463d411a1d857429b63068028fa56a2c"
+     "42c190b7cca37461c02eb11c5481ccbd5d7264bb2dc37181a0e4df0b52f6149eb041e4e169109d4d55e0e93c5f06"
+     "349d5a4168f2152afaa36eb84203057b3feecd80d88dde001795358768ee3451e34a6195e6d617217a82f8b0f984"
+     "8b7412ab0016bdc5a6164a6043bc0e1aba4779a9c86b2ab79081ea3d526165a58c79af54bc2c84bef97be26fa45b"
+     "f24f1da0acb12b68cc852951122f9b9844efc153fbece0106a56e7a897f99ebfb94a74b9747950ae5dd1e8ade821"
+     "05e539054dcd161ba428c8595901af5bc45a082fc904dafda9d88013c934b51483fe9114bacbe9570240eb10cbaa"
+     "6d7f34fbfff864370b0900626782f03de2212ebddda71a6fd521f1718cacb9457de804f0a9554f532918358122ed"
+     "2e5426f88b1837a79f4e0bf7a38bc7ec4c5975ed8be8e287bfde3e5301e9b89c7f87ac8afbcf5eca86783c84398f"
+     "3d453fad7a45db5ef222d3371490895e5f9c586b294902a5273a4f8039c0f4e63eda674369696bc554d491a43553"
+     "6a8a5d38055cc9153d0960aad5332cab6624142972b6c5f82f6cdc2a974b81a72cb9b652f9f6abb7f7d4447dda36"
+     "97831782d33b93468d31454f6490b2a0d9877d8cea2eda363acb82483f4fd0f04993a2b2016c2040cc87e8b5c289"
+     "d31a193c472ac90134add4d4484ad216bce7d8a37f5029b7fe142a614184c2caaabd8014305d2955b3e46e37db89"
+     "125d04e6d15b335570a82bee3b62b73eb2d24efbf453b490d6f1621d00f840abcd6db4cb86d7d2d6caa828474a6b"
+     "86d48c349a82a84415f3042f6caad52a03ed06f509b064a6a58f81b004e4e90114d4db61ad88278679055a16204e"
+     "7fc63de5dbc49e9fb340c0388a8551ec566246a4301b826841e9093453f53f78dbcbc599a619e48d8ae5edd47e8f"
+     "dfc2c97fea4c1820a2705f4d94c559bf708338617229cf224e63965e130915524f57759f1e3435964e3135156524"
+     "52bd8cda110ab2a6168ad1b83d9002b41030bd39554a0908acc63a447fb4eaff45f1e6b83b56dc27b827ee46ba25"
+     "f1c401ea1abb82b6dc4f8925494ca8fc3dc8d4fcc4e243a4599cdfe915f6574354e6a304945acec9bc972e06cc12"
+     "c9b20590a5b7155244da645009590d5ee5680de00ba994c54fd3227e57f60c64c1602914b9779d043d8c1a984c2e"
+     "19abba4cbcbdb1d2c3d0534498b24104905af04c79abccbe260b5534a45ae7a00474d49be3a7ea1f312dae111434"
+     "9ba56b4c7d1316043b3c11439f6df4831b135ef5bdb290faa101667aab4aa5f4583a217348d15c48fa069fdd535d"
+     "95e53921ea09105ec0c208307ad667fca8c99ce5d65898d55587839fa50d87f03b8d6b04e8c768269e171af88c1a"
+     "f242d7a35be02953018e70d10959a403c5ff405b895d7ad421af8c9ebf1a2ff6c4a90d02005184cedbd471420830"
+     "0c35e618a4cad88011ca2ef8ef094635ae94ac9e5e5a11ea8aedf5416d48da0121f572a2b51c98986a488def0029"
+     "8312d2a3249e013ad61b33d5205bd209d27176e60709d05caea4bf5bd3f7c426ea6d813f63264740f30594385c4d"
+     "329321088c9f7ef71af85d7077f588cac5cf1d28c881a90ce02f661638fd3e2db03b1d140fd8d9a1aa3366f10df1"
+     "40ffa2130701033faec8acc65e6011fa8a17c5516bf67381d0bd927d8fdacedce9a7fdc636b609c35a7292cf1c42"
+     "99135e0b07b3a1b75eaa2152afeae07acb4aff6ea1963a4b42fa71772eaf7fedaab4db0554e44aca88c9d375d98d"
+     "cc0d600bb9460933b12a509e8cfe19d6058a46909e06a7dc5b524f7ead54f07d240e02c6bf5d1d6cbc7140b4a8ea"
+     "f1f71ff6a78e8a0a8214f697fd78c6018c8c97e4807e7c2ad3a11530388fb4b5c998c625a0f7bd8aa922808f96a0"
+     "d78e1cbdb4eb6769e1ccd8d90a34663e0bc755b4660c7240d5dcbc72d332e60231f76a5de28384d90d59e8ad44fe"
+     "f32d8531223588a662355a8e8af68828550df5e7bb3d522e4219325610d6d1da969ef1449fa2a5124b244885c2fc"
+     "66590072468d9cc1a0f4464e55a4a36d195b878f944bf3db80ca705f39f1e492d64d451e818b544e6d510464bd84"
+     "3b9794df7142fc115b2919659bda86bdcda702440f02097e888563035240ccf14c85e9ed2a95924ec9f9ee2855d5"
+     "947a1ebfcc6096fe961170e555a1cec0529e21bf70c4867b528911b18570348be79c468d4180a4ab48e1ccb52283"
+     "371cb1beede9b240b583ad77cb65e07110e8deeb75d1de2ccc4657ab8b20de268a8cb8bb0c8dab475c2e0ea650a9"
+     "49db02f0206da25441f418ee4b271930cc47730eade24a590d7de8fd7505493355f2525f6fee4965c602ed995bcb"
+     "e15773b48903b2e6ec959b9afd341049efb632661e397c332cc895302e985f39afc9352d92416504a9ee9d4ead49"
+     "62cd9a9c8e3d1e3a0796317310e842d1afeab4641561a6461fb4cc22d6929c10ffa57c328fd1888dce41961642c5"
+     "3d02aae8a0dec492a78d1ab925148b6fbb976d621761860e81987bd132604cc2c1341d77e9e9e788a4feadca7319"
+     "15148eb86236fdc569a8341eb618e539b4f4bc049ffe27911b5afc04b2a1ed3bf698d90267cfb5a92afcc0502125"
+     "a7dcbb42cb98428aab033e6780571662bf3b80446f75a994764b27940ed40e1272468395a9a22a3d7edbd62ddb07"
+     "8d1af0046b90501c1fbeb662accd6a417884c4e25b17ba6a417758aac06718dd3cb64323b3465c03f133e39e69c1"
+     "d407214010e1fbbd72a893c08b6315a799828441161fc9050fad167e6293a2781b66b51e2ab291acba8fba100ab0"
+     "362dff46bab0c6497ffac0f8740c99f8b3eeb35743e7e1dfc0ed2a9569b12414cf01b2c68a8fc3041079b1041ecb"
+     "a95f142aba6b23c44fd766bf028a1a4d8a2b37abb0975884bff2457dd499bd2c50b86792e400beb7fd223fd14ac7"
+     "31dbfca820468a668fd48ccc1cca5969e577f73e817baab6280c2b3d87f81f01e2f427ccfd776cf2f09fd590f0ff"
+     "e5fe37f20fdd000008780700cc8b81ca8a0826cb0e945136016992ac02237183a60aae"),
+    ("2048 float32 of 16 values, level 3: a raw block, then FSE sequences",
+     8192, "6a3ff7a241155f9902515ea91e7f6af0f0f1f78f300c1b062b9596609899e637",
+     "28b52ffd0018e4390014049610033eef98ee3ee6e1ef3f38b97d3fd03f113f1339993f767f9fbf7f4240997d893e"
+     "2e818bbf85c1903f7b5477bf44cf7b2f4ca53caeee9b9610033e4dafb2bd8474a8c39fa434ed1b03116060504832"
+     "980e8a763f13809120d07cf41cb3fd6d9605f819ccf246101e8f56f37ec0e933439fb78dbb7c08a7ca5b8746cfdb"
+     "0f90b7c8aecfd24dec397f3e4ed67b18fc89e7868ffb3fc94ce75ff408b79a27761857892bf6044ff866fe58747e"
+     "de1a67940f8487f2ee5c2c69d50359e416d29fd85bbe042bee78c35ff5cbbfa0673879daf86b7c550e13b71985eb"
+     "cdf3bb0847ff76d0d18ff3a15fa18d56efd5f44e7599fb105fc6c20c6f7e1f2eabc0d68c376fdf78b9bfe3b9153b"
+     "b207fcca4bd7d1597aaa4e45e34be3e2b619f84db3815f25dddb656f5c3fc3d6bcfd0af2181cbc81b5c6573db3bd"
+     "3a7a1e94bee05a3008f8876f4f7c99a0a77b07d6f260dee5fe84afb2833dc7176d5d5ccddc5a3ca17d7525fc5ba6"
+     "eab63cb21fe9469ecd2e1ed29e0da6cbd6bbe4ebc3e7f9159ce77f16a2e3f033f7cc2ac4b366a0fa81fb3ccf9f31"
+     "28c3ff27eb28b73e9bcdc8e55071ff79d66304bb4fe85593d1bc479e9579fe797755f77f4e84fddb26bf6bfd56da"
+     "cfab7d47e8eb9bf1ce1e7bfb12e41a7d189ec12988ec6b374626f219e49d7cd66f9e23fd2cfac93f74b6dd57e027"
+     "c6ec8178d487dbcc856d6559df74377c7c8fa5d7fb1fb8f990133771c389b788bffc1c2f899d00bac1d96ef43f66"
+     "fe18e3c05b6d5d38dec37c964e97f83f1b775bfe837d889fdc1ce0ead840dbd285be03ace3caeef55b873b6df468"
+     "d547f9a67ce457683dc80b7d404c0d43fe3dc3f1f9e2a26bfd406a3bb0e134f22166fc47f30e27eda5e191ffd50b"
+     "ecfddc8563a01fbb3fa6bff687e0009e9b5eeeb05ef9e6bcdfe3f1fc6167c6f1cbbf6bab769ec5db7429db670dee"
+     "4e68f317c8e30f6204fdc6f4327b4277e4d09d46e3b03336998396d7245f6adfd6769c0139439faf103bda5c6eea"
+     "f71ad6bcfcce77849dfc125d1b78a72ebb3f2dd43fa640f3a5bf938ceec1ee929a9ffbef9c3ef79fb336cb7f1813"
+     "cdac7305ce139fa9ffa0813450d913ec24d8c419b95b8b4bb855806fa77c4c00ceec8a9a8a03f9dcf367793d0ff8"
+     "749ced77b6f79fdfa133dcee5b8ca1ede79ea1b9fdaee44938f9d24b74ac7ab8352dbf4bd5effd1ace6b1fe20de5"
+     "8bddb093b9666f645a9691473cf01df4772d5842db26deb94798e93cf053df7988ff7dd35dd0364c88ab0376bab1"
+     "4636e0166dc0e17376958d19972dfd221679c112bb08dc470eb8dde966d12a78211bb88111fd087ac8430ee64edf"
+     "6d14b80ecd4438c0d5e50f9c96763c4769495cb1dbbf23afe1cdea015c87034c5e74dc2ef9b72d576fcc23ea720d"
+     "e2edff6ae768bc0d9f9f68ae5c9b87e27f4e3b47649ec5c79ee543f1f2023c7e6be7cc634e87e1d085ff73be71f1"
+     "1f83f7cce31d5ee157f5fff89cb9099e786a63f6c0cda016ddebe4999827f0e72cbfe7e4c6e10f7de77d3e004fbc"
+     "c147ca4227ba223b66335f24fffafee89aba8f2be6bfcd84beba07710f7dd4f8a2f3f856fbff1a78e437f72817f9"
+     "04ea7fc211fb614faed00e5c708cefc636f2e8e8c92ab6e0bffedbeefedc368fdfb7ce4fff20cf34b121cfa7fff6"
+     "523b7aa1cfbc51bdce7dfc9ef849cc8b2f7e7bfc5c80bef0e52d69acbc62cf39cd5ef9551fa2f92056a107f611ce"
+     "c6c9dbcfc63df1c55321024bb1e18837f430b8fa16daa6a3e6ed33f56cf062d435dde113f57a86c7cfe2c21fd033"
+     "fb38c3987b76f3e600de417e3658fed5370af166df7c445df76f7dbfc1c36bf0793223bb5e9bf81cfe2d792dffb2"
+     "cf7ea887e53844ebf5dc0f1fee87413c192ffdfc7b3aad7f985ac15eaf858f51cffd9299b6ffde711bbfed337ec1"
+     "cdc73773ec1fd6d13a86e5d8c72f74d177f4280e6517a7d966b9c579b1d743dd4f7ad6ade0e5846be4aec1c73843"
+     "98b18571c496f8859f17e04abbfd647f836d7eea1f38f361d2fafd9ee2fa6eec431de6fc38e5adf9522e7103c7fc"
+     "03dafd171fbf33bf1f993cfea97f7189cd977bbbbc65ce67fd399ea903605eb7e625ff76789099f0ee6ee3d275fe"
+     "4a4fabbbe7fc1770f383d5fec1e3119ad9eef3fc09c7efef1ebd2f70cc0e5b351fec92df670037b7dda33d6e76b6"
+     "73b738e018ffb3c34fc521b2c440ef7ce635974e7ff6dff1e67d66ee93cedafd8499b3dfa3e565c84ec0b3f9e3c7"
+     "7d6bf7f6e7651c53bf07b8bf6c5b05dc9f590489d5266ecf2979e44ff05fd3dfb42703f2bb1fe97aef3de897e17e"
+     "d976bb797bae1d5aa3dffbe725d7def393073faf871fccb3e1fc62bd7c6c33fff3594ecce1af26f3b34bb0f1184b"
+     "61122e1ebcaa3e76f03687eabc87e7e939e2ff8466c7dc66c2fd89c53abbdfb30db691e347f66179bdedd737763f"
+     "ef668eecb67d3fe7a599ed23838c01434ec3faf42dad3af849ee8defa3273ee12fbb9423c5ad69a7c144cffc98de"
+     "36250b9e3ac06e8d8733ffe909660383232e7e620e8b9516f3f25fbab039e7533cfdff341d3ff9d00f037f9f426a"
+     "a400e1937f1ff629dfcd3186378f4e1acddcecba02010000"),
+    ("a 0-d int64, level 1: one raw block (orbax's step/0)",
+     8, "03e7fb02cbc33eb45e98ab50b4bcad7fc338e5edfb5eca33ad9eb7d13d4ff106",
+     "28b52ffd000041000015cd5b0700000000"),
+)
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of the arrays (numpy or torch) in a tree."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if hasattr(tree, "nbytes"):
+        return int(tree.nbytes)
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def _orbax_frames():
+    """(d) The TS_FRAMES decoded by the port's decoder (built on this host), each held
+    to its pinned size and SHA-256."""
+    import hashlib
+
+    from hcflow_tpu_torch.utils import zstd
+
+    out = []
+    for what, n, digest, hexed in TS_FRAMES:
+        frame = bytes.fromhex(hexed)
+        t0 = time.perf_counter()
+        got = zstd.decompress(frame)
+        s = time.perf_counter() - t0
+        if len(got) != n or hashlib.sha256(got).hexdigest() != digest:
+            raise AssertionError(f"zstd: the frame of {what} decoded to {len(got)} bytes with "
+                                 f"SHA-256 {hashlib.sha256(got).hexdigest()}, expected {n} and "
+                                 f"{digest}")
+        log(f"  (d) {len(frame)}-byte frame of {what}: {n} bytes, SHA-256 as pinned "
+            f"({s * 1e3:.3f} ms on the host)")
+        out.append(dict(what=what, frame_bytes=len(frame), bytes=n, s=s))
+    return out
+
+
+def _orbax_rates(torch, tmp, spec, state):
+    """Seconds and MB/s (the arrays' bytes) of saving and loading the x4 _G.ckpt and
+    .state of ``state`` through each backend, in turns."""
+    from hcflow_tpu_torch.utils import checkpoint
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    runs = {b: {"save_G": [], "load_G": [], "load_any_G": [], "save_state": [], "load_state": []}
+            for b in ("orbax", "pickle")}
+    sizes = {}
+    for i, backend in enumerate(ORBAX_TURNS):
+        g, st = str(tmp / f"r{i}" / "4_G.ckpt"), str(tmp / f"r{i}" / "4.state")
+        r = runs[backend]
+        r["save_G"].append(timed(lambda: checkpoint.save_model(g, state.params, spec, 4,
+                                                               backend=backend))[1])
+        tree, s = timed(lambda: checkpoint.load_checkpoint(g))
+        r["load_G"].append(s)
+        sizes["G"] = _tree_bytes(tree)
+        r["load_any_G"].append(timed(lambda: checkpoint.load_any(g, spec.flow, device=DEV))[1])
+        r["save_state"].append(timed(lambda: checkpoint.save_training_state(
+            st, 4, state.params, state.opt_state, epoch=0, backend=backend))[1])
+        loaded, s = timed(lambda: checkpoint.load_training_state(st, device=DEV))
+        r["load_state"].append(s)
+        sizes["state"] = _tree_bytes({k: loaded[k] for k in ("params", "opt_state")})
+    out = {"bytes": sizes}
+    for backend, r in runs.items():
+        out[backend] = {}
+        for k, times in r.items():
+            nbytes = sizes["G" if k.endswith("_G") else "state"]
+            mb_s = [nbytes / t / 1e6 for t in times]
+            out[backend][k] = dict(s=times, mb_s=mb_s)
+        log(f"  {backend}: " + "; ".join(
+            f"{k} {', '.join(f'{t:.3f}' for t in v['s'])} s = "
+            f"{', '.join(f'{m:.1f}' for m in v['mb_s'])} MB/s" for k, v in out[backend].items()))
+    log(f"    (_G.ckpt {sizes['G'] / 1e6:.1f} MB, .state {sizes['state'] / 1e6:.1f} MB of "
+        "arrays; load_G reads the numpy tree, load_any_G also converts it and moves it to the "
+        "card, load_state moves it to the card)")
+    return out
+
+
+def phase_orbax(torch, gen, card):
+    """The orbax checkpoint backend on the shipped on-chip recipe at full width:
+    (a) train, save, prune and resume with path.checkpoint_backend orbax; (b) serve the
+    orbax _G.ckpt and its pickle copy on the kernel path; (c) cli.test.main on the orbax
+    _G.ckpt; (d) zstd frames tensorstore wrote; the save and load MB/s."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from hcflow_tpu_torch.cli import train
+    from hcflow_tpu_torch.train import trainer
+    from hcflow_tpu_torch.utils import checkpoint, config
+
+    repo = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    out = {"frames": _orbax_frames()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _train_data(np, tmp / "data", np.random.default_rng(14))
+        data, root = tmp / "data", tmp / "runs"
+        log("  (a) configs/train_faces_x4_nll_onchip.yml (path.checkpoint_backend orbax, "
+            "resume_state auto), changed keys:")
+        opt = _train_option_file(tmp / "nll.yml", repo / "configs/train_faces_x4_nll_onchip.yml",
+                                 root, _train_changes(data, root, SCALE,
+                                                      **{"train.val_freq": ORBAX_STEPS}))
+        parsed = config.parse(opt)
+        if parsed["path"]["checkpoint_backend"] != "orbax":
+            raise AssertionError("the on-chip config no longer asks for orbax checkpoints")
+        spec = config.model_spec_from_opt(parsed)
+        exp = Path(parsed["path"]["experiments_root"])
+        # a validation: per image the forward and the reverses of 2 heats (the samples of a
+        # heat batched); 28 RRDBs of 16 launches (bf16 encoders), 4 float32 chains of 13
+        n_val, heats = TRAIN_VAL_PAIRS, len(parsed["val"]["heats"])
+        val = dict(rrdb=28 * 16 * n_val * (1 + heats), chain_f32=4 * 13 * n_val * heats)
+        _reset_counts()
+        state1, out["run1"] = _train_run(torch, "faces x4 NLL, orbax", opt, ORBAX_SAVE_AT, val,
+                                         spec.init(0, device=DEV))
+        _expect_files("run 1", exp, ["2_G.ckpt", "latest_G.ckpt"], ["2.state"])
+        load, resumed = train.load_training_state, {}
+
+        def capture(path, device="cuda"):
+            state = load(path, device=device)
+            # a copy: the resumed run updates the loaded tensors in place
+            resumed.update(path=path, state=trainer.tree_map(
+                lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t,
+                {k: state[k] for k in ("params", "opt_state")}))
+            return state
+
+        train.load_training_state = capture
+        try:
+            log(f"  (a) again with --max_steps {ORBAX_STEPS}: resume_state auto")
+            state2, out["run2"] = _train_run(torch, "faces x4 NLL, orbax, resumed", opt,
+                                             ORBAX_STEPS, val)
+        finally:
+            train.load_training_state = load
+        launches = _counts()
+        _expect_files("run 2", exp, ["4_G.ckpt", "latest_G.ckpt"], ["2.state", "4.state"])
+        listed = (checkpoint.list_checkpoints(str(exp / "models"), "_G.ckpt"),
+                  checkpoint.list_checkpoints(str(exp / "training_state"), ".state"))
+        dirs = all((exp / d / f).is_dir() for d, fs in zip(("models", "training_state"), listed)
+                   for f in fs)
+        if listed != (["4_G.ckpt", "latest_G.ckpt"], ["2.state", "4.state"]) or not dirs:
+            raise AssertionError(f"list_checkpoints gave {listed} (directories: {dirs})")
+        if not resumed.get("path", "").endswith("2.state") or state2.step != ORBAX_STEPS:
+            raise AssertionError(f"run 2 resumed from {resumed.get('path')} to step {state2.step}")
+        got = resumed["state"]
+        pairs = [("params", state1.params, got["params"]),
+                 ("Adam mu", state1.opt_state["mu"], got["opt_state"]["mu"]),
+                 ("Adam nu", state1.opt_state["nu"], got["opt_state"]["nu"])]
+        for what, a, b in pairs:
+            la, lb = trainer.tree_leaves(a), trainer.tree_leaves(b)
+            if len(la) != len(lb) or not all(torch.equal(x.detach(), y.detach())
+                                             for x, y in zip(la, lb)):
+                raise AssertionError(f"the resumed run's {what} at step {ORBAX_SAVE_AT} differ "
+                                     "from the saved ones")
+        if got["opt_state"]["count"] != state1.opt_state["count"]:
+            raise AssertionError("the resumed Adam count differs from the saved one")
+        n_leaves = len(trainer.tree_leaves(state1.params))
+        log(f"    run 2 resumed from 2.state: params and Adam moments equal run 1's at step "
+            f"{ORBAX_SAVE_AT} bit for bit ({n_leaves} leaves each); list_checkpoints: {listed}, "
+            "all directories")
+
+        log("  (b) 4_G.ckpt through load_any (orbax) and its pickle copy, served on the kernel "
+            f"path (bf16 RRDB, float32 chain), batch {BATCH}, {LR_HW}x{LR_HW}, heat {HEAT}, "
+            "the same latents")
+        g_orbax = str(exp / "models/4_G.ckpt")
+        p_orbax = checkpoint.load_any(g_orbax, spec.flow, device=DEV)
+        if not all(torch.equal(a, b.detach()) for a, b in zip(trainer.tree_leaves(p_orbax),
+                                                               trainer.tree_leaves(state2.params))):
+            raise AssertionError("4_G.ckpt through load_any differs from the trained params")
+        g_pickle = str(tmp / "pickle" / "4_G.ckpt")
+        checkpoint.save_model(g_pickle, p_orbax, spec, ORBAX_STEPS)
+        p_pickle = checkpoint.load_any(g_pickle, spec.flow, device=DEV)
+        lr = torch.rand(BATCH, LR_HW, LR_HW, 3, device=DEV, generator=gen)
+        L = spec.flow.L
+        eps = [torch.randn(BATCH, LR_HW * 2 ** (L - 1 - lv.level), LR_HW * 2 ** (L - 1 - lv.level),
+                           lv.cond_spec.a_channels, device=DEV, generator=gen)
+               for lv in spec.flow.levels]
+        packs = [spec.flow.precompute_inference(p, fused=True) for p in (p_orbax, p_pickle)]
+        _reset_counts()
+        with torch.no_grad():
+            srs = [spec.reverse(p, lr, HEAT, eps_list=eps) for p in packs]
+        torch.cuda.synchronize()
+        served = _counts()
+        _check_counts("orbax and pickle serving", served,
+                      _per_request(rrdb=28 * 16, chain_f32=4 * 13), 2)
+        shape = (BATCH, LR_HW * SCALE, LR_HW * SCALE, 3)
+        if tuple(srs[0].shape) != shape or not torch.isfinite(srs[0]).all():
+            raise AssertionError(f"orbax serving: a bad SR batch {tuple(srs[0].shape)}")
+        if not torch.equal(srs[0], srs[1]):
+            raise AssertionError("the SR batches from the orbax and the pickle _G.ckpt differ")
+        log(f"    SR batches {shape} from the orbax and the pickle _G.ckpt identical")
+
+        log("  (c) cli.test.main on configs/test_faces_x4_onchip.yml, pretrain_model_G the orbax "
+            "4_G.ckpt, 2 synthetic pairs")
+        names = [f"{i:02d}" for i in range(TRAIN_VAL_PAIRS)]
+        topt = config.parse(str(repo / "configs/test_faces_x4_onchip.yml"), is_train=False)
+        theats, n_sample = topt["val"]["heats"], topt["val"]["n_sample"]
+        vdir = data / f"val_x{SCALE}"
+        test_opt = _serve_option_file(
+            tmp / "test.yml", repo / "configs/test_faces_x4_onchip.yml", tmp,
+            {"test_1": {"name": "faces", "mode": "GTLQ", "dataroot_GT": str(vdir / "HR"),
+                        "dataroot_LQ": str(vdir / "LR")}}, ckpt=g_orbax)
+        out["test"] = _serve(torch, "test_faces_x4_onchip on the orbax 4_G.ckpt", test_opt, dict(
+            rrdb=28 * 16 * len(names) * (1 + len(theats)),
+            chain_f32=4 * 13 * len(names) * len(theats)),
+            {"faces": _sr_files(names, theats, n_sample)})
+        log(f"  save and load rates of the x4 _G.ckpt and .state, in turns {ORBAX_TURNS} "
+            f"[{card}]")
+        out["rates"] = _orbax_rates(torch, tmp / "rates", spec, state2)
+    launches = {k: launches[k] + served[k] + out["test"]["launches"][k] for k in launches}
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 14 took {wall:.1f} s; launches {launches}")
+    out.update(launches=launches, wall_s=wall, card=card)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
@@ -2604,7 +2997,8 @@ def main(argv=None):
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"{_io_modules()}")
     t0 = time.perf_counter()
-    reports = _build.build()
+    libs = (*_build.KERNELS, *_build.HOST_LIBS)  # the kernels and the zstd decoder
+    reports = _build.build(libs)
     build_s = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
@@ -2618,7 +3012,7 @@ def main(argv=None):
         for ln in notes:
             if "C7519" not in ln:
                 log(f"  {name}: {ln}")
-    log(f"  kernels built in {build_s:.1f} s: {', '.join(_build.KERNELS)}")
+    log(f"  kernels and host libraries built in {build_s:.1f} s: {', '.join(libs)}")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(torch, gen)
@@ -2662,6 +3056,10 @@ def main(argv=None):
         "fea/GAN and D steps (bf16 encoders, float32 couplings) and the rescaling joint step, "
         "2 ranks on the card over gloo")
     spatial_train = phase_spatial_train(torch, card)
+    log("phase 14: the orbax checkpoint backend on configs/train_faces_x4_nll_onchip.yml at full "
+        "width: train, save, prune and resume; serve the orbax _G.ckpt (load_any, cli.test.main); "
+        "zstd frames tensorstore wrote; save and load rates")
+    orbax = phase_orbax(torch, gen, card)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -2673,15 +3071,16 @@ def main(argv=None):
                                      for k in ("x4", "x8", "rescaling", "tiny", "predict")},
                                   "train_cli": train_cli["launches"],
                                   "parallel": par["launches"],
-                                  "spatial": spatial["launches"]})
+                                  "spatial": spatial["launches"],
+                                  "orbax": orbax["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
                        "serve": serve, "train_cli": train_cli, "parallel": par,
-                       "spatial": spatial, "spatial_train": spatial_train}, f, indent=1,
-                      default=str)
+                       "spatial": spatial, "spatial_train": spatial_train, "orbax": orbax},
+                      f, indent=1, default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))
     print(card)

@@ -1,9 +1,12 @@
-"""Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA kernels and the host libraries under ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on first use, into
-``build/lib<name>-<hash>.so`` inside this package (a directory git ignores), keyed by
-the content of the source and of the shared headers ``csrc/*.cuh``, so that an edited
-source is rebuilt.  A failed build raises.
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with nvcc, on first
+use, into ``build/lib<name>-<hash>.so`` inside this package (a directory git ignores),
+keyed by the content of the source and of the shared headers ``csrc/*.cuh``, so that an
+edited source is rebuilt.  A ``csrc/<name>.cpp`` is host code (the zstd decoder that
+reads orbax checkpoints) and compiles the same way with the system C++ compiler, which
+the CPU tests have too.  Each build writes a temporary name and renames it into place,
+so processes that build at once do not race.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("rrdb", "rrdb_trunk", "chain", "chain3s", "conv")
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+HOST_LIBS = ("zstd_decode",)
 
 _loaded: dict = {}
 
@@ -36,22 +41,38 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (c++ or g++) found: the host libraries build with it")
+    return path
+
+
 def source(name: str) -> Path:
-    return SRC_DIR / f"{name}.cu"
+    return SRC_DIR / (f"{name}.cpp" if name in HOST_LIBS else f"{name}.cu")
+
+
+def _command(name: str) -> list:
+    if name in HOST_LIBS:
+        return [_cxx(), *HOST_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS]
 
 
 def library(name: str) -> Path:
-    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
-    text = source(name).read_bytes() + headers
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if name in HOST_LIBS:
+        text, flags = source(name).read_bytes(), HOST_FLAGS
+    else:
+        headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+        text, flags = source(name).read_bytes() + headers, NVCC_FLAGS
+    digest = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(names=KERNELS) -> dict:
-    """Compile every missing library in parallel (one nvcc per source).
+    """Compile every missing library in parallel (one compiler per source).
 
-    Returns {name: compiler output} for what was compiled (ptxas register and
-    shared-memory report); raises RuntimeError if any build fails.
+    Returns {name: compiler output} for what was compiled (for a kernel, ptxas's
+    register and shared-memory report); raises RuntimeError if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -60,7 +81,7 @@ def build(names=KERNELS) -> dict:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
+        cmd = [*_command(name), "-o", str(tmp), str(source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, lib)
     logs, failed = {}, []
@@ -71,19 +92,25 @@ def build(names=KERNELS) -> dict:
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return logs
 
 
-def load(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    """Build if needed, load, and declare ``fn`` (returning a cudaError_t as int)."""
+def cdll(name: str) -> ctypes.CDLL:
+    """Build ``name`` if needed and load it (once a process)."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library(name)))
-        lib.hcflow_error_string.argtypes = [ctypes.c_int]
-        lib.hcflow_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
+    return lib
+
+
+def load(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """Build if needed, load, and declare ``fn`` (returning a cudaError_t as int)."""
+    lib = cdll(name)
+    lib.hcflow_error_string.argtypes = [ctypes.c_int]
+    lib.hcflow_error_string.restype = ctypes.c_char_p
     f = getattr(lib, fn)
     f.argtypes = argtypes
     f.restype = ctypes.c_int

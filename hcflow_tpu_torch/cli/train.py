@@ -13,15 +13,16 @@ train_HCFlow.py with HCFlow_SR_model.py / HCFlow_Rescaling_model.py), the same l
 - checkpoints every ``save_checkpoint_freq`` with keep-2 + every-5000 retention
   (``logger.checkpoint_keep`` / ``checkpoint_keep_period``) and ``resume_state: auto``;
   ``<iter>_G.ckpt`` / ``latest_G.ckpt`` in the JAX package's format, ``<iter>.state``
-  in this package's (``utils/checkpoint.py``);
+  in this package's (``utils/checkpoint.py``), as pickle files or, with
+  ``path.checkpoint_backend: orbax``, as orbax directories that the JAX package reads;
 - validation every ``val_freq`` with the full eval metric grid (``cli/evaluate.py``);
 - on SIGTERM / SIGINT the current iteration ends, the state is saved, the loop stops;
 - on a CUDA launch or context error (``utils/backend_guard.py``) the state of the last
   finished iteration is saved and the process exits 75 (EX_TEMPFAIL).
 
 It runs on the card unless ``--cpu`` is given; without a card and without ``--cpu``
-it raises.  Checkpoints are written in the pickle format only: a
-``path.checkpoint_backend`` other than ``pickle`` raises before training starts.  The
+it raises.  A ``path.checkpoint_backend`` other than ``pickle`` (the default) or
+``orbax`` raises before training starts.  The
 steps run the plain path (no kernel has a backward pass); validation on the card
 serves ``precompute_inference(params, fused=True)``, the kernels, as ``cli/test.py``
 does.  Randomness: one generator per (seed, iteration, pass) on the device, which
@@ -133,13 +134,17 @@ def _discriminator(opt, sync_bn=False):
                                 sync_bn=sync_bn)
 
 
-def check_checkpoint_backend(opt) -> None:
-    """The port writes pickled checkpoints only; any other backend raises."""
-    backend = opt_get(opt, ["path", "checkpoint_backend"], "pickle")
-    if backend != "pickle":
+CHECKPOINT_BACKENDS = ("pickle", "orbax")
+
+
+def check_checkpoint_backend(opt) -> str:
+    """``path.checkpoint_backend`` (``pickle`` when unset); any other value raises."""
+    backend = opt_get(opt, ["path", "checkpoint_backend"], "pickle") or "pickle"
+    if backend not in CHECKPOINT_BACKENDS:
         raise NotImplementedError(
-            f"path.checkpoint_backend = {backend!r} is not implemented in the port (it writes "
-            "'pickle' checkpoints; the JAX package's orbax backend needs JAX)")
+            f"path.checkpoint_backend = {backend!r} is not implemented in the port (one of "
+            f"{', '.join(CHECKPOINT_BACKENDS)})")
+    return backend
 
 
 def main(argv=None):
@@ -154,18 +159,18 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = device_for(mesh.rank_device(args.cpu))
     opt = config_mod.parse(args.opt, is_train=True)
-    check_checkpoint_backend(opt)
+    ckpt_backend = check_checkpoint_backend(opt)
 
     own_group = not torch.distributed.is_initialized()
     rank, world = mesh.init_distributed(args.dist_backend, cpu=args.cpu)
     try:
-        return _train(args, opt, device, rank, world)
+        return _train(args, opt, device, rank, world, ckpt_backend)
     finally:
         if own_group and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
 
-def _train(args, opt, device, rank, world):
+def _train(args, opt, device, rank, world, ckpt_backend):
     main_rank = mesh.is_main_process()
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -321,12 +326,13 @@ def _train(args, opt, device, rank, world):
 
         def save_all(tag_step):
             save_model(os.path.join(paths["models"], f"{tag_step}_G.ckpt"), state.params,
-                       model_spec, tag_step)
+                       model_spec, tag_step, backend=ckpt_backend)
             save_training_state(
                 os.path.join(paths["training_state"], f"{tag_step}.state"), tag_step,
                 state.params, state.opt_state,
                 d_params=d_state.params if d_state else None,
-                d_opt_state=d_state.opt_state if d_state else None, epoch=epoch)
+                d_opt_state=d_state.opt_state if d_state else None, epoch=epoch,
+                backend=ckpt_backend)
             # the reference keeps the 2 newest and every 5000th (base_model.py:82-94)
             keep = int(opt_get(opt, ["logger", "checkpoint_keep"], 2) or 2)
             period = int(opt_get(opt, ["logger", "checkpoint_keep_period"], 5000) or 0)
@@ -508,7 +514,7 @@ def _train(args, opt, device, rank, world):
         logger.info("saving the final model")
         if main_rank:
             save_model(os.path.join(paths["models"], "latest_G.ckpt"), state.params, model_spec,
-                       step)
+                       step, backend=ckpt_backend)
             wait_for_saves()
         mesh.barrier()
         tb.close()

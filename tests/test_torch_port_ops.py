@@ -208,6 +208,11 @@ def test_stack_inverse_matches_jax(cd, tol):
 
 
 # ---------------------------------------------------------------- e. imports, f. device
+# the JAX package and what its orbax backend stands on (the port reads and writes the
+# format itself: utils/orbax.py, utils/ocdbt.py, csrc/zstd_decode.cpp)
+FORBIDDEN = ("jax", "jaxlib", "hcflow_tpu", "orbax", "tensorstore", "zstandard")
+
+
 def _imported_modules(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -218,12 +223,13 @@ def _imported_modules(path: pathlib.Path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     """No module of the port imports jax or the JAX package, hcflow_tpu (matched by
-    the exact top-level name: hcflow_tpu_torch starts with the same letters)."""
+    the exact top-level name: hcflow_tpu_torch starts with the same letters), nor
+    orbax, tensorstore or zstandard."""
     pkg = pathlib.Path(__file__).resolve().parents[1] / "hcflow_tpu_torch"
     files = sorted(pkg.rglob("*.py"))
     assert len(files) >= 15
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "hcflow_tpu")]
+           if m.split(".")[0] in FORBIDDEN]
     assert bad == []
 
 
@@ -231,10 +237,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                                     "tools/ab_kernels.py", "tools/ab_passes.py",
                                     "tools/probe_conv_f32.py"])
 def test_chip_scripts_import_no_jax(script):
-    """The scripts that run the port on the card import neither jax nor hcflow_tpu."""
+    """The scripts that run the port on the card import neither jax nor hcflow_tpu
+    (nor orbax, tensorstore or zstandard)."""
     path = pathlib.Path(__file__).resolve().parents[1] / script
-    assert [m for m in _imported_modules(path)
-            if m.split(".")[0] in ("jax", "jaxlib", "hcflow_tpu")] == []
+    assert [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
 
 
 def test_default_device_raises_without_cuda():

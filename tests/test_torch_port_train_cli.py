@@ -10,8 +10,9 @@ the files it and the data-prep / convert CLIs write, against the JAX package:
   and a step from the restored state equals the same step from the saved one bit for
   bit; ``resume_state: auto`` continues the loop from the newest state; a JAX
   ``.state`` raises;
-- a ``path.checkpoint_backend`` other than ``pickle`` (the orbax configs) raises before
-  training starts;
+- the on-chip recipe's ``path.checkpoint_backend: orbax`` trains, saves orbax
+  directories, prunes them and resumes from them; any other backend than ``pickle`` or
+  ``orbax`` raises before training starts;
 - a CUDA error in a step saves the last finished iteration and exits 75; running out
   of memory and a plain error re-raise; SIGTERM saves and stops, and the handlers are
   restored; without a card and without ``--cpu`` the CLI raises, naming ``--cpu``;
@@ -266,21 +267,53 @@ def test_sigterm_saves_and_stops(data, tmp_path, monkeypatch):
     assert sorted(os.listdir(_exp(tmp_path) / "models")) == ["2_G.ckpt"]
 
 
-def test_a_checkpoint_backend_other_than_pickle_raises_before_training(data, tmp_path,
-                                                                        monkeypatch):
-    """configs/train_faces_x4_nll_onchip.yml asks for orbax checkpoints, which the port
-    does not write: it raises, naming path.checkpoint_backend, before any step."""
+def test_an_unknown_checkpoint_backend_raises_before_training(data, tmp_path, monkeypatch):
+    """A path.checkpoint_backend other than pickle or orbax raises, naming it, before
+    any step."""
     o = yaml.safe_load((ROOT / "configs" / "train_faces_x4_nll_onchip.yml").read_text())
-    assert o["path"]["checkpoint_backend"] == "orbax"
-    o["path"]["root"] = str(tmp_path)
+    o["path"].update(root=str(tmp_path), checkpoint_backend="tensorstore")
     opt = tmp_path / "onchip.yml"
     opt.write_text(yaml.safe_dump(o))
     monkeypatch.setattr(train, "make_sr_nll_step", None)  # no trainer may be built
-    with pytest.raises(NotImplementedError, match="path.checkpoint_backend = 'orbax'"):
+    with pytest.raises(NotImplementedError, match="path.checkpoint_backend = 'tensorstore'"):
         train.main(["--opt", str(opt), "--cpu", "--max_steps", "1"])
     assert not (tmp_path / "experiments").exists()
-    o["path"]["checkpoint_backend"] = "pickle"
-    train.check_checkpoint_backend(o)
+    for backend in ("orbax", "pickle", None):
+        o["path"]["checkpoint_backend"] = backend
+        assert train.check_checkpoint_backend(o) == (backend or "pickle")
+
+
+def test_the_onchip_recipe_trains_saves_and_resumes_with_orbax(data, tmp_path):
+    """configs/train_faces_x4_nll_onchip.yml (orbax checkpoints, resume_state auto) at
+    the small topology: 2 steps save orbax directories, which hold the run's params
+    and Adam moments bit for bit; a second run resumes from them to step 4, retention
+    prunes directories, and the JAX package reads the model it saved."""
+    opt = train_option_file(tmp_path / "opt.yml", "train_faces_x4_nll_onchip.yml", data, tmp_path,
+                            val_freq=100)
+    o = yaml.safe_load(Path(opt).read_text())
+    assert (o["path"]["checkpoint_backend"], o["path"]["resume_state"]) == ("orbax", "auto")
+    o["logger"]["save_checkpoint_freq"] = 2
+    Path(opt).write_text(yaml.safe_dump(o))
+    first = train.main(["--opt", opt, "--cpu", "--max_steps", "2"])
+    exp = _exp(tmp_path)
+    assert sorted(os.listdir(exp / "models")) == ["2_G.ckpt", "latest_G.ckpt"]
+    assert os.path.isdir(exp / "models" / "2_G.ckpt") and os.path.isdir(exp / "training_state" / "2.state")
+    saved = checkpoint.load_training_state(str(exp / "training_state" / "2.state"), device="cpu")
+    assert saved["step"] == 2 and saved["opt_state"]["count"] == first.opt_state["count"] == 2
+    for a, b in ((first.params, saved["params"]), (first.opt_state["mu"], saved["opt_state"]["mu"]),
+                 (first.opt_state["nu"], saved["opt_state"]["nu"])):
+        for x, y in zip(trainer.tree_leaves(a), trainer.tree_leaves(b)):
+            assert torch.equal(x.detach(), y.detach())
+    second = train.main(["--opt", opt, "--cpu", "--max_steps", "4"])
+    assert second.step == 4 and second.opt_state["count"] == 4
+    assert sorted(os.listdir(exp / "models")) == ["4_G.ckpt", "latest_G.ckpt"]
+    assert sorted(os.listdir(exp / "training_state")) == ["2.state", "4.state"]
+    j = jload_checkpoint(str(exp / "models" / "4_G.ckpt"))
+    assert int(j["step"]) == 4
+    np.testing.assert_array_equal(
+        np.asarray(j["params"]["level0"]["main"]["actnorm"]["bias"]),
+        np.asarray(checkpoint.load_checkpoint(str(exp / "models" / "4_G.ckpt"))["params"]["level0"]
+                   ["main"]["actnorm"]["bias"]))
 
 
 def test_without_a_card_raises_naming_cpu(data, tmp_path, monkeypatch):

@@ -164,8 +164,10 @@ def test_load_any_reads_a_jax_ckpt(tmp_path, wrapped):
 
 
 def test_orbax_directory_raises(tmp_path):
+    """A directory that is not an orbax checkpoint raises, naming what it lacks (an
+    orbax checkpoint is read: tests/test_torch_port_orbax.py)."""
     (tmp_path / "1000_G.ckpt").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="not an orbax checkpoint: it has no _METADATA"):
         checkpoint.load_any(str(tmp_path / "1000_G.ckpt"), _spec())
 
 
