@@ -11,7 +11,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
 2. hold each kernel against its plain PyTorch version on the card, at every shape of
    the main paths, with bf16 weights perturbed from a seed, and time both: the x4 SR
    path's RRDB (gc 32) at 40x40 and 80x80 and its four 13-step chains; the rescaling
-   path's chain3s main chains (K 8, c 24 at 40x40 and c 12 at 80x80), RRDB at gc 16
+   path's chain3s main chains (K 8, c 24 at 40x40 and c 12 at 80x80; and K 4, c 12
+   at 2x37x53, where neither side is a multiple of the tiles or of 8), RRDB at gc 16
    at both sizes and 6-step split-off chains; the x8 SR path's resident trunk (nb 5,
    gc 32) at 20x20, 40x40 and 80x80, also against the per-RRDB kernel (bit-identical
    expected) and timed beside it, and its six 13-step chains; the standalone conv3x3
@@ -22,8 +23,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    concats; the chain's and chain3s's step loops, FlowStepSpec.inverse_hoisted /
    inverse), since no
    single call computes one, timed on the device as one CUDA graph (the host takes
-   longer to issue the sequence than the card to run it); each chain row prints the
-   kernel's tile plan;
+   longer to issue the sequence than the card to run it); each chain and bf16 chain3s
+   row prints the kernel's tile plan, each chain3s row its device time (one call as a
+   CUDA graph) beside the host-issued one;
 3. the flagship x4 SR model at full width (for_scale(4): nb 7, K 26, nf 64, gc 32,
    hidden 64) in the bf16 serving recipe at batch 16, 40x40 -> 160x160, heat 0.9, as
    a few requests with different generator seeds; check the output, the kernel path
@@ -195,6 +197,7 @@ RS_HEAT = 1.0  # the rescaling test config's heat (configs/test_Rescaling_DF2K_4
 # (configs/test_SR_CelebA_8X_HCFlow.yml)
 X8_LR_HW, X8_SCALE, X8_HEAT = 20, 8, 0.8
 X8_NB = 5
+CHAIN3S_BORDER = (2, 37, 53)  # phase 2's ragged chain3s shape (B, H, W)
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # float32 outside the tensor cores
@@ -641,7 +644,8 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
 def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s", calls=1):
     """chain3s in the recipe cd against its plain version, beside its step loop
     (FlowStepSpec.inverse over the K steps in the same recipe; float32 with TF32 off)
-    as one CUDA graph."""
+    as one CUDA graph; each row with its device time (device_ms, one call as a CUDA
+    graph) and, in bf16, the kernel's tile plan."""
     from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
     from hcflow_tpu_torch.ops import chain3s, nets
 
@@ -663,11 +667,20 @@ def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s
                     z = specs[k].inverse(steps[k], z)[0]
             return z
 
-        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}",
-             lambda: chain3s.inverse_chain(pk, z), lambda: chain3s.inverse_chain3s_plain(pk, z),
+        plan = chain3s.plan(B, H, W, c, gc) if cd else None
+        if plan:
+            log(f"  {key} {name}: tiles (even, odd) " + ", ".join(
+                f"{p['th']}x{p['tw']} ({p['blocks']} blocks, {p['smem']} bytes)"
+                for p in (plan["even"], plan["odd"])))
+        run = lambda: chain3s.inverse_chain(pk, z)  # noqa: E731
+        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}", run,
+             lambda: chain3s.inverse_chain3s_plain(pk, z),
              chain3s_work(B, H, W, c, gc, K, f32=cd is None), 10, path, calls,
              library_fn=library, library_seq=True, rtol=KERNEL_RTOL if cd else F32_RTOL,
-             shape=[B, H, W, c], chain=name, K=K)
+             shape=[B, H, W, c], chain=name, K=K, plan=plan)
+        # the device's time of one call (a CUDA graph: without the host's issue)
+        rows[key][-1]["device_ms"] = graph_time(run, reps=10)
+        log(f"    device {rows[key][-1]['device_ms']:.4f} ms/call")
 
 
 def phase_kernels(torch, gen):
@@ -685,6 +698,11 @@ def phase_kernels(torch, gen):
     log("  rescaling path (x4, nb (2, 1), gc 16, main K 8 growth 32, split-off K 6)")
     _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, LR_HW), ("L0 main", 12, 2 * LR_HW)],
                   "rescaling")
+    log("  chain3s at a ragged shape, both recipes: H and W multiples of neither its tiles "
+        "nor 8 (the fused halo's zero padding at the border), checked, not in the units")
+    for cd, key in (("bfloat16", "chain3s"), (None, "chain3s_f32")):
+        _chain3s_rows(torch, gen, rows, 4, [("border", 12, CHAIN3S_BORDER)], "border", cd=cd,
+                      key=key, calls=0)
     # 3 RRDBs a level, run by the downscale and again by the upscale
     _rrdb_rows(torch, gen, rows, 16, ((LR_HW, 6), (2 * LR_HW, 6)), "rescaling")
     _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, LR_HW),
@@ -861,6 +879,14 @@ def _reset_counts():
     from hcflow_tpu_torch.parallel import dryrun
 
     dryrun.reset_counters()
+
+
+def _rs_main(f32=False):
+    """chain3s launches of one of the rescaling model's main chains (K 8) in the bf16 or
+    the float32 recipe."""
+    from hcflow_tpu_torch.ops import chain3s
+
+    return chain3s.launches_per_chain(8, f32)
 
 
 def _per_request(**counts):
@@ -1544,13 +1570,13 @@ def phase_serving(torch, gen):
             {"x8": _sr_files(x8, heats), "real_x8": _sr_files(["odd"], heats)})
 
         # x4 rescaling: per image the downscale (6 RRDBs) and the upscale (6 RRDBs, 2
-        # split-off chains of 6 steps, 2 main chains of 1 + 5 x 8 launches), heat 1.0
+        # split-off chains of 6 steps, 2 main chains of 8 steps), heat 1.0
         opt = _serve_option_file(tmp / "rs.yml", repo / "configs/test_Rescaling_DF2K_4X_HCFlow.yml",
                                  tmp, {"test_1": pairs("rs", "x4")})
         n = len(x4)
         log("  x4 rescaling, configs/test_Rescaling_DF2K_4X_HCFlow.yml (random init)")
         out["rescaling"] = _serve(torch, "x4 rescaling", opt, dict(
-            rrdb_f32=2 * 6 * 16 * n, chain_f32=2 * 6 * n, chain3s_f32=2 * 41 * n),
+            rrdb_f32=2 * 6 * 16 * n, chain_f32=2 * 6 * n, chain3s_f32=2 * _rs_main(True) * n),
             {"rs": _sr_files(x4, [1.0])})
 
         # the tiny trained checkpoint: 8 RRDBs a pass, 4 chains of 4 steps at hid 32
@@ -1845,9 +1871,9 @@ def phase_train_cli(torch, gen):
         sr_val = dict(rrdb=28 * 16 * n_val * (1 + heats), chain_f32=4 * 13 * n_val * heats)
         x8_val = dict(rrdb=30 * 16 * n_val * (1 + heats), chain_f32=6 * 13 * n_val * heats)
         # rescaling (n_sample 1): the downscale 6 RRDBs, the upscale 6 RRDBs, 2 split-off
-        # chains of 6 steps, 2 main chains of 1 + 5 x 8 launches
+        # chains of 6 steps, 2 main chains of 8 steps
         rs_val = dict(rrdb=6 * 16 * n_val * (1 + heats), chain_f32=2 * 6 * n_val * heats,
-                      chain3s_f32=2 * 41 * n_val * heats)
+                      chain3s_f32=2 * _rs_main(True) * n_val * heats)
         _reset_counts()
 
         # 1. HCFlow (NLL only; act_norm_start_step 100: calibration every iteration)
@@ -2395,7 +2421,7 @@ def phase_spatial(torch, gen):
     per_request = {"a": _per_request(rrdb=28 * 16, chain=4 * 13),
                    "b": _per_request(rrdb_f32=28 * 16, chain_f32=4 * 13),
                    "c": _per_request(rrdb_trunk=6, chain=6 * 13),
-                   "d": _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * 41)}
+                   "d": _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * _rs_main())}
     refs = {}
     for k in "abcd":
         rec = dryrun.serve(cases[k], None, DEV)
@@ -2905,8 +2931,8 @@ def phase_orbax(torch, gen, card):
 
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
-# wgmma tile conv's feature_kernel (conv3x3.cuh) is shared by rrdb and chain3s;
-# tools/profile_port.py groups device time by these.
+# wgmma tile conv's feature_kernel (conv3x3.cuh) is rrdb's; tools/profile_port.py groups
+# device time by these.
 KERNELS = {
     "rrdb": ("hcflow_tpu_torch/csrc/rrdb.cu", "hcflow_tpu/ops/pallas_rdb.py:547",
              "x4 SR reverse pass + rescaling request (downscale + upscale)",
@@ -2917,7 +2943,7 @@ KERNELS = {
               "x4 SR reverse pass + rescaling request + x8 SR reverse pass",
               ("chain_step_mma_kernel",)),
     "chain3s": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
-                "rescaling request", ("prologue_kernel", "feature_kernel", "coupling_kernel")),
+                "rescaling request", ("chain3s_step_kernel",)),
     "conv3x3": ("hcflow_tpu_torch/csrc/conv.cu", "hcflow_tpu/ops/pallas_conv.py:92",
                 "one call at each of the x8 model's library 3x3 conv shapes (on no path)",
                 ("pack_kernel", "conv_kernel")),
@@ -2939,8 +2965,7 @@ KERNELS = {
     "rrdb_trunk_f32": ("hcflow_tpu_torch/csrc/rrdb_trunk.cu", "hcflow_tpu/ops/pallas_rdb.py:476",
                        "x8 SR float32 pass", ("trunk_kernel",)),
     "chain3s_f32": ("hcflow_tpu_torch/csrc/chain3s.cu", "hcflow_tpu/ops/pallas_chain3s.py:305",
-                    "rescaling float32 request",
-                    ("prologue_kernel", "feature_kernel", "coupling_kernel")),
+                    "rescaling float32 request", ("chain3s_f32_kernel",)),
 }
 
 
@@ -3020,8 +3045,9 @@ def main(argv=None):
     sr = phase_sr(torch, gen, SCALE, LR_HW, HEAT, _per_request(rrdb=28 * 16, chain=4 * 13))
     log("phase 4: x4 rescaling model, full width, bf16 serving recipe")
     # per request: 6 RRDBs x 16 launches in each direction; 2 split-off chains of 6
-    # steps; 2 main chains of 1 + 5 x 8 launches
-    rs = phase_rescaling(torch, gen, _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * 41))
+    # steps; 2 main chains of 8 steps
+    rs = phase_rescaling(torch, gen, _per_request(rrdb=2 * 6 * 16, chain=2 * 6,
+                                                    chain3s=2 * _rs_main()))
     log("phase 5: x8 SR model (CelebA-8X topology), full width, bf16 serving recipe, "
         "resident trunks")
     # per request: 2 trunks a level, one launch each; 2 chains of 13 steps a level
@@ -3036,7 +3062,7 @@ def main(argv=None):
                       _per_request(rrdb_f32=28 * 16, chain_f32=4 * 13), cd=None)
     log("  x4 rescaling (configs/test_Rescaling_DF2K_4X_HCFlow.yml's topology)")
     rs_f32 = phase_rescaling(torch, gen, _per_request(rrdb_f32=2 * 6 * 16, chain_f32=2 * 6,
-                                                      chain3s_f32=2 * 41), cd=None)
+                                                      chain3s_f32=2 * _rs_main(True)), cd=None)
     log("  x8 SR (configs/test_SR_CelebA_8X_HCFlow.yml's topology), resident trunks")
     sr8_f32 = phase_sr(torch, gen, X8_SCALE, X8_LR_HW, X8_HEAT,
                        _per_request(rrdb_trunk_f32=6, chain_f32=6 * 13), resident=True, cd=None)

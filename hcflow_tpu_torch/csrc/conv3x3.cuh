@@ -550,13 +550,12 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
 // weights' TF32 planes w (2, 9, cin / 4, COUT, 4) into one float32 ring stage: the input
 // into A's hi plane [channel group of 4][halo pixel][4 channels] (zero outside the
 // image; split_chunk_f32 splits it), the planes as b_k_rows and b_lo_rows lay them out.
-// Every copy is 16 bytes.
-template <int COUT, int MT>
-__device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float* src, int ctot,
-                                               int c0, const float* w, int cin, int H, int W,
-                                               int x0, int y0, size_t img) {
+// Every copy is 16 bytes.  (load_input_f32, then load_weights_f32.)
+template <int MT>
+__device__ __forceinline__ void load_input_f32(unsigned char* stage, const float* src, int ctot,
+                                               int c0, int H, int W, int x0, int y0, size_t img) {
   constexpr int IW = 8 * MT + 2, NPX = IH * IW, G = CK_F32 / 4;
-  const uint32_t s_a = smem_addr(stage), s_b = s_a + 2 * a_plane_f32<MT>();
+  const uint32_t s_a = smem_addr(stage);
   for (int i = threadIdx.x; i < G * NPX; i += NTHREADS) {
     const int g = i % G, q = i / G;
     const int gy = y0 - 1 + q / IW, gx = x0 - 1 + q % IW;
@@ -564,12 +563,49 @@ __device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float
     const size_t pix = img + size_t(gy) * W + gx;
     cp_async16(s_a + (g * NPX + q) * 16, in ? src + pix * ctot + c0 + 4 * g : src, in);
   }
-  constexpr int ROWS = 9 * G * COUT;  // 16-byte rows of a plane a stage
+}
+
+template <int COUT, int MT>
+__device__ __forceinline__ void load_weights_f32(unsigned char* stage, int c0, const float* w,
+                                                 int cin) {
+  constexpr int G = CK_F32 / 4, ROWS = 9 * G * COUT;  // 16-byte rows of a plane a stage
+  const uint32_t s_b = smem_addr(stage) + 2 * a_plane_f32<MT>();
   for (int e = threadIdx.x; e < 2 * ROWS; e += NTHREADS) {
     const int p = e / ROWS, r = e % ROWS, tap = r / (G * COUT), kc = r % (G * COUT);
     const int row = r / COUT * b_k_rows<COUT>() + p * b_lo_rows<COUT>() + r % COUT;
     cp_async16(s_b + row * 16, w + (size_t(p * 9 + tap) * cin + c0) * COUT + kc * 4, true);
   }
+}
+
+template <int COUT, int MT>
+__device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float* src, int ctot,
+                                               int c0, const float* w, int cin, int H, int W,
+                                               int x0, int y0, size_t img) {
+  load_input_f32<MT>(stage, src, ctot, c0, H, W, x0, y0, img);
+  load_weights_f32<COUT, MT>(stage, c0, w, cin);
+}
+
+// The chunk a tile's float32 conv starts at (its number modulo the chunk count; see
+// conv_tile)
+template <int MT>
+__device__ __forceinline__ int first_chunk_f32(int nchunks, int H, int W, int x0, int y0,
+                                               int image) {
+  const int tx = (W + 8 * MT - 1) / (8 * MT), ty = (H + TH - 1) / TH;
+  return ((image * ty + y0 / TH) * tx + x0 / (8 * MT)) % nchunks;
+}
+
+// The weights of the chunks conv_tile_f32<COUT, MT, true> stages first (all but the
+// last stage of its ring), copied ahead as one cp.async group, into a ring that no thread
+// still reads: a caller that must wait before it may read the tile's input starts these
+// copies before it waits.
+template <int COUT, int MT>
+__device__ __forceinline__ void prefetch_weights_f32(unsigned char* smem, const float* w, int cin,
+                                                     int H, int W, int x0, int y0, int image) {
+  constexpr int S = stages_f32<COUT, MT>(), SB = stage_bytes_f32<COUT, MT>();
+  const int nchunks = cin / CK_F32, first = first_chunk_f32<MT>(nchunks, H, W, x0, y0, image);
+  for (int c = 0; c < S - 1 && c < nchunks; ++c)
+    load_weights_f32<COUT, MT>(smem + c * SB, (c + first) % nchunks * CK_F32, w, cin);
+  cp_async_commit();
 }
 
 // x = hi + lo as TF32 bit patterns, the low 13 bits clear: hi = rna(x), lo = rna(x - hi)
@@ -608,8 +644,9 @@ __device__ __forceinline__ void split_chunk_f32(unsigned char* stage) {
 // step: a narrow product is bound by its reads of shared memory, not by the tensor
 // cores), and the sums are (lo x hi + hi x lo) + hi x hi.  Chunks (in conv_tile's rotated
 // order), taps, k steps and products run in one fixed order, so every kernel that calls
-// this gives bit-identical sums for the same inputs.
-template <int COUT, int MT>
+// this gives bit-identical sums for the same inputs.  PREFETCHED: the caller has copied
+// the first chunks' weights (prefetch_weights_f32), and the ring stages only their input.
+template <int COUT, int MT, bool PREFETCHED = false>
 __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char* smem,
                                               const float* __restrict__ src, int ctot, int cin,
                                               const float* __restrict__ w, int H, int W, int x0,
@@ -630,8 +667,7 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
   asm volatile("" : "+r"(nchunks));
   const int wg = threadIdx.x / 128;
   const size_t img = size_t(image) * H * W;
-  const int tx = (W + 8 * MT - 1) / (8 * MT), ty = (H + TH - 1) / TH;
-  const int first = ((image * ty + y0 / TH) * tx + x0 / (8 * MT)) % nchunks;
+  const int first = first_chunk_f32<MT>(nchunks, H, W, x0, y0, image);
   auto c0 = [&](int c) { return (c + first) % nchunks * CK_F32; };
 #pragma unroll
   for (int s = 0; s < MT; ++s) {
@@ -644,11 +680,15 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
   __syncthreads();  // the ring's last contents (another tile, an epilogue) are consumed
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
-    if (c < nchunks)
-      load_chunk_f32<COUT, MT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0, y0, img);
+    if (c < nchunks) {
+      if constexpr (PREFETCHED)
+        load_input_f32<MT>(smem + c * SB, src, ctot, c0(c), H, W, x0, y0, img);
+      else
+        load_chunk_f32<COUT, MT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0, y0, img);
+    }
     cp_async_commit();
   }
-  cp_async_wait<S - 2>();  // this thread's copies of chunk 0 have landed
+  cp_async_wait<S - 2>();  // this thread's copies of chunk 0 (and any prefetch) have landed
   split_chunk_f32<MT>(smem);
   fence_proxy_async();  // its stores and copies, before wgmma reads them
 #pragma unroll 1

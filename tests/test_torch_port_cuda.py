@@ -137,9 +137,14 @@ def test_chain_tiles_cover_the_card(gen, c, hw):
     assert p["blocks_per_sm"] >= 2
 
 
-@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17)])  # both level widths
-def test_chain3s_kernel_matches_plain(gen, c, K, H, W):
-    specs = [FlowStepSpec(in_channels=c, hidden_channels=32, compute_dtype="bfloat16",
+# both level widths; a border shape, H and W multiples of neither the tiles nor 8; and
+# every step instance the library holds: growth 16, 32, 64 by conv5 16 (c 6), 32 (c 12),
+# 48 (c 24) and 64 (c 35) wide on the even steps (the odd steps' conv5 is 16 wide)
+@pytest.mark.parametrize("c,K,H,W,gc", [(12, 4, 10, 12, 32), (24, 3, 9, 17, 32),
+                                        (12, 4, 37, 53, 32)]
+                         + [(c, 2, 13, 21, gc) for gc in (16, 32, 64) for c in (6, 12, 24, 35)])
+def test_chain3s_kernel_matches_plain(gen, c, K, H, W, gc):
+    specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype="bfloat16",
                           flow_permutation="none", flow_coupling="Affine3shift",
                           nn_module="DenseBlock", lr_vs_others=(k % 2 == 0)) for k in range(K)]
     steps = _perturb([s.init(torch.Generator().manual_seed(3 + k)) for k, s in enumerate(specs)],
@@ -149,7 +154,7 @@ def test_chain3s_kernel_matches_plain(gen, c, K, H, W):
     before = sum(chain3s.launches_by.values())
     got, ld = chain3s.inverse_chain(packed, z)
     torch.cuda.synchronize()
-    assert sum(chain3s.launches_by.values()) == before + 1 + 5 * K
+    assert sum(chain3s.launches_by.values()) == before + chain3s.launches_per_chain(K)
     ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
     _close(got, ref)
     assert torch.equal(ld, ld_ref)
@@ -226,12 +231,16 @@ def test_rrdb_trunk_kernel_f32_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
     assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
 
 
-# conv5 of COUT 16 (c 6, 12: the odd steps), 32 (c 12) and 48 (c 24), on 8- and 16-wide
-# tiles, ragged in H and W
-@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17), (6, 2, 21, 37),
-                                     (24, 2, 20, 20), (24, 2, 9, 32)])
-def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W):
-    specs = [FlowStepSpec(in_channels=c, hidden_channels=32, flow_permutation="none",
+# conv5 of width 16 (c 6, and the odd steps), 32 (c 12), 48 (c 24) and 64 (c 35), on 8-
+# and 16-wide tiles, ragged in H and W, at growth 16, 32 and 64 (every kernel instance);
+# the border shape as in the bf16 test
+@pytest.mark.parametrize("c,K,H,W,gc", [(12, 4, 10, 12, 32), (24, 3, 9, 17, 32), (6, 2, 21, 37, 32),
+                                        (24, 2, 20, 20, 32), (24, 2, 9, 32, 32),
+                                        (12, 4, 37, 53, 32), (6, 2, 21, 37, 16),
+                                        (35, 2, 20, 20, 16), (35, 3, 9, 17, 64),
+                                        (12, 2, 9, 32, 64)])
+def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W, gc):
+    specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, flow_permutation="none",
                           flow_coupling="Affine3shift", nn_module="DenseBlock",
                           lr_vs_others=(k % 2 == 0)) for k in range(K)]
     steps = _perturb([s.init(torch.Generator().manual_seed(3 + k)) for k, s in enumerate(specs)],
@@ -241,15 +250,15 @@ def test_chain3s_kernel_f32_matches_plain(gen, c, K, H, W):
     before = chain3s.launches_by.get("f32", 0)
     got, ld = chain3s.inverse_chain(packed, z)
     torch.cuda.synchronize()
-    assert chain3s.launches_by["f32"] == before + 1 + 5 * K
+    assert chain3s.launches_by["f32"] == before + chain3s.launches_per_chain(K, f32=True)
     ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
     assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
     assert torch.equal(ld, ld_ref)
 
 
 def test_float32_packs_without_tf32_planes_raise(gen):
-    """The float32 kernels read the weights' TF32 planes: a float32 pack without them
-    raises before any launch, and launches nothing."""
+    """The float32 kernels read the weights' TF32 planes (chain3s's in its weight blob): a
+    float32 pack without them raises before any launch, and launches nothing."""
     trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(9), 2, 32, 16), gen)
     x = torch.randn(1, 8, 8, 32, device="cuda", generator=gen)
     before = dict(rrdb.launches_by), dict(rrdb.trunk_launches_by), dict(chain3s.launches_by)
@@ -263,8 +272,8 @@ def test_float32_packs_without_tf32_planes_raise(gen):
                           lr_vs_others=(k % 2 == 0)) for k in range(2)]
     pk = chain3s.pack_inverse_chain3s(
         _perturb([s.init(torch.Generator().manual_seed(8)) for s in specs], gen))
-    del pk["to3"]
-    with pytest.raises(ValueError, match="TF32 planes"):
+    del pk["blob_w"]  # the blob of the weights' TF32 planes
+    with pytest.raises(ValueError, match="weight and bias blobs"):
         chain3s.inverse_chain(pk, torch.randn(1, 8, 8, 12, device="cuda", generator=gen))
     assert (rrdb.launches_by, rrdb.trunk_launches_by, chain3s.launches_by) == before
 

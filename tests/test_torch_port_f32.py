@@ -336,9 +336,14 @@ def test_float32_packs_without_tf32_planes_fail_the_kernel_checks():
     model = HCFlowRescalingSpec.default_x4(**dict(TINY_RS, hidden_channels=16))
     main = perturb(model.init(0, device="cpu")["level0"]["main"])
     packed = chain3s.pack_inverse_chain3s(main)
-    assert chain3s.check_pack(packed)[3] == "t"
-    assert packed["te2"].shape[1:] == (2, 9, (16 + 16) // 4, 16, 4)  # [step][plane]...
-    assert chain3s.check_pack(chain3s.pack_inverse_chain3s(main, "bfloat16"))[3] == "w"
-    del packed["to5"]
-    with pytest.raises(ValueError, match="TF32 planes"):
+    assert chain3s.check_pack(packed) == (torch.float32, 16)
+    # the TF32 planes of every step's convs, (2, 9, cin_i / 4, n_i, 4) each, in one blob
+    K, c = packed["an_s"].shape
+    sizes = [2 * 9 * (chain3s.step_widths(c)[k % 2][0] + i * 16)
+             * (16 if i < 4 else chain3s.step_widths(c)[k % 2][1]) for k in range(K)
+             for i in range(5)]
+    assert packed["blob_w"].shape == (sum(sizes),) and packed["blob_w"].dtype == torch.float32
+    assert chain3s.check_pack(chain3s.pack_inverse_chain3s(main, "bfloat16"))[0] == torch.bfloat16
+    del packed["blob_w"]
+    with pytest.raises(ValueError, match="weight and bias blobs"):
         chain3s.check_pack(packed)

@@ -235,7 +235,7 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_port.py",
                                     "tools/ab_kernels.py", "tools/ab_passes.py",
-                                    "tools/probe_conv_f32.py"])
+                                    "tools/probe_conv_f32.py", "tools/probe_chain3s.py"])
 def test_chip_scripts_import_no_jax(script):
     """The scripts that run the port on the card import neither jax nor hcflow_tpu
     (nor orbax, tensorstore or zstandard)."""
