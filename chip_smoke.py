@@ -160,7 +160,21 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    (d) three zstd frames tensorstore wrote (TS_FRAMES: Huffman literals, FSE sequences,
    more than one block) decoded to their pinned SHA-256; the seconds and MB/s of saving
    and loading the x4 _G.ckpt and .state through each backend, in turns;
-15. print the kernels' JSON line, the card line, then the JSON status line last.
+15. widths the kernels hold no instance for, which the port packs zero-padded up to the
+   next one (chain: coupling width up to 32 or 64; chain3s: growth 16, 32 or 64; RRDB:
+   nf and gc 16, 32 or 64), at batch 16 from an LR of 40x40: configs/smoke_train.yml's
+   model (float32, coupling width 8), x4 rescaling at growth 24 and x4 SR at coupling
+   width 48 (bf16, full width and depth), the 3-level rescaling model (bf16; its level-2
+   main chain, c 48, past chain3s's widths, serves on the plain step loop) and x4 SR cut
+   to K 8 with trunks at nf 24 / gc 8 (float32) and gc 24 (bf16, resident): each
+   model's launches held to those counted from its structure and the packs the card
+   takes, its kernel path against its plain path (phase 3's limits, phase 8's in
+   float32); the padded kernels' rows (calls_per_pass 0), each with its bound at the
+   true widths (bound_ms) and at the padded ones (bound_padded_ms); cli.train.main on a
+   copy of configs/smoke_train.yml (only the dataroots and path.root changed) on
+   synthetic faces for its 10 iterations, through its one validation on the kernel
+   path (the float32 chain kernel at coupling width 8, packed at 32);
+16. print the kernels' JSON line, the card line, then the JSON status line last.
 
 Phase 2 also holds the float32 kernels at phase 9's shapes (batch 1 at each image's
 levels, the ragged LQ-only images, the Predictor's batch of 8 tiles; calls_per_pass 0,
@@ -462,12 +476,14 @@ def _to(tree, dev):
 
 
 def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=None,
-         library_seq=False, rtol=KERNEL_RTOL, **extra):
+         library_seq=False, rtol=KERNEL_RTOL, padded_work=None, **extra):
     """Check one kernel call against its plain version and time both (and the one
     library call computing the same function, where there is one).  library_seq: the
     library_fn is a sequence of library calls, timed on the device as one CUDA graph
     (library_ms) and also as the host issues it (library_eager_ms).  work = (bf16
-    FLOP, float32 FLOP, bytes) of the function.  Returns the kernel's output."""
+    FLOP, float32 FLOP, bytes) of the function; padded_work the same at the widths a
+    padded pack runs it at (bound_padded_ms beside bound_ms, the function's).  Returns
+    the kernel's output."""
     import torch
 
     def first(r):
@@ -486,14 +502,23 @@ def _row(rows, name, label, fn, plain_fn, work, reps, path, calls, library_fn=No
         lib = f", library {library_ms:.4f} ms as a graph ({extra['library_eager_ms']:.4f} eager)"
     bf, f32, nbytes = work
     tflops = (bf + f32) / ms / 1e9
-    if bf:  # a bf16 row: bf16 tensor-core products, a float32 tail on the CUDA cores
-        b_ms, b_by = bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+
+    def least(bf, f32, nbytes):
+        if bf:  # a bf16 row: bf16 tensor-core products, a float32 tail on the CUDA cores
+            return bound(bf / PEAK_BF16 + f32 / PEAK_F32, nbytes)
+        return bound(f32 / PEAK_3XTF32, nbytes)  # float32-accurate products as 3xTF32
+
+    b_ms, b_by = least(*work)
+    if bf:
         rate = f"{tflops:.1f} TFLOP/s"
-    else:  # a float32 row: float32-accurate products as 3xTF32 on the tensor cores
-        b_ms, b_by = bound(f32 / PEAK_3XTF32, nbytes)
+    else:
         extra["bound_cuda_core_ms"] = bound(f32 / PEAK_F32, nbytes)[0]
         rate = (f"{tflops:.1f} TFLOP/s of float32 work; bound at the CUDA-core float32 rate "
                 f"{extra['bound_cuda_core_ms']:.4f} ms")
+    if padded_work is not None:
+        extra["bound_padded_ms"], extra["bound_padded_by"] = least(*padded_work)
+        rate += (f"; bound at the padded widths {extra['bound_padded_ms']:.4f} ms by "
+                 f"{extra['bound_padded_by']}")
     log(f"    {ms:.4f} ms/call (plain {plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}, "
         f"{rate}), {calls} calls per {path} unit")
     rows[name].append(dict(path=path, label=label, calls_per_pass=calls, err=err, ms=ms,
@@ -531,43 +556,63 @@ def _rrdb_rows(torch, gen, rows, gc, shapes, path, nf=64, cd="bfloat16", key="rr
     for hw, calls in shapes:
         B, H, W = _bhw(hw)
         x = torch.randn(B, H, W, nf, device=DEV, generator=gen)
-        flops, nbytes = rrdb_work(B, H, W, nf, gc, 2 if cd else 4)
-        _row(rows, key, f"{key} nf {nf} gc {gc} {B}x{H}x{W}x{nf}",
-             lambda: rrdb.rrdb_apply(packed, x), lambda: rrdb.rrdb_apply_plain(packed, x),
+        es = 2 if cd else 4
+        flops, nbytes = rrdb_work(B, H, W, nf, gc, es)
+        nfp, gcp = rrdb.padded_widths(nf, gc)
+        padded = None if (nfp, gcp) == (nf, gc) else rrdb_work(B, H, W, nfp, gcp, es)
+        # the input of a pack at padded widths: x and zero channels
+        xp = x if nfp == nf else torch.nn.functional.pad(x, (0, nfp - nf))
+        _row(rows, key, f"{key} nf {nf} gc {gc} {B}x{H}x{W}x{nf}"
+             + ("" if padded is None else f" (packed at nf {nfp} gc {gcp})"),
+             lambda: rrdb.rrdb_apply(packed, xp), lambda: rrdb.rrdb_apply_plain(packed, xp),
              (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
              library_fn=lambda: nets.apply_rrdb(lib, x, cd), library_seq=True,
-             rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[B, H, W, nf], gc=gc)
+             rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[B, H, W, nf], gc=gc,
+             padded_work=None if padded is None else ((padded[0], 0, padded[1]) if cd else
+                                                      (0, padded[0], padded[1])),
+             packed_widths=[nfp, gcp])
 
 
-def _trunk_rows(torch, gen, rows, shapes, path, cd="bfloat16", key="rrdb_trunk"):
-    """The resident trunk (nb 5, gc 32) in the recipe cd against its plain version and
-    against the per-RRDB kernel run nb times (bit-identical expected), timed beside it."""
+def _trunk_rows(torch, gen, rows, shapes, path, cd="bfloat16", key="rrdb_trunk", nf=64, gc=32,
+                nb=X8_NB):
+    """The resident trunk (by default nb 5, nf 64, gc 32) in the recipe cd against its
+    plain version and against the per-RRDB kernel run nb times (bit-identical
+    expected), timed beside it; at widths packed padded, through trunk_apply (its input
+    padded once, its output cut once), with the bound at the padded widths beside."""
     from hcflow_tpu_torch.ops import nets, rrdb
 
-    nf, gc = 64, 32
-    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(14), X8_NB, nf, gc), gen)
+    trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(14), nb, nf, gc), gen)
     lib = _library_trunk(torch, trunk, cd)
     trunk = _to(trunk, DEV)
     res = rrdb.pack_rrdb_trunk(trunk, cd, resident=True)
     per = rrdb.pack_rrdb_trunk(trunk, cd)
+    es = 2 if cd else 4
+    nfp, gcp = rrdb.padded_widths(nf, gc)
     for hw, calls in shapes:
         B, H, W = _bhw(hw)
         x = torch.randn(B, H, W, nf, device=DEV, generator=gen)
-        label = f"{key} nb {X8_NB} gc {gc} {B}x{H}x{W}x{nf}"
-        flops, nbytes = trunk_work(B, H, W, nf, gc, X8_NB, 2 if cd else 4)
+        # the input of a pack at padded widths: x and zero channels
+        xp = x if nfp == nf else torch.nn.functional.pad(x, (0, nfp - nf))
+        label = (f"{key} nb {nb} gc {gc} {B}x{H}x{W}x{nf}"
+                 + ("" if (nfp, gcp) == (nf, gc) else f" (packed at nf {nfp} gc {gcp})"))
+        flops, nbytes = trunk_work(B, H, W, nf, gc, nb, es)
+        padded = None
+        if (nfp, gcp) != (nf, gc):
+            pf, pb = trunk_work(B, H, W, nfp, gcp, nb, es)
+            padded = (pf, 0, pb) if cd else (0, pf, pb)
         got = _row(rows, key, label, lambda: rrdb.trunk_apply(res, x),
-                   lambda: rrdb.trunk_apply_resident_plain(res, x),
+                   lambda: rrdb.trunk_apply_resident_plain(res, xp)[..., :nf],
                    (flops, 0, nbytes) if cd else (0, flops, nbytes), 10, path, calls,
                    library_fn=lambda: nets.apply_rrdb_trunk(lib, x, cd), library_seq=True,
                    rtol=KERNEL_RTOL if cd else F32_RTOL, shape=[B, H, W, nf], gc=gc,
-                   nb=X8_NB)
+                   nb=nb, padded_work=padded, packed_widths=[nfp, gcp])
         ref = rrdb.trunk_apply(per, x)
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
         err = 0.0 if same else check_rel(f"{label} vs per-RRDB kernel", got, ref,
                                          KERNEL_RTOL if cd else F32_RTOL)
         per_ms = cuda_time(lambda: rrdb.trunk_apply(per, x), reps=10)
-        log(f"    vs the per-RRDB kernel ({X8_NB} x {rrdb.LAUNCHES_PER_RRDB} launches, "
+        log(f"    vs the per-RRDB kernel ({nb} x {rrdb.LAUNCHES_PER_RRDB} launches, "
             f"{per_ms:.4f} ms/trunk): {'bit-identical' if same else f'max abs {err:.3e}'}")
         rows[key][-1].update(per_rrdb_ms=per_ms, identical_to_per_rrdb=same,
                              per_rrdb_max_abs=err)
@@ -616,13 +661,14 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
         steps = stack.init_stack(spec, torch.Generator().manual_seed(12), K)
         steps = _to(stack.precompute_invconv(perturb(steps, gen)), DEV)
         pk = chain.pack_inverse_chain(steps, cd, padded=True)
+        hp = chain.padded_hid(hid)
         B, H, W = _bhw(hw)
         z = torch.randn(B, H, W, c, device=DEV, generator=gen)
         uc = ucf = None
         if cond:
             u = torch.randn(B, H, W, cond_ch, device=DEV, generator=gen)
             ucf = stack.compute_u_contribs(spec, steps, u)
-            uc = ucf.to(pk["w1"].dtype).contiguous()
+            uc = chain.pad_uc(pk, ucf)
 
         def library(z=z, ucf=ucf, steps=steps, spec=spec):
             with nets.exact_f32():
@@ -631,25 +677,29 @@ def _chain_rows(torch, gen, rows, K, cond_ch, chains, path, hid=64, cd="bfloat16
                          if ucf is not None else spec.inverse(steps[k], z))[0]
             return z
 
-        plan = chain.plan(B, H, W, c, hid=hid, f32=f32)
+        plan = chain.plan(B, H, W, c, hid=hp, f32=f32)
         log(f"  {key} {name}: {plan['th']}x{plan['tw']} tiles, {plan['blocks']} blocks, "
             f"{plan['blocks_per_sm']} per SM, {plan['smem']} bytes of shared memory a block")
-        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}",
+        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}"
+             + ("" if hp == hid else f" hid {hid} (packed at {hp})"),
              lambda: chain.inverse_chain(pk, z, uc), lambda: chain.inverse_chain_plain(pk, z, uc),
              chain_work(B, H, W, c, hid, K, cond, f32), 20, path, calls, library_fn=library,
              library_seq=True, rtol=F32_RTOL if f32 else KERNEL_RTOL, shape=[B, H, W, c],
-             chain=name, K=K, hid=hid, plan=plan)
+             chain=name, K=K, hid=hid, plan=plan, packed_hid=hp,
+             padded_work=None if hp == hid else chain_work(B, H, W, c, hp, K, cond, f32))
 
 
-def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s", calls=1):
-    """chain3s in the recipe cd against its plain version, beside its step loop
-    (FlowStepSpec.inverse over the K steps in the same recipe; float32 with TF32 off)
-    as one CUDA graph; each row with its device time (device_ms, one call as a CUDA
-    graph) and, in bf16, the kernel's tile plan."""
+def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s", calls=1,
+                  gc=32):
+    """chain3s at growth gc in the recipe cd against its plain version, beside its step
+    loop (FlowStepSpec.inverse over the K steps in the same recipe; float32 with TF32
+    off) as one CUDA graph; each row with its device time (device_ms, one call as a CUDA
+    graph) and, in bf16, the kernel's tile plan; at a growth packed padded, the bound
+    at the padded growth beside."""
     from hcflow_tpu_torch.flow.flowstep import FlowStepSpec
     from hcflow_tpu_torch.ops import chain3s, nets
 
-    gc = 32
+    gcp = chain3s.padded_growth(gc)
     for name, c, hw in chains:
         specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype=cd,
                               flow_permutation="none", flow_coupling="Affine3shift",
@@ -667,17 +717,19 @@ def _chain3s_rows(torch, gen, rows, K, chains, path, cd="bfloat16", key="chain3s
                     z = specs[k].inverse(steps[k], z)[0]
             return z
 
-        plan = chain3s.plan(B, H, W, c, gc) if cd else None
+        plan = chain3s.plan(B, H, W, c, gcp) if cd else None
         if plan:
             log(f"  {key} {name}: tiles (even, odd) " + ", ".join(
                 f"{p['th']}x{p['tw']} ({p['blocks']} blocks, {p['smem']} bytes)"
                 for p in (plan["even"], plan["odd"])))
         run = lambda: chain3s.inverse_chain(pk, z)  # noqa: E731
-        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}", run,
+        _row(rows, key, f"{key} {name} {B}x{H}x{W}x{c} K={K}"
+             + ("" if gcp == gc else f" gc {gc} (packed at {gcp})"), run,
              lambda: chain3s.inverse_chain3s_plain(pk, z),
              chain3s_work(B, H, W, c, gc, K, f32=cd is None), 10, path, calls,
              library_fn=library, library_seq=True, rtol=KERNEL_RTOL if cd else F32_RTOL,
-             shape=[B, H, W, c], chain=name, K=K, plan=plan)
+             shape=[B, H, W, c], chain=name, K=K, plan=plan, gc=gc, packed_gc=gcp,
+             padded_work=None if gcp == gc else chain3s_work(B, H, W, c, gcp, K, f32=cd is None))
         # the device's time of one call (a CUDA graph: without the host's issue)
         rows[key][-1]["device_ms"] = graph_time(run, reps=10)
         log(f"    device {rows[key][-1]['device_ms']:.4f} ms/call")
@@ -2929,6 +2981,184 @@ def phase_orbax(torch, gen, card):
     return out
 
 
+# -------------------------------------- phase 15: widths the kernels run padded
+# a chain's KERNELS entry by (float32 recipe, the padded pack's coupling width)
+CHAIN_KEYS = {(False, 64): "chain", (True, 64): "chain_f32", (False, 32): "chain_hid32",
+              (True, 32): "chain_hid32_f32"}
+SMOKE_TRAIN_IMAGES, SMOKE_TRAIN_HW = 4, (160, 160)  # the faces' HR size
+
+
+def _width_models():
+    """Phase 15's models, (label, model, resident trunks): configs/smoke_train.yml's as it
+    is (float32, coupling width 8, RRDB gc 4: the trunks stay plain as in JAX); x4
+    rescaling at growth 24 and x4 SR at coupling width 48, both full width and depth
+    (bf16); the 3-level rescaling model (bf16), whose level-2 main chain (c 48) chain3s
+    does not take; two x4 SR models cut to K 8 and nb 2 for padded trunks: nf 24, gc 8
+    (float32, per RRDB) and gc 24 (bf16, resident trunks)."""
+    from pathlib import Path
+
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
+    from hcflow_tpu_torch.utils import config
+
+    smoke = config.model_spec_from_opt(config.load_yaml(
+        str(Path(__file__).resolve().parent / "configs" / "smoke_train.yml")))
+    cut = dict(K=(8, 8), after_splitoff=(4, 4), rrdb_nb=(2, 2))
+    bf = dict(compute_dtype="bfloat16")
+    return [
+        ("smoke_train.yml, coupling width 8 (float32)", smoke, False),
+        ("x4 rescaling, growth 24 (bf16)", HCFlowRescalingSpec.default_x4(hidden_channels=24, **bf),
+         False),
+        ("x4 SR, coupling width 48 (bf16)", HCFlowSRSpec.for_scale(SCALE, hidden_channels=48, **bf),
+         False),
+        ("3-level rescaling, level 2 c 48 (bf16)", HCFlowRescalingSpec.default_x4(
+            L=3, K=(4, 4, 4), after_splitoff=(2, 2, 2), rrdb_nb=(1, 1, 1), **bf), False),
+        ("x4 SR K 8, RRDB nf 24 gc 8 (float32)",
+         HCFlowSRSpec.for_scale(SCALE, rrdb_nf=24, rrdb_gc=8, **cut), False),
+        ("x4 SR K 8, RRDB gc 24 (bf16, resident trunks)",
+         HCFlowSRSpec.for_scale(SCALE, rrdb_gc=24, **cut, **bf), True),
+    ]
+
+
+def _width_launches(model, resident=False) -> dict:
+    """A reverse pass's launches by KERNELS entry, counted from the model's structure and
+    the packs the card takes (FlowNetSpec.kernel_packs): a packed chain's K steps under
+    its recipe and padded coupling width, chain3s's launches of a main chain, 16 an RRDB
+    of a packed trunk or one a resident trunk."""
+    from hcflow_tpu_torch.ops import chain, chain3s, rrdb
+
+    flow = model.flow
+    out = _per_request()
+    for lv, names in zip(flow.levels, flow.kernel_packs(DEV).values()):
+        so = lv.cond_spec
+        for name, K, hid, cd in (
+                ("main_fused", lv.n_main, flow.hidden_channels, flow.compute_dtype),
+                ("steps_fused", so.n_flow_step, so.hidden_channels, so.compute_dtype)):
+            if name in names:
+                out[CHAIN_KEYS[(cd is None, chain.padded_hid(hid))]] += K
+        if "main3s_fused" in names:
+            f32 = flow.compute_dtype is None
+            out["chain3s_f32" if f32 else "chain3s"] += chain3s.launches_per_chain(lv.n_main, f32)
+        if "trunk0_fused" in names:
+            suffix = "_f32" if so.encoder_compute_dtype is None else ""
+            if resident:
+                out["rrdb_trunk" + suffix] += 2
+            else:
+                out["rrdb" + suffix] += (so.rrdb_nb[0] + so.rrdb_nb[1]) * rrdb.LAUNCHES_PER_RRDB
+    return out
+
+
+def _serve_width_model(torch, gen, label, model, resident):
+    """One phase-15 model at batch 16 from an LR of 40x40: two counted requests held to
+    _width_launches, their outputs checked, the kernel path against the plain path under
+    the same latents (phase 3's limits; float32 phase 8's), the pass timed."""
+    flow = model.flow
+    rescaling = not flow.sr
+    heat = RS_HEAT if rescaling else HEAT
+    params = perturb(model.init(0, device=DEV), gen)
+    fused = flow.precompute_inference(params, fused=True, resident_trunk=resident)
+    plain = flow.precompute_inference(params)
+    lr = torch.rand(BATCH, LR_HW, LR_HW, 3, device=DEV, generator=gen)
+
+    def request(seed, p=fused):
+        return model.reverse(p, lr, heat, generator=torch.Generator(device=DEV).manual_seed(seed))
+
+    request(0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    outs = [request(s) for s in (1, 2)]
+    torch.cuda.synchronize()
+    launches = _counts()
+    per = _width_launches(model, resident)
+    log(f"  {label}: packs on the card {flow.kernel_packs(DEV)}")
+    _check_counts(label, launches, per, 2)
+    hr = (BATCH, LR_HW * 2 ** flow.L, LR_HW * 2 ** flow.L, 3)
+    for out in outs:
+        if tuple(out.shape) != hr or not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+            raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+    eps = [torch.randn(BATCH, LR_HW * 2 ** (flow.L - 1 - lv.level),
+                       LR_HW * 2 ** (flow.L - 1 - lv.level), lv.cond_spec.a_channels,
+                       device=DEV, generator=gen) for lv in flow.levels]
+    with torch.no_grad():
+        err = _compare_paths(f"{label} (same eps_list)",
+                             flow.reverse_flow(fused, lr, heat, eps_list=eps),
+                             flow.reverse_flow(plain, lr, heat, eps_list=eps),
+                             f32=flow.compute_dtype is None)
+    ms, times = _median_ms(lambda: request(100), n=3)
+    log(f"    reverse pass median {ms:.3f} ms over 3 passes; per request {per}")
+    return dict(launches=launches, per_request=per, path_err=err, pass_ms=ms, pass_times_ms=times)
+
+
+def _width_rows(torch, gen, rows, models):
+    """The kernels on phase 15's paths at padded widths (calls_per_pass 0), each with its
+    bound at the true widths (bound_ms) and at the padded ones (bound_padded_ms)."""
+    smoke = models[0][1].flow
+    lv1, lv0 = smoke.levels[1], smoke.levels[0]
+    _chain_rows(torch, gen, rows, lv1.cond_spec.n_flow_step, lv1.cond_spec.cond_channels,
+                [("L1 cond", True, lv1.cond_spec.a_channels, LR_HW)], "widths", hid=8, cd=None,
+                key="chain_hid32_f32", calls=0)
+    _chain_rows(torch, gen, rows, lv0.n_main, None, [("L0 main", False, lv0.channels, 2 * LR_HW)],
+                "widths", hid=8, cd=None, key="chain_hid32_f32", calls=0)
+    _chain_rows(torch, gen, rows, 13, None, [("L1 main", False, 24, LR_HW),
+                                             ("L0 main", False, 12, 2 * LR_HW)], "widths",
+                hid=48, calls=0)
+    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, LR_HW), ("L0 main", 12, 2 * LR_HW)],
+                  "widths", calls=0, gc=24)
+    _rrdb_rows(torch, gen, rows, 8, ((LR_HW, 0), (2 * LR_HW, 0)), "widths", nf=24, cd=None,
+               key="rrdb_f32")
+    _trunk_rows(torch, gen, rows, ((LR_HW, 0), (2 * LR_HW, 0)), "widths", gc=24, nb=2)
+
+
+def phase_widths(torch, gen, rows):
+    """Serving where the kernels run padded packs, at batch 16 and phase 3's shapes
+    (_width_models), the padded kernels' rows, and cli.train.main on a copy of
+    configs/smoke_train.yml on synthetic faces, through its validation on the kernel
+    path (the chain kernel at coupling width 8, packed at 32)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from hcflow_tpu_torch.data.util import save_img
+    from hcflow_tpu_torch.utils import config
+
+    t_phase = time.perf_counter()
+    models = _width_models()
+    out, launches = {}, _per_request()
+    for label, model, resident in models:
+        out[label] = _serve_width_model(torch, gen, label, model, resident)
+        for k, v in out[label]["launches"].items():
+            launches[k] += v
+    log(f"  the models took {time.perf_counter() - t_phase:.1f} s")
+    _width_rows(torch, gen, rows, models)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(15)
+        (tmp / "faces").mkdir()
+        for i in range(SMOKE_TRAIN_IMAGES):
+            save_img(str(tmp / "faces" / f"{i}.png"), _smooth_image(np, rng, *SMOKE_TRAIN_HW))
+        log(f"  configs/smoke_train.yml on {SMOKE_TRAIN_IMAGES} synthetic faces of "
+            f"{SMOKE_TRAIN_HW[1]}x{SMOKE_TRAIN_HW[0]}, changed keys:")
+        src = Path(__file__).resolve().parent / "configs" / "smoke_train.yml"
+        opt = _train_option_file(tmp / "smoke_train.yml", src, tmp, {
+            "datasets.train.dataroot_GT": str(tmp / "faces"),
+            "datasets.val.dataroot_GT": str(tmp / "faces"), "path.root": str(tmp / "runs")})
+        spec = config.model_spec_from_opt(config.parse(opt))
+        niter = config.parse(opt)["train"]["niter"]
+        # one validation image at one heat: one reverse on the packs
+        state, rec = _train_run(torch, "smoke_train.yml", opt, niter, _width_launches(spec))
+    if state.step != niter or len(rec["validations"]) != 1:
+        raise AssertionError(f"smoke_train.yml: G step {state.step} of {niter}, "
+                             f"{len(rec['validations'])} validations, expected one")
+    for k, v in rec["validations"][0]["launches"].items():
+        launches[k] += v
+    log(f"  cli.train.main on smoke_train.yml: {time.perf_counter() - t0:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 15 took {wall:.1f} s; launches {launches}")
+    out.update(train=rec, launches=launches, wall_s=wall)
+    return out
+
+
 # name: (source, the Pallas call it replaces, what one unit of ms is, the CUDA kernels
 # (__global__ functions) its launches run, by the names the profiler shows).  The
 # wgmma tile conv's feature_kernel (conv3x3.cuh) is rrdb's; tools/profile_port.py groups
@@ -3086,6 +3316,11 @@ def main(argv=None):
         "width: train, save, prune and resume; serve the orbax _G.ckpt (load_any, cli.test.main); "
         "zstd frames tensorstore wrote; save and load rates")
     orbax = phase_orbax(torch, gen, card)
+    log("phase 15: widths the kernels run padded (zero channels up to their next width), batch "
+        "16 from LR 40x40: smoke_train.yml's model, x4 rescaling at growth 24, x4 SR at "
+        "coupling width 48, a 3-level rescaling model, trunks at nf 24 / gc 8 and gc 24; "
+        "cli.train.main on smoke_train.yml through its validation")
+    widths = phase_widths(torch, gen, rows)
     kernels = kernel_lines(rows, {"sr": sr["launches"], "rescaling": rs["launches"],
                                   "sr8": sr8["launches"], "train": train["launches"],
                                   "tiny_bf16": tiny["bfloat16"]["launches"],
@@ -3098,14 +3333,16 @@ def main(argv=None):
                                   "train_cli": train_cli["launches"],
                                   "parallel": par["launches"],
                                   "spatial": spatial["launches"],
-                                  "orbax": orbax["launches"]})
+                                  "orbax": orbax["launches"],
+                                  "widths": widths["launches"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": kernels, "model": sr,
                        "rescaling": rs, "sr8": sr8, "train": train, "tiny": tiny,
                        "sr_f32": sr_f32, "rescaling_f32": rs_f32, "sr8_f32": sr8_f32,
                        "serve": serve, "train_cli": train_cli, "parallel": par,
-                       "spatial": spatial, "spatial_train": spatial_train, "orbax": orbax},
+                       "spatial": spatial, "spatial_train": spatial_train, "orbax": orbax,
+                       "widths": widths},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shapes"}
                                   for r in kernels]}))

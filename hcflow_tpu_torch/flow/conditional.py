@@ -152,10 +152,9 @@ class ConditionalFlowSpec:
         on this rank's band plus the chain's halo (``stack.on_band``)."""
         ss, steps = self.step_spec, params["steps"]
         packed = params.get("steps_fused")
-        if packed is not None:
-            dt = packed["w1"].dtype
+        if packed is not None:  # the cond terms in the pack's layout (a padded hid)
             return stack.on_band(
-                lambda z, uc: chain.inverse_chain(packed, z, uc.to(dt).contiguous()), z, cond,
+                lambda z, uc: chain.inverse_chain(packed, z, chain.pad_uc(packed, uc)), z, cond,
                 chain.halo_rows(packed), mesh, stack.Hoist(ss, steps))
         rows = nets.halo_rows(steps)
         if self.hoists:

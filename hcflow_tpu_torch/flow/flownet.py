@@ -311,51 +311,79 @@ class FlowNetSpec:
         ``precompute_inference(fused="all")`` packs (hcflow_tpu/flow/flownet.py:297):
 
         - every chain the chain kernel computes (``chain.supported``: Affine/FCN/
-          plain invconv steps; a split-off chain's cond terms must also hoist) for the
-          chain kernel (ops/chain.py), in the coupling dtype;
-        - every alternating rescaling main chain that ``chain3s.supported`` accepts for
-          ops/chain3s.py, in the coupling dtype;
+          plain invconv steps, any width; a split-off chain's cond terms must also
+          hoist) for the chain kernel (ops/chain.py), in the coupling dtype, its
+          coupling width padded up to 32 or 64;
+        - every alternating rescaling main chain that ``chain3s.supported`` accepts
+          (a growth that is a multiple of 8) for ops/chain3s.py, in the coupling dtype,
+          its growth padded up to 16, 32 or 64;
         - every RRDB trunk for the RRDB kernels (ops/rrdb.py), in the encoder dtype
           (``encoder_dtype``, else ``compute_dtype``), when nf and gc are multiples of
-          8 (the JAX package's gate) and, for params on the card, widths the kernels
-          take (16, 32, 64; ``rrdb.packs_trunk``), other trunks running the plain path:
-          per RRDB, or with ``resident_trunk`` one stacked pack a trunk for the
-          resident-trunk kernel, the counterpart of the JAX package's
-          ``HCFLOW_RDB_TRUNK=1``.
+          8 (the JAX package's gate), each padded up to 16, 32 or 64: per RRDB, or
+          with ``resident_trunk`` one stacked pack a trunk for the resident-trunk
+          kernel, the counterpart of the JAX package's ``HCFLOW_RDB_TRUNK=1``.
 
+        The padding is exact: the padded channels have zero weights and biases and stay
+        0.  Params on the CPU get exactly these packs, which the kernels' plain versions
+        run.  For params on the card each site asks its kernel's predicate
+        (``chain.packs``, ``chain3s.packs``, ``rrdb.packs_trunk``; all of them:
+        :meth:`kernel_packs`), a function of the widths and the device alone: a chain
+        or trunk whose padded widths the kernel does not take (chain: hid or c over 64;
+        chain3s: a growth over 64 or c - 3 over 32; RRDB: nf or gc over 64) is not
+        packed and serves on the plain path, as the JAX package's VMEM gate sends what
+        does not fit to its step loop; every pack made reaches a kernel that takes it.
         Every other chain serves on the plain path, as in the JAX package.  Each pack
-        is bf16 or float32 as its dtype says, and every kernel takes both: the
-        bf16 recipe gets bf16 packs, the float32 recipe (the shipped test configs set no
+        is bf16 or float32 as its dtype says, and every kernel takes both: the bf16
+        recipe gets bf16 packs, the float32 recipe (the shipped test configs set no
         ``compute_dtype``) float32 packs, whose kernels run 3xTF32 products (float32
         accuracy), and the shipped training recipe (bf16 encoders, float32 couplings)
-        float32 chain packs and bf16 trunk packs.  A chain pack at a width the kernel
-        does not take (hid other than 32 or 64) still reaches its wrapper, which raises
-        on the card.  ``trunks=False`` packs the chains only, the counterpart of the JAX
-        package's ``fused=True``.  Training params never carry
-        packs (no kernel has a backward pass)."""
+        float32 chain packs and bf16 trunk packs.  ``trunks=False`` packs the chains
+        only, the counterpart of the JAX package's ``fused=True``.  Training params never
+        carry packs (no kernel has a backward pass)."""
+        dev = params["level0"]["cond"]["conv_first"]["w"].device
+        packs = self.kernel_packs(dev, trunks) if fused else {}
         new = {}
         for lv in self.levels:
             lp = dict(params[f"level{lv.level}"])
             lp["main"] = stack.precompute_invconv(lp["main"])
             cond = dict(lp["cond"])
-            so = lv.cond_spec
+            so, names = lv.cond_spec, packs.get(lv.level, ())
             if so.n_flow_step > 0:
                 cond["steps"] = stack.precompute_invconv(cond["steps"])
-            if fused:
-                cd = self.compute_dtype
-                if lv.alternate_lrvsothers:
-                    if chain3s.supported(lv, self.hidden_channels):
-                        lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], cd)
-                elif lv.n_main > 0 and chain.supported(lv.main_spec):
-                    lp["main_fused"] = chain.pack_inverse_chain(lp["main"], cd, padded=True)
-                if so.n_flow_step > 0 and chain.supported(so.step_spec) and so.hoists:
-                    cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
-                                                                   padded=True)
-                dev = cond["conv_first"]["w"].device
-                if trunks and rrdb.packs_trunk(so.rrdb_nf, so.rrdb_gc, dev):
-                    for trunk in ("trunk0", "trunk1"):
-                        cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(
-                            cond[trunk], so.encoder_compute_dtype, resident=resident_trunk)
+            if "main3s_fused" in names:
+                lp["main3s_fused"] = chain3s.pack_inverse_chain3s(lp["main"], self.compute_dtype)
+            if "main_fused" in names:
+                lp["main_fused"] = chain.pack_inverse_chain(lp["main"], self.compute_dtype,
+                                                            padded=True)
+            if "steps_fused" in names:
+                cond["steps_fused"] = chain.pack_inverse_chain(cond["steps"], so.compute_dtype,
+                                                               padded=True)
+            for trunk in ("trunk0", "trunk1"):
+                if f"{trunk}_fused" in names:
+                    cond[f"{trunk}_fused"] = rrdb.pack_rrdb_trunk(
+                        cond[trunk], so.encoder_compute_dtype, resident=resident_trunk)
             lp["cond"] = cond
             new[f"level{lv.level}"] = lp
         return new
+
+    def kernel_packs(self, device, trunks: bool = True) -> dict:
+        """The packs that ``precompute_inference(params, fused=True, trunks=trunks)``
+        attaches for params on ``device``, by level: {level: the set of "main_fused",
+        "main3s_fused" (in the level's params), "steps_fused", "trunk0_fused",
+        "trunk1_fused" (in its "cond")}.  A function of the widths and the device's type
+        alone, so that a card's choices can be read without one."""
+        out = {}
+        for lv in self.levels:
+            so, hid, names = lv.cond_spec, self.hidden_channels, set()
+            if lv.alternate_lrvsothers:
+                if chain3s.packs(lv, hid, device):
+                    names.add("main3s_fused")
+            elif lv.n_main > 0 and chain.packs(lv.main_spec, lv.channels, hid, device):
+                names.add("main_fused")
+            if (so.n_flow_step > 0 and so.hoists
+                    and chain.packs(so.step_spec, so.a_channels, so.hidden_channels, device)):
+                names.add("steps_fused")
+            if trunks and rrdb.packs_trunk(so.rrdb_nf, so.rrdb_gc, device):
+                names |= {"trunk0_fused", "trunk1_fused"}
+            out[lv.level] = names
+        return out

@@ -30,7 +30,11 @@ shapes, and the kernel is bound by latency: the step's weights staged per block 
 three dependent convs on a small tile.  The kernel takes
 the padded pack (``pack_inverse_chain(..., padded=True)``): c1 padded to 8 and shift
 and scale to 8 each, with zeros, so that shift j and scale j sit in one thread's
-fragment; the plain version reads either pack.
+fragment, and hid padded up to 32 or 64 with zero channels, whose activations are
+relu((0 + 0) * 1) = 0 and which carry nothing into conv3; the plain version reads
+either pack.  A chain wider than the kernel's widths (:func:`takes`: hid over 64, c
+outside 2 to 64) is not packed for the card (:func:`packs`) and serves on the plain
+step loop.
 """
 
 from __future__ import annotations
@@ -63,6 +67,28 @@ def supported(step_spec) -> bool:
             and step_spec.nn_module == "FCN" and not step_spec.lu_decomposed)
 
 
+def padded_hid(hid: int) -> int:
+    """The coupling width a padded pack holds: hid up to 32 -> 32, 33 to 64 -> 64, a
+    wider one as it is."""
+    return nets.pad_width(hid, HIDS)
+
+
+def takes(c: int, hid: int) -> bool:
+    """Whether the kernel runs a chain of c channels at coupling width hid (csrc/chain.cu
+    ``with_hid`` and ``with_widths``): the limit that :func:`packs` and the wrapper
+    both apply."""
+    return hid in HIDS and 2 <= c <= 64
+
+
+def packs(step_spec, c: int, hid: int, device) -> bool:
+    """Whether a chain of c channels and coupling width hid whose params lie on
+    ``device`` is packed for serving: where the JAX package packs it
+    (:func:`supported`, any width) and, on the card, where its padded pack is one the
+    kernel takes; a wider chain serves on the plain step loop there."""
+    return supported(step_spec) and (torch.device(device).type != "cuda"
+                                     or takes(c, padded_hid(hid)))
+
+
 def pack_inverse_chain(steps: list, compute_dtype=None, padded: bool = False) -> dict:
     """Pack a chain's per-step params (invconv inverses attached) for the kernel.
 
@@ -73,10 +99,13 @@ def pack_inverse_chain(steps: list, compute_dtype=None, padded: bool = False) ->
     (``e = exp(logs)``, ``g3 = exp(3 logs3)`` folded into conv3's gain and bias),
     ``wt`` = diag(exp(-logs)) W^-1 and ``ab`` the ActNorm bias.
 
-    ``padded``: the CUDA kernel's layout, with zeros added: ``w1`` (9, C1P, hid), C1P
+    ``padded``: the CUDA kernel's layout, with zeros added: ``w1`` (9, C1P, HP), C1P
     = c1 rounded up to a multiple of 8; shift and scale each padded to S = c2 rounded
-    up to a multiple of 8, so ``w3`` is (9, hid, 2 S) as [shift (S) | scale (S)] and
-    g3, bg3 have 2 S entries each.
+    up to a multiple of 8, so ``w3`` is (9, HP, 2 S) as [shift (S) | scale (S)] and
+    g3, bg3 have 2 S entries each; the coupling width padded to HP =
+    :func:`padded_hid` (hid), ``w2`` (HP, HP), with zero weights into and out of the
+    padded channels and their b1, e1, b2, e2 set to 0, 1, 0, 1.  A hoisted cond term
+    reaches a padded pack through :func:`pad_uc`.
     """
     nd = nets.net_dtype(compute_dtype)
     f = [p["coupling"]["f"] for p in steps]
@@ -108,15 +137,19 @@ def pack_inverse_chain(steps: list, compute_dtype=None, padded: bool = False) ->
         "ab": torch.stack([p["actnorm"]["bias"] for p in steps]),
     }
     if padded:
-        pad = _up(c2, 8) - c2
+        pad, ph = _up(c2, 8) - c2, padded_hid(hid) - hid
         F = torch.nn.functional
 
         def halves(t):  # [shift | scale] on the last axis, each half padded to S
             return torch.cat([F.pad(t[..., :c2], (0, pad)), F.pad(t[..., c2:], (0, pad))], -1)
 
-        packed["w1"] = F.pad(packed["w1"], (0, 0, 0, _up(c1, 8) - c1))
-        packed["w3"] = halves(packed["w3"])
+        packed["w1"] = F.pad(packed["w1"], (0, ph, 0, _up(c1, 8) - c1))
+        packed["w2"] = F.pad(packed["w2"], (0, ph, 0, ph))
+        packed["w3"] = halves(F.pad(packed["w3"], (0, 0, 0, ph)))
         b, g, bg = vec.split([4 * hid, 2 * c2, 2 * c2], 1)
+        if ph:  # b1, e1, b2, e2 of the padded channels: 0, 1, 0, 1
+            b = torch.cat([F.pad(v, (0, ph), value=float(i % 2))
+                           for i, v in enumerate(b.split(hid, 1))], 1)
         packed["vec"] = torch.cat([b, halves(g), halves(bg)], 1)
     return {k: v.to(nd if k in ("w1", "w2", "w3") else torch.float32).contiguous()
             for k, v in packed.items()}
@@ -133,6 +166,17 @@ def halo_rows(packed: dict) -> int:
     conv1's and conv3's radius (3x3: one each; conv2 is 1x1), 2K in all."""
     K = packed["wt"].shape[0]
     return K * sum((math.isqrt(packed[n].shape[1]) - 1) // 2 for n in ("w1", "w3"))
+
+
+def pad_uc(packed: dict, uc: torch.Tensor) -> torch.Tensor:
+    """The hoisted cond terms of :func:`stack.compute_u_contribs` ((B, H, W, K hid), step
+    k's at ``[k hid, (k + 1) hid)``) in a pack's layout: each step's hid channels padded
+    with zeros to the pack's coupling width, in the packed weights' dtype, contiguous."""
+    K, hp = packed["w2"].shape[:2]
+    B, H, W, n = uc.shape
+    if n != K * hp:
+        uc = torch.nn.functional.pad(uc.reshape(B, H, W, K, n // K), (0, hp - n // K))
+    return uc.reshape(B, H, W, K * hp).to(packed["w1"].dtype).contiguous()
 
 
 def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
@@ -162,11 +206,16 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     """Run the K-step inverse chain (k = K-1 down to 0) on NHWC float32 z.
 
     ``uc`` (a conditional chain only): the hoisted cond terms of
-    ``stack.compute_u_contribs``, (B, H, W, K*hid) in the packed weights' dtype.  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel, which takes the padded
-    pack, bf16 or float32, at hid 32 or 64 and 2 to 64 channels.  Either raises under
-    autograd when an input requires grad."""
+    ``stack.compute_u_contribs`` in the pack's layout (:func:`pad_uc`), (B, H, W, K*hid)
+    at the pack's hid, in the packed weights' dtype.  A CPU tensor takes the plain
+    version; a CUDA tensor the kernel, which takes the padded pack, bf16 or float32, of
+    widths it takes (:func:`takes`), or raises.  Either raises under autograd when an
+    input requires grad."""
     _build.refuse_grad("chain", z, uc, packed)
+    K, _, _, hid, _ = _dims(packed)
+    if uc is not None and uc.shape[-1] != K * hid:
+        raise ValueError(f"uc has {uc.shape[-1]} channels, not the pack's K * hid = {K * hid} "
+                         "(pad it to the pack's layout with pad_uc)")
     if not z.is_cuda:
         return inverse_chain_plain(packed, z, uc)
     return _launch(packed, z, uc)
@@ -177,7 +226,7 @@ def _launch(packed, z, uc):
     B, H, W, cz = z.shape
     if cz != c or z.dtype != torch.float32:
         raise ValueError(f"z must be float32 with {c} channels, got {z.dtype} {tuple(z.shape)}")
-    if hid not in HIDS or not 2 <= c <= 64:
+    if not takes(c, hid):
         raise ValueError(f"the chain kernel takes hid {HIDS} and 2 to 64 channels, not {hid}, {c}")
     nd = packed["w1"].dtype
     if nd not in (torch.bfloat16, torch.float32) or any(packed[n].dtype != nd for n in ("w2", "w3")):

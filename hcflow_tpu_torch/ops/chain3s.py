@@ -32,7 +32,12 @@ kernel recomputes and checks it).  The pack keeps the plain
 version's per-conv weights and, for the kernel, one weight blob and one bias blob
 (:func:`pack_inverse_chain3s`), which the wrapper hands over as two pointers: no loop
 over the steps.  The net input is zero-padded to a multiple of 16 channels and conv5's
-outputs likewise, with zero weights at pack time; the padding never reaches z.
+outputs likewise, with zero weights at pack time; the padding never reaches z.  A
+growth that is a multiple of 8 is padded up to 16, 32 or 64 (:func:`padded_growth`):
+the padded features x1..x4 have zero weights and biases, so they are lrelu(0) = 0, and
+carry nothing into the later convs.  A chain past the kernel's widths (:func:`takes`:
+a growth over 64, c - 3 over 32) is not packed for the card (:func:`packs`) and serves
+on the plain step loop.
 """
 
 from __future__ import annotations
@@ -149,11 +154,27 @@ def _fused_plan(B, H, W, cinp, gc, n5):
     return best[1]
 
 
+GROWTHS = (16, 32, 64)  # the growths the kernels take
+
+
+def padded_growth(gc: int) -> int:
+    """The growth a pack holds: a multiple of 8 rounded up to 16, 32 or 64, any other
+    growth (or one past 64) as it is."""
+    return nets.pad_width(gc, GROWTHS) if gc % 8 == 0 else gc
+
+
+def takes(c: int, gc: int) -> bool:
+    """Whether the kernels run a chain of c channels at growth gc: the limit that
+    :func:`packs` and the wrapper's checks both apply."""
+    return gc in GROWTHS and 1 <= c - 3 <= 32
+
+
 def _check_widths(c: int, gc: int) -> None:
-    if gc not in (16, 32, 64):
+    if takes(c, gc):
+        return
+    if gc not in GROWTHS:
         raise ValueError(f"the chain3s kernel takes a growth of 16, 32 or 64, not {gc}")
-    if not 1 <= c - 3 <= 32:
-        raise ValueError(f"the chain3s kernel takes 4 to 35 channels, not {c}")
+    raise ValueError(f"the chain3s kernel takes 4 to 35 channels, not {c}")
 
 
 _plans: dict = {}
@@ -189,6 +210,15 @@ def supported(lv, hidden_channels: int) -> bool:
             and ms.cond_channels is None and hidden_channels % 8 == 0 and lv.channels > 3)
 
 
+def packs(lv, gc: int, device) -> bool:
+    """Whether a level's main chain of growth gc whose params lie on ``device`` is packed
+    for serving: where the JAX package packs it (:func:`supported`) and, on the card,
+    where its padded pack is one the kernels take; a wider chain serves on the plain
+    step loop there."""
+    return supported(lv, gc) and (torch.device(device).type != "cuda"
+                                  or takes(lv.channels, padded_growth(gc)))
+
+
 def _conv5_order(c2: int, even: bool) -> list:
     """conv5's outputs in the kernel's order, as rows of the [shift | scale] (even) or
     shift (odd) outputs, -1 for a zero row: even steps in blocks of 8, [shift 0..7 |
@@ -205,16 +235,20 @@ def _conv5_order(c2: int, even: bool) -> list:
 
 def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
     """One dense block's weights by ``nets.pack_taps`` (bf16 [tap][ci][co], float32
-    [tap][co][ci]) with the net input padded to 16 channels (zero rows) and conv5's
-    outputs permuted by ``perm`` and zero-padded, and their biases, for the plain version;
-    and the same convs flattened in the kernel's layout for the blobs (bf16 [tap][ci][co];
-    float32 their TF32 planes, ``nets.pack_tf32``, where every input width is a multiple
+    [tap][co][ci]) with the net input padded to 16 channels (zero rows), the growth
+    padded by :func:`padded_growth` (zero outputs of conv1-4 and zero rows where each
+    later conv reads them) and conv5's outputs permuted by ``perm`` and zero-padded, and
+    their biases, for the plain version; and the same convs flattened in the kernel's
+    layout for the blobs (bf16 [tap][ci][co]; float32 their TF32 planes,
+    ``nets.pack_tf32``, split after the padding, where every input width is a multiple
     of 4, else None), conv5's outputs in :func:`_conv5_order`."""
-    pad_in = _rup16(cin) - cin
+    gc = f["conv1"]["w"].shape[0]
+    gcp = padded_growth(gc)
     ws, bs, blob_w, blob_b = [], [], [], []
     for i in range(1, 6):
         w, b = f[f"conv{i}"]["w"], f[f"conv{i}"]["b"]  # OIHW
-        w = torch.cat([w[:, :cin], w.new_zeros(w.shape[0], pad_in, 3, 3), w[:, cin:]], 1)
+        w, b = nets.pad_dense_conv(w, b, [cin] + [gc] * (i - 1),
+                                   [_rup16(cin)] + [gcp] * (i - 1), gcp if i < 5 else fout)
         wk, bk = w, b
         if i == 5:
             if perm is not None:
@@ -238,7 +272,8 @@ def _pack_net(f: dict, cin: int, fout: int, perm, nd) -> tuple:
 def pack_inverse_chain3s(main: list, compute_dtype=None) -> dict:
     """Pack an alternating chain's per-step params for the kernel and its plain version.
 
-    For the plain version, stacked per parity (``e``: even k, net input z1; ``o``: odd
+    Every conv's growth is padded by :func:`padded_growth` (gc below).  For the plain
+    version, stacked per parity (``e``: even k, net input z1; ``o``: odd
     k, net input z2), index k // 2: ``w{e,o}{1..5}`` (n, 9, cin_i, cout_i) in the net
     dtype (float32: (n, 9, cout_i, cin_i), K-major) and ``b{e,o}{1..5}`` float32; the
     even conv5's outputs go from the even/odd "cross" split to [shift | scale].  For the

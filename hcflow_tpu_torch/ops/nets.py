@@ -141,6 +141,27 @@ def pack_dtype(ws, kernel: str) -> torch.dtype:
     return dts.pop()
 
 
+def pad_width(n: int, widths: tuple) -> int:
+    """n rounded up to the least of a kernel's ``widths`` (ascending) that holds it;
+    n itself past the widest."""
+    return next((w for w in widths if w >= n), n)
+
+
+def pad_dense_conv(w: torch.Tensor, b: torch.Tensor, ins, ins_to, cout_to: int) -> tuple:
+    """An OIHW conv weight over a concat of input segments of widths ``ins``, and its
+    bias, with each segment zero-padded to its width in ``ins_to`` and the outputs to
+    ``cout_to``: zero weights on the padded inputs, zero weights and biases on the
+    padded outputs.  Where every padded input is 0, so is every padded output before an
+    activation with act(0) = 0, and the real outputs gain only exact zero terms."""
+    ins, ins_to = list(ins), list(ins_to)
+    pad_out = cout_to - w.shape[0]
+    if ins == ins_to and pad_out == 0:
+        return w, b
+    w = torch.cat([F.pad(p, (0, 0, 0, 0, 0, t - n))
+                   for p, n, t in zip(w.split(ins, 1), ins, ins_to)], 1)
+    return F.pad(w, (0, 0, 0, 0, 0, 0, 0, pad_out)), F.pad(b, (0, pad_out))
+
+
 def taps(w: torch.Tensor) -> torch.Tensor:
     """A packed tile-conv weight (:func:`pack_taps`; leading axes allowed) as ``(...,
     9, cin, cout)`` ``[tap][ci][co]``, a view."""

@@ -39,11 +39,20 @@ weights K-major, ``(9, cout, cin)`` ``[tap][co][ci]`` (``nets.pack_taps``, which
 plain version reads; ``nets.taps`` gives either pack's weight as ``(9, cin, cout)``),
 and their hi and lo TF32 planes (``nets.pack_tf32``), which the kernels read; the
 wrappers raise on a float32 pack without them (:func:`check_pack`).
+
+Widths that are multiples of 8 are packed at the kernels' next widths
+(:func:`padded_widths`: 8 -> 16, 24 -> 32, 40 to 56 -> 64) with zero weights and biases
+on the padded channels: a padded feature is lrelu(0) = 0, a padded trunk channel stays
+0 through ``x + 0.2 * conv5`` and ``0.2 * rdb3 + x_in``, and the real channels' sums
+gain only exact zero terms.  :func:`trunk_apply` pads the trunk's input with zero
+channels once and cuts its output back once.  A trunk wider than 64 is not packed for
+the card (:func:`packs_trunk`) and runs the plain path there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -68,18 +77,33 @@ _TRUNK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _RECIPE = {torch.bfloat16: "bf16", torch.float32: "f32"}  # the launch counters' keys
 
 
+def takes(nf: int, gc: int) -> bool:
+    """Whether the RRDB and resident-trunk kernels run widths nf, gc: the limit that
+    :func:`packs_trunk` and the wrappers' checks both apply."""
+    return nf in WIDTHS and gc in WIDTHS
+
+
+def padded_widths(nf: int, gc: int) -> tuple:
+    """(nf, gc) of a pack: where both are multiples of 8 (the JAX package's gate), each
+    rounded up to 16, 32 or 64; other widths, and widths past 64, as they are."""
+    if nf % 8 or gc % 8:
+        return nf, gc
+    return nets.pad_width(nf, WIDTHS), nets.pad_width(gc, WIDTHS)
+
+
 def packs_trunk(nf: int, gc: int, device) -> bool:
     """Whether a trunk of widths nf, gc whose params lie on ``device`` is packed for
-    serving: where nf and gc are multiples of 8 (the JAX package's gate); on the card
-    only where the kernels take them too (``WIDTHS``), other widths keeping the plain
-    trunk."""
+    serving: where nf and gc are multiples of 8 (the JAX package's gate) and, on the
+    card, where the padded widths are ones the kernels take; a wider trunk runs the
+    plain path there."""
     if nf % 8 or gc % 8:
         return False
-    return torch.device(device).type != "cuda" or (nf in WIDTHS and gc in WIDTHS)
+    return torch.device(device).type != "cuda" or takes(*padded_widths(nf, gc))
 
 
 def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
-    """Pack one RRDB's params (rdb1..3, conv1..5 OIHW) for the kernel.
+    """Pack one RRDB's params (rdb1..3, conv1..5 OIHW) for the kernel, at the widths
+    :func:`padded_widths` gives (zero weights and biases on the padded channels).
 
     ``w``: 15 weights in the net dtype by ``nets.pack_taps`` (bf16 (9, cin, cout),
     float32 (9, cout, cin)), dense block r's conv i+1 at index 5 r + i; ``b``: the 15
@@ -87,11 +111,16 @@ def pack_rrdb(rrdb: dict, compute_dtype=None) -> dict:
     ``nets.pack_tf32`` ((2, 9, cin / 4, cout, 4)), which the kernel reads.
     """
     nd = nets.net_dtype(compute_dtype)
-    convs = [rrdb[f"rdb{r}"][f"conv{i}"] for r in (1, 2, 3) for i in range(1, 6)]
-    packed = {"w": [nets.pack_taps(c["w"], nd) for c in convs],
-              "b": [c["b"].float().contiguous() for c in convs]}
+    gc, nf = rrdb["rdb1"]["conv1"]["w"].shape[:2]
+    nfp, gcp = padded_widths(nf, gc)
+    convs = [nets.pad_dense_conv(c["w"], c["b"], [nf] + [gc] * i, [nfp] + [gcp] * i,
+                                 gcp if i < 4 else nfp)
+             for c, i in ((rrdb[f"rdb{r}"][f"conv{i + 1}"], i) for r in (1, 2, 3)
+                          for i in range(5))]
+    packed = {"w": [nets.pack_taps(w, nd) for w, _ in convs],
+              "b": [b.float().contiguous() for _, b in convs]}
     if nd == torch.float32:
-        packed["tf32"] = [nets.pack_tf32(c["w"]) for c in convs]
+        packed["tf32"] = [nets.pack_tf32(w) for w, _ in convs]
     return packed
 
 
@@ -162,7 +191,7 @@ def check_pack(packed: dict, nf: int) -> tuple:
     raises a ValueError."""
     wd = nets.pack_dtype(packed["w"], "RRDB")
     gc = nets.taps_shape(packed["w"][0])[2]
-    if nf not in WIDTHS or gc not in WIDTHS:
+    if not takes(nf, gc):
         raise ValueError(f"the RRDB kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
     for k, w in enumerate(packed["w"]):
         cout = gc if k % 5 < 4 else nf
@@ -219,7 +248,7 @@ def check_trunk_pack(packed: dict, nf: int) -> tuple:
     wd = nets.pack_dtype(packed["w"], "RRDB trunk")
     gc = nets.taps_shape(packed["w"][0])[3]
     nb = packed["b"][0].shape[0] // 3
-    if nf not in WIDTHS or gc not in WIDTHS:
+    if not takes(nf, gc):
         raise ValueError(f"the RRDB trunk kernel takes nf and gc of 16, 32 or 64, not {nf}, {gc}")
     for i in range(5):
         cout = gc if i < 4 else nf
@@ -276,14 +305,28 @@ def halo_rows(packed: dict) -> int:
 def trunk_apply(packed, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """A trunk of RRDBs on NHWC x; float32 out.  ``packed`` from
     :func:`pack_rrdb_trunk`: a list runs the per-RRDB kernel once per RRDB, a stacked
-    dict (``resident=True``) the resident-trunk kernel once.  ``mesh``: each kernel
-    call on this rank's band plus the halo it reads (:func:`halo_rows`), exchanged
-    before it."""
-    x = x.float().contiguous()
+    dict (``resident=True``) the resident-trunk kernel once.  Where the pack's nf is
+    padded past x's channels, x gains zero channels once before the first RRDB and the
+    output loses them once after the last.  ``mesh``: each kernel call on this rank's
+    band plus the halo it reads (:func:`halo_rows`), exchanged before it; at a padded
+    nf only the real channels are exchanged, and each call pads the band and its halo
+    and cuts its output back."""
+    nf = x.shape[-1]
+    pad = (packed if isinstance(packed, dict) else packed[0])["b"][4].shape[-1] - nf
+    once = not (pad and halo.sharded(mesh))  # the padded channels are 0: exchange none
+
+    def widen(t):
+        return torch.nn.functional.pad(t, (0, pad)) if pad else t.contiguous()
+
     if isinstance(packed, dict):
-        return halo.banded(lambda t: trunk_apply_resident(packed, t.contiguous()), x,
-                           halo_rows(packed), mesh, "trunk")
-    for p in packed:
-        x = halo.banded(lambda t, p=p: rrdb_apply(p, t.contiguous()), x, halo_rows(p), mesh,
-                        "rrdb")
-    return x
+        calls = [(functools.partial(trunk_apply_resident, packed), halo_rows(packed), "trunk")]
+    else:
+        calls = [(functools.partial(rrdb_apply, p), halo_rows(p), "rrdb") for p in packed]
+    x = x.float()
+    if once:
+        x = widen(x)
+    for fn, rows, unit in calls:
+        run = ((lambda t, fn=fn: fn(t.contiguous())) if once
+               else (lambda t, fn=fn: fn(widen(t))[..., :nf]))
+        x = halo.banded(run, x, rows, mesh, unit)
+    return x[..., :nf] if once and pad else x

@@ -370,16 +370,17 @@ def test_precompute_inference_packs_what_the_kernels_take(gen, cd, ed):
 
 @pytest.mark.parametrize("cd", ["bfloat16", None])
 @pytest.mark.parametrize("gc", [8, 24])
-def test_trunks_at_other_widths_serve_plain(gen, cd, gc):
-    """A model whose gc passes JAX's gate but is not a width the RRDB kernels take (8,
-    24) packs no trunk on the card: its trunks run the plain path, its chains the chain
-    kernel, and the fused reverse matches the plain one."""
+def test_trunks_at_other_widths_serve_padded(gen, cd, gc):
+    """A model whose gc passes JAX's gate but is not a width the RRDB kernels hold an
+    instance for (8, 24) packs its trunks padded to gc 16 or 32: the fused reverse runs
+    the RRDB kernel on them and the chain kernel, and matches the plain one."""
     model = _tiny_spec(cd, rrdb_gc=gc)
     params = _perturb(model.init(0, device="cuda"), gen)
     fused = model.flow.precompute_inference(params, fused=True)
     plain = model.flow.precompute_inference(params)
     for lv in range(2):
-        assert "trunk0_fused" not in fused[f"level{lv}"]["cond"]
+        packs = fused[f"level{lv}"]["cond"]["trunk0_fused"]
+        assert nets.taps_shape(packs[0]["w"][0])[-1] == {8: 16, 24: 32}[gc]
     lr = torch.rand(2, 6, 7, 3, device="cuda", generator=gen)
     eps = [torch.randn(2, 12, 14, 6, device="cuda", generator=gen),
            torch.randn(2, 6, 7, 21, device="cuda", generator=gen)]
@@ -387,9 +388,10 @@ def test_trunks_at_other_widths_serve_plain(gen, cd, gc):
     rrdb.launches_by.clear()
     with torch.no_grad():
         got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
+        torch.cuda.synchronize()
+        assert sum(chain.launches_by.values()) == 4 * 4
+        assert rrdb.launches_by == {"bf16" if cd else "f32": 4 * rrdb.LAUNCHES_PER_RRDB * 2}
         ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
-    torch.cuda.synchronize()
-    assert sum(chain.launches_by.values()) == 4 * 4 and not rrdb.launches_by
     assert torch.isfinite(got).all()
     d = (got - ref).abs()
     if cd is None:
@@ -397,6 +399,201 @@ def test_trunks_at_other_widths_serve_plain(gen, cd, gc):
     else:
         assert d.max().item() <= 5e-2 * ref.abs().max().item()
         assert d.mean().item() <= 1e-2 * ref.abs().mean().item()
+
+
+# ---------------------------------- padded packs: widths with no kernel instance of their own
+# A chain at coupling width 8, 12, 24 or 48 runs the kernel at 32 or 64, chain3s at growth
+# 8, 24 or 48 at 16, 32 or 64, an RRDB trunk at (24, 8), (32, 24), (48, 40) or (64, 8) at
+# (32, 16), (32, 32), (64, 64) or (64, 16): zero weights and biases on the padded
+# channels, which stay 0.  Each kernel against its plain version on the same padded pack,
+# at the limits above.
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("hid", [8, 12, 24, 48])
+@pytest.mark.parametrize("cond,c", [(True, 21), (False, 12)])
+def test_padded_chain_kernel_matches_plain(gen, cd, hid, cond, c):
+    K, H, W = 3, 10, 12
+    spec = FlowStepSpec(in_channels=c, cond_channels=128 if cond else None,
+                        hidden_channels=hid, compute_dtype=cd)
+    steps = stack.init_stack(spec, torch.Generator().manual_seed(5), K)
+    steps = stack.precompute_invconv(_perturb(steps, gen))
+    packed = chain.pack_inverse_chain(steps, cd, padded=True)
+    hp = chain.padded_hid(hid)
+    assert packed["w2"].shape[1:] == (hp, hp) and chain.takes(c, hp)
+    z = torch.randn(2, H, W, c, device="cuda", generator=gen)
+    uc = None
+    if cond:
+        u = torch.randn(2, H, W, 128, device="cuda", generator=gen)
+        uc = chain.pad_uc(packed, stack.compute_u_contribs(spec, steps, u))
+        assert uc.shape[-1] == K * hp and not uc.reshape(2, H, W, K, hp)[..., hid:].any()
+    key = f"{'bf16' if cd else 'f32'} hid {hp}"
+    before = chain.launches_by.get(key, 0)
+    got = chain.inverse_chain(packed, z, uc)
+    torch.cuda.synchronize()
+    assert chain.launches_by[key] == before + K
+    ref = chain.inverse_chain_plain(packed, z, uc)
+    assert torch.isfinite(got).all()
+    tol = RTOL if cd else F32_RTOL
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("gc", [8, 24, 48])
+@pytest.mark.parametrize("c,K,H,W", [(12, 4, 10, 12), (24, 3, 9, 17)])
+def test_padded_chain3s_kernel_matches_plain(gen, cd, gc, c, K, H, W):
+    specs = [FlowStepSpec(in_channels=c, hidden_channels=gc, compute_dtype=cd,
+                          flow_permutation="none", flow_coupling="Affine3shift",
+                          nn_module="DenseBlock", lr_vs_others=(k % 2 == 0)) for k in range(K)]
+    steps = _perturb([s.init(torch.Generator().manual_seed(3 + k)) for k, s in enumerate(specs)],
+                     gen)
+    packed = chain3s.pack_inverse_chain3s(steps, cd)
+    assert chain3s.check_pack(packed)[1] == chain3s.padded_growth(gc) > gc
+    z = torch.randn(2, H, W, c, device="cuda", generator=gen)
+    key = "bf16" if cd else "f32"
+    before = chain3s.launches_by.get(key, 0)
+    got, ld = chain3s.inverse_chain(packed, z)
+    torch.cuda.synchronize()
+    assert chain3s.launches_by[key] == before + chain3s.launches_per_chain(K, f32=cd is None)
+    ref, ld_ref = chain3s.inverse_chain3s_plain(packed, z)
+    tol = RTOL if cd else F32_RTOL
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(ld, ld_ref)
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("nf,gc", [(24, 8), (32, 24), (48, 40), (64, 8)])
+def test_padded_trunk_kernels_match_plain(gen, cd, nf, gc):
+    """The per-RRDB and resident-trunk kernels on padded packs (nb 2) through trunk_apply:
+    bit-identical to each other, against the plain version on the padded input, and the
+    padded channels exactly 0 at the trunk's end."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(4), 2, nf, gc), gen)
+    per = rrdb.pack_rrdb_trunk(trunk, cd)
+    res = rrdb.pack_rrdb_trunk(trunk, cd, resident=True)
+    nfp, gcp = rrdb.padded_widths(nf, gc)
+    x = torch.randn(2, 13, 21, nf, device="cuda", generator=gen)
+    key = "bf16" if cd else "f32"
+    before = rrdb.launches_by.get(key, 0), rrdb.trunk_launches_by.get(key, 0)
+    got = rrdb.trunk_apply(per, x)
+    got_res = rrdb.trunk_apply(res, x)
+    torch.cuda.synchronize()
+    assert (rrdb.launches_by[key], rrdb.trunk_launches_by[key]) == (
+        before[0] + 2 * rrdb.LAUNCHES_PER_RRDB, before[1] + 1)
+    assert got.shape == x.shape and torch.equal(got, got_res)
+    xp = torch.nn.functional.pad(x, (0, nfp - nf))
+    wide = rrdb.trunk_apply_resident(res, xp)
+    assert not wide[..., nf:].any()  # the padded channels stay 0
+    ref = xp
+    for p in per:
+        ref = rrdb.rrdb_apply_plain(p, ref)
+    ref = ref[..., :nf]
+    tol = RTOL if cd else F32_RTOL
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def _width_model(name, cd):
+    """The models the CPU tests (tests/test_torch_port_widths.py) hold against JAX, in the
+    recipe cd: configs/smoke_train.yml's (coupling width 8, RRDB gc 4), x4 rescaling at
+    growth 24 and x4 SR at coupling width 48 (each with split-off chains and trunks at
+    padded widths too), and a 3-level rescaling model whose level 2 (c 48) chain3s does
+    not take."""
+    import dataclasses
+    from pathlib import Path
+
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
+    from hcflow_tpu_torch.utils import config
+
+    if name == "smoke":
+        opt = Path(__file__).resolve().parents[1] / "configs/smoke_train.yml"
+        model = config.model_spec_from_opt(config.load_yaml(str(opt)))
+        return dataclasses.replace(model, flow=dataclasses.replace(model.flow, compute_dtype=cd))
+    kw = dict(K=(4, 4), after_splitoff=(2, 2), rrdb_nb=(1, 1), compute_dtype=cd)
+    if name == "rescaling24":
+        return HCFlowRescalingSpec.default_x4(hidden_channels=24, so_hidden_channels=24,
+                                              rrdb_nf=24, rrdb_gc=8, **kw)
+    if name == "sr48":
+        return HCFlowSRSpec.for_scale(4, hidden_channels=48, so_hidden_channels=48, rrdb_nf=24,
+                                      rrdb_gc=24, **kw)
+    return HCFlowRescalingSpec.default_x4(L=3, K=(4, 4, 4), after_splitoff=(2, 2, 2),
+                                          rrdb_nb=(1, 1, 1), compute_dtype=cd)
+
+
+def _expected_launches(model) -> dict:
+    """A reverse's kernel launches, counted from the model's structure and its packs on
+    the card: per level K of a packed chain's steps, chain3s's launches of a main chain,
+    16 of each RRDB of a packed trunk."""
+    f32 = model.flow.compute_dtype is None
+    want = {"chain": 0, "chain3s": 0, "rrdb": 0}
+    for lv, names in zip(model.flow.levels, model.flow.kernel_packs("cuda").values()):
+        want["chain"] += (lv.n_main if "main_fused" in names else 0) + (
+            lv.cond_spec.n_flow_step if "steps_fused" in names else 0)
+        want["chain3s"] += (chain3s.launches_per_chain(lv.n_main, f32)
+                            if "main3s_fused" in names else 0)
+        nb = lv.cond_spec.rrdb_nb  # trunk0's and trunk1's RRDBs
+        want["rrdb"] += (nb[0] + nb[1]) * rrdb.LAUNCHES_PER_RRDB if "trunk0_fused" in names else 0
+    return want
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", None])
+@pytest.mark.parametrize("name", ["smoke", "rescaling24", "sr48", "rescaling_l3"])
+def test_models_at_padded_widths_serve_through_the_kernels(gen, name, cd):
+    """Each model's fused reverse on the card runs every chain and trunk the JAX package
+    packs through a kernel at padded widths (before, the chain kernels raised on the
+    smoke config's coupling width 8 and on a growth of 24), with exact launch counts,
+    and matches the plain reverse; the 3-level model's level-2 chain (c 48) serves on
+    the plain step loop, with no chain3s launch."""
+    model = _width_model(name, cd)
+    params = _perturb(model.init(0, device="cuda"), gen)
+    fused = model.flow.precompute_inference(params, fused=True)
+    plain = model.flow.precompute_inference(params)
+    want = _expected_launches(model)
+    if name == "rescaling_l3":
+        assert "main3s_fused" not in fused["level2"] and "main3s_fused" in fused["level1"]
+        assert want["chain3s"] == 2 * chain3s.launches_per_chain(2, cd is None)
+    L, LH = model.flow.L, 6
+    lr = torch.rand(2, LH, LH + 1, 3, device="cuda", generator=gen)
+    eps = [0.3 * torch.randn(2, LH * 2 ** (L - 1 - lv.level), (LH + 1) * 2 ** (L - 1 - lv.level),
+                             lv.cond_spec.a_channels, device="cuda", generator=gen)
+           for lv in model.flow.levels]
+    for counts in (chain.launches_by, chain3s.launches_by, rrdb.launches_by):
+        counts.clear()
+    with torch.no_grad():
+        got = model.flow.reverse_flow(fused, lr, 0.9, eps_list=eps)
+        torch.cuda.synchronize()
+        launches = {"chain": sum(chain.launches_by.values()),
+                    "chain3s": sum(chain3s.launches_by.values()),
+                    "rrdb": sum(rrdb.launches_by.values())}
+        ref = model.flow.reverse_flow(plain, lr, 0.9, eps_list=eps)
+    assert launches == want and want["chain"] > 0
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    d = (got - ref).abs()
+    if cd is None:
+        assert d.max().item() <= 1e-4 * ref.abs().max().item()
+    else:
+        assert d.max().item() <= 5e-2 * ref.abs().max().item()
+        assert d.mean().item() <= 1e-2 * ref.abs().mean().item()
+
+
+def test_padded_chains_and_trunks_sharded_on_the_card(gen):
+    """The x4 SR model at coupling width 48 (chains padded to 64, trunks at nf 24 / gc 24
+    padded to 32) served on a (1, 2) mesh, 2 ranks on the card over gloo: each rank's
+    launches as the unsharded pass's, its halo exchanges and bytes as counted from the
+    model's structure (a padded trunk exchanges its real channels only), the image
+    within 1e-4 x max |unsharded| (float32 recipe)."""
+    from hcflow_tpu_torch.parallel import dryrun
+
+    model = _width_model("sr48", None)
+    params = dryrun.perturb(model.init(0, device="cpu"), 3)
+    lr = torch.rand(1, 16, 12, 3, generator=torch.Generator().manual_seed(2))
+    case = dryrun.ServeCase(model, params, lr, 0.9, seed=1)
+    ref = dryrun.serve(case, None, "cuda")
+    assert sum(ref["launches"]["chain"].values()) == _expected_launches(model)["chain"]
+    counts, nbytes = dryrun.expected_exchanges(model.flow, (1, 8, 12), 2)
+    for r, rec in enumerate(dryrun.serve_spatial(2, [case])):
+        assert rec[0]["launches"] == ref["launches"], r
+        assert rec[0]["exchanges"] == counts and rec[0]["bytes"] == nbytes, r
+        if r == 0:
+            out, want = rec[0]["image"], ref["out"].cpu()
+            assert out.shape == want.shape
+            assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("cd", ["bfloat16", None])

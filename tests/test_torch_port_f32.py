@@ -127,15 +127,17 @@ def test_rescaling_float32_packs():
 
 
 # (nf, gc, packed on the CPU, packed on the card): JAX's gate everywhere; on the card
-# also the widths the RRDB kernels take (16, 32, 64)
+# also widths whose padding (up to 16, 32 or 64) the RRDB kernels take
 @pytest.mark.parametrize("nf,gc,cpu,card", [(64, 32, True, True), (32, 16, True, True),
-                                            (16, 8, True, False), (64, 24, True, False),
-                                            (48, 32, True, False), (16, 4, False, False),
-                                            (12, 16, False, False)])
+                                            (16, 8, True, True), (64, 24, True, True),
+                                            (48, 32, True, True), (16, 4, False, False),
+                                            (12, 16, False, False), (72, 32, True, False),
+                                            (64, 80, True, False)])
 def test_trunk_packing_gate(nf, gc, cpu, card):
     """rrdb.packs_trunk: where nf and gc are multiples of 8 (JAX's gate); for params on
-    the card only at widths the kernels take, so that other trunks keep the plain path
-    there instead of reaching a kernel that refuses them."""
+    the card only where the padded widths are ones the kernels take (nf and gc up to
+    64), so that wider trunks keep the plain path there instead of reaching a kernel
+    that refuses them."""
     assert rrdb.packs_trunk(nf, gc, "cpu") is cpu
     assert rrdb.packs_trunk(nf, gc, torch.device("cuda", 0)) is card
 
@@ -162,7 +164,9 @@ def test_tap_pack_round_trips_to_oihw(dtype):
 
 def test_float32_rrdb_and_chain3s_packs_read_back():
     """The float32 RRDB pack, per RRDB and stacked for the resident trunk, gives back
-    the OIHW weights it was made from; chain3s's float32 pack is K-major too."""
+    the OIHW weights it was made from (gc 8 padded to 16: each feature's 8 rows followed
+    by 8 zero rows, conv1-4's outputs by 8 zero outputs); chain3s's float32 pack is
+    K-major too, its growth of 8 padded to 16 likewise."""
     trunk = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(2), 2, 16, 8))
     per = rrdb.pack_rrdb_trunk(trunk)
     res = rrdb.pack_rrdb_trunk(trunk, resident=True)
@@ -170,14 +174,19 @@ def test_float32_rrdb_and_chain3s_packs_read_back():
         for r in range(3):
             for i in range(5):
                 w = p[f"rdb{r + 1}"][f"conv{i + 1}"]["w"]
-                cout, cin = w.shape[:2]
+                cout, cin = 16, 16 + 16 * i  # the pack's nf and gc are both 16
+                real = torch.zeros(cout, cin, 3, 3)
+                rows = [*range(16)] + [16 + 16 * j + q for j in range(i) for q in range(8)]
+                real[: w.shape[0], rows] = w
+                w = real
                 for got in (per[n]["w"][5 * r + i], res["w"][i][3 * n + r]):
                     assert got.shape == (9, cout, cin)
                     assert torch.equal(got.reshape(3, 3, cout, cin).permute(2, 3, 0, 1), w)
     model = HCFlowRescalingSpec.default_x4(**TINY_RS)
     main = model.init(0, device="cpu")["level0"]["main"]
     packed = chain3s.pack_inverse_chain3s(perturb(main))
-    assert packed["we2"].shape[-2:] == (8, 16 + 8) and packed["we2"].dtype == torch.float32
+    assert packed["we2"].shape[-2:] == (16, 16 + 16) and packed["we2"].dtype == torch.float32
+    assert not packed["we2"][..., 8:, :].any() and not packed["we2"][..., 24:].any()
 
 
 # --------------------------------------------------------------- the whole paths

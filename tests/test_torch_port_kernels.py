@@ -82,8 +82,9 @@ def test_chain_packing_folds():
 
 @pytest.mark.parametrize("c", [6, 12, 21, 24, 45, 48])  # every chain width of the main paths
 def test_chain_plain_reads_padded_pack(c):
-    """The CUDA kernel's padded pack (c1, shift and scale each to 8, zeros) gives
-    the plain version the same chain as pack_inverse_chain's own layout."""
+    """The CUDA kernel's padded pack (c1, shift and scale each to 8, the coupling width
+    8 to 32, zeros; the cond terms padded to it by pad_uc) gives the plain version the
+    same chain as pack_inverse_chain's own layout."""
     spec = FlowStepSpec(in_channels=c, cond_channels=16, hidden_channels=8,
                         compute_dtype="bfloat16")
     steps = stack.precompute_invconv(perturb(stack.init_stack(spec, torch.Generator(), 2)))
@@ -94,10 +95,13 @@ def test_chain_plain_reads_padded_pack(c):
     padded = chain.pack_inverse_chain(steps, "bfloat16", padded=True)
     c1, c2 = c // 2, c - c // 2
     S = -(-c2 // 8) * 8
-    assert padded["w1"].shape == (2, 9, -(-c1 // 8) * 8, 8)
-    assert padded["w3"].shape == (2, 9, 8, 2 * S) and padded["vec"].shape == (2, 32 + 4 * S)
+    assert padded["w1"].shape == (2, 9, -(-c1 // 8) * 8, 32)
+    assert padded["w3"].shape == (2, 9, 32, 2 * S) and padded["vec"].shape == (2, 128 + 4 * S)
     assert not padded["w3"][..., c2:S].any() and not padded["w3"][..., S + c2:].any()
-    assert_close(chain.inverse_chain_plain(padded, z, uc), ref.numpy(), 1e-6, 1e-6)
+    assert not padded["w3"][:, :, 8:].any() and not padded["w1"][..., 8:].any()
+    puc = chain.pad_uc(padded, uc)
+    assert puc.shape == (2, 5, 7, 64) and not puc.reshape(2, 5, 7, 2, 32)[..., 8:].any()
+    assert_close(chain.inverse_chain_plain(padded, z, puc), ref.numpy(), 1e-6, 1e-6)
 
 
 @pytest.mark.parametrize("cd", [None, "bfloat16"])

@@ -216,21 +216,25 @@ def test_chain3s_plain_matches_pallas_and_step_loop(cd, c, K):
 
 
 def test_chain3s_packing_layout():
-    """Net inputs and conv5 outputs are zero-padded to 16 channels; the even conv5's
-    outputs go from the cross split to [shift | scale]; the float32 pack holds the
-    weights K-major ([tap][co][ci]), read as [tap][ci][co] through nets.taps."""
+    """Net inputs and conv5 outputs are zero-padded to 16 channels, and the growth 8 to
+    16 (zero outputs of conv1-4, zero rows where the later convs read them); the even
+    conv5's outputs go from the cross split to [shift | scale]; the float32 pack holds
+    the weights K-major ([tap][co][ci]), read as [tap][ci][co] through nets.taps."""
     _, _, steps = _chain(12, 3, None)
     packed = chain3s.pack_inverse_chain3s(steps)
-    assert packed["we1"].shape == (2, 9, 8, 16) and packed["we1"].is_contiguous()
+    assert packed["we1"].shape == (2, 9, 16, 16) and packed["we1"].is_contiguous()
     packed = {k: nets.taps(v) if k[0] == "w" else v for k, v in packed.items()}
-    assert packed["we1"].shape == (2, 9, 16, 8) and packed["wo1"].shape == (1, 9, 16, 8)
-    assert packed["we2"].shape == (2, 9, 24, 8)
-    assert packed["we5"].shape == (2, 9, 48, 32) and packed["wo5"].shape == (1, 9, 48, 16)
+    assert packed["we1"].shape == (2, 9, 16, 16) and packed["wo1"].shape == (1, 9, 16, 16)
+    assert packed["we2"].shape == (2, 9, 32, 16)
+    assert not packed["we1"][..., 8:].any() and not packed["be1"][:, 8:].any()
+    assert packed["we5"].shape == (2, 9, 80, 32) and packed["wo5"].shape == (1, 9, 80, 16)
     w5 = steps[2]["coupling"]["f"]["conv5"]["w"]  # step 2 = even index 1; (18, 3 + 32, 3, 3)
-    tap4 = packed["we5"][1, 4]  # centre tap, (cin_pad + 4 gc, 32)
+    tap4 = packed["we5"][1, 4]  # centre tap, (cin_pad + 4 padded gc, 32)
+    feats = tap4[16:].reshape(4, 16, 32)  # x1..x4, each 8 real rows and 8 zero rows
     assert torch.equal(tap4[:3, :9], w5[0::2, :3, 1, 1].T)  # shifts from the input rows
-    assert torch.equal(tap4[16:, 9:18], w5[1::2, 3:, 1, 1].T)  # scales from x1..x4
+    assert torch.equal(feats[:, :8].reshape(32, 32)[:, 9:18], w5[1::2, 3:, 1, 1].T)  # scales
     assert not tap4[3:16].any() and not tap4[:, 18:].any()  # the padding is zero
+    assert not feats[:, 8:].any()
     logs = torch.stack([s["actnorm"]["logs"] for s in steps])
     assert torch.allclose(packed["an_s"], torch.exp(-logs)) and torch.isclose(
         packed["logsum"], logs.sum())

@@ -194,14 +194,15 @@ def test_resident_trunk_plain_matches_jax_bf16_trunk():
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 def test_resident_pack_stacks_the_per_rrdb_packs(cd):
     """Row j = 3 rrdb + r of the stacked conv i+1 is dense block r of that RRDB; the
-    slices give the per-RRDB packs back, and both trunk forms compute the same."""
+    slices give the per-RRDB packs back, and both trunk forms compute the same.  (gc 8
+    is packed at 16, the RRDB kernels' narrowest width.)"""
     trunk = _trunk(3, 16, 8, seed=3)
     per = rrdb.pack_rrdb_trunk(trunk, cd)
     res = rrdb.pack_rrdb_trunk(trunk, cd, resident=True)
     # read as [block][tap][ci][co] (a float32 pack holds them K-major)
     assert [tuple(nets.taps(w).shape) for w in res["w"]] == [
-        (9, 9, 16 + 8 * i, 8) for i in range(4)] + [(9, 9, 48, 16)]
-    assert [tuple(b.shape) for b in res["b"]] == [(9, 8)] * 4 + [(9, 16)]
+        (9, 9, 16 + 16 * i, 16) for i in range(4)] + [(9, 9, 80, 16)]
+    assert [tuple(b.shape) for b in res["b"]] == [(9, 16)] * 4 + [(9, 16)]
     assert torch.equal(res["w"][2][3 * 1 + 2], per[1]["w"][5 * 2 + 2])
     for p, q in zip(rrdb.rrdb_slices(res), per):
         assert all(torch.equal(a, b) for a, b in zip(p["w"] + p["b"], q["w"] + q["b"]))
