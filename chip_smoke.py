@@ -125,9 +125,16 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    generator (phase 3's limits, 5e-2 x max and 1e-2 x mean |unsharded|); (b) the same in
    the float32 recipe (1e-4 x max); (c) x8 SR bf16 with resident trunks, LR 256x256 -> HR
    2048x2048 at heat 0.8; (d) x4 rescaling bf16, HR 2048x2048 -> downscale -> quantize ->
-   upscale at heat 1.0, LR and HR; (e) (a) with every halo one row short, which must
-   break (a)'s limits.  Each rank's kernel launches equal the unsharded pass's, its halo
-   exchanges and bytes the count from the model's structure
+   upscale at heat 1.0, LR and HR, and the LR's code flips against the unsharded LR's;
+   (e) (a) with every halo one row short, which must break (a)'s limits; the shipped
+   float32 recipes at (c)'s and (d)'s sizes: (f) x4 rescaling, the ranks upscaling the
+   unsharded pass's 8-bit codes (ServeCase.codes), held in three parts: the LR before
+   quantization (1e-4 x max), its code flips (reported), the HR from the same codes
+   (1e-4 x max); beside it the round as served, each side from its own codes (max abs
+   and the pixels past 1e-4 x max, held to it only where no LR value flips); (g) x8 SR
+   with resident trunks (1e-4 x max); (h) (f) with every halo one row short, which must
+   break (f)'s HR limit.  Each rank's kernel launches equal the unsharded pass's, its
+   halo exchanges and bytes the count from the model's structure
    (dryrun.expected_exchanges); ms a pass (median of 3, CUDA events in the rank after a
    barrier) and peak memory a rank beside the unsharded pass's;
 13. training on a ('data', 'spatial') mesh of (1, 2) at full width: one
@@ -137,14 +144,16 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  Phases
    HCFlowSRSpec.for_scale(4) in the shipped training recipe (bf16 encoders, float32
    couplings); (b) the pixel step; (c) the fea/GAN step and the D step
    (discriminator_vgg_160 in float64 on the gathered images, random VGG19 features on the
-   bands); (d) the rescaling joint step, default_x4 at GT 160; (e) (a) with every halo
-   one row short.  Each pass's all-reduced gradient is held against the one-process pass
-   on the global batch (computed in rank 0's process first, same params, noise and
-   latents) in every leaf: ST_BF16_TOL x the leaf's max |g| for the bf16-encoder passes,
-   ST_TOL for the float32 ones; (e) must break ST_BF16_TOL; the ranks' param digests
-   equal after every pass.  Each rank's forward and backward halo exchanges and bytes,
-   ms a pass (median of ST_REPS, CUDA events) and peak memory, beside the unsharded
-   pass's, with the card's name and power limit;
+   bands); (d) the rescaling joint step, default_x4 at GT 160, its straight-through
+   quantizer upscaling the one-process forward's 8-bit codes on every rank
+   (dryrun.HeldCodes; the ranks' flips against them reported); (e) (a) and (f) (d) with
+   every halo one row short.  Each pass's all-reduced gradient is held against the
+   one-process pass on the global batch (computed in rank 0's process first, same
+   params, noise and latents) in every leaf: ST_BF16_TOL x the leaf's max |g| for the
+   bf16-encoder passes, ST_TOL for the float32 ones; (e) must break ST_BF16_TOL, (f)
+   ST_TOL; the ranks' param digests equal after every pass.  Each rank's forward and
+   backward halo exchanges and bytes, ms a pass (median of ST_REPS, CUDA events) and
+   peak memory, beside the unsharded pass's, with the card's name and power limit;
 14. the orbax checkpoint backend (utils/orbax.py, utils/ocdbt.py and the zstd decoder
    csrc/zstd_decode.cpp, built in phase 1 with the host's C++ compiler) at full width:
    (a) cli.train.main on a copy of configs/train_faces_x4_nll_onchip.yml, which keeps
@@ -293,22 +302,31 @@ TRAIN_PASSES = {"make_sr_nll_step": "nll", "make_sr_pixel_step": "pixel",
                 "make_rescaling_step": "rescaling"}
 # phase 12: spatially sharded serving at batch 1 on a (1, 2) mesh, 2 ranks on the one card
 # over gloo: x4 SR LR 512x512 -> HR 2048x2048 at heat 0.9 (bf16 and float32 recipes), x8
-# SR LR 256x256 -> HR 2048x2048 at heat 0.8 (bf16, resident trunks), x4 rescaling HR
-# 2048x2048 -> LR 512x512 -> HR at heat 1.0 (bf16); the median of SP_REPS timed passes.
-# Sharded against unsharded: the bf16 paths within phase 3's kernel-vs-plain limits
-# (MODEL_MAX_RTOL, MODEL_MEAN_RTOL), the float32 path within F32_PATH_RTOL x max.
+# SR LR 256x256 -> HR 2048x2048 at heat 0.8 (resident trunks), x4 rescaling HR 2048x2048
+# -> LR 512x512 -> HR at heat 1.0 (x8 and rescaling in both recipes); the median of
+# SP_REPS timed passes.  Sharded against unsharded: the bf16 paths within phase 3's
+# kernel-vs-plain limits (MODEL_MAX_RTOL, MODEL_MEAN_RTOL), the float32 paths within
+# F32_PATH_RTOL x max.  A float32 rescaling LR value within float32 rounding of a code
+# boundary (k + 1/2) / 255 flips a code between the two passes (the LRs' difference d
+# gives about 510 d flips a value), and the upscale moves near it by far more than
+# F32_PATH_RTOL: so the float32 HR is held where both sides upscale the same codes.
 SP_WORLD, SP_X4_LR, SP_X8_LR, SP_RS_HR, SP_REPS = 2, 512, 256, 2048, 3
 # phase 13: training on a (1, 2) mesh, 2 ranks on the one card over gloo, GT 160 (bands of
 # 80 HR rows, 20 LR rows), batch 2, the median of ST_REPS timed passes.  Each gradient
 # leaf within ST_BF16_TOL (bf16 encoders) or ST_TOL (float32 models) x its own max |g| of
-# the one-process pass; the halo control (e) must break ST_BF16_TOL.  Measured on an H100
-# 80GB HBM3 at 700 W (one run, worst leaf): (a) 5.8e-3, (b) 5.8e-3, (c) fea/GAN 1.16e-2
-# (bf16 encoders: cuDNN sums a band's convs in another order, and a bf16 rounding moves),
-# (d) 3.1e-3 (float32; a fake LR value that moves across a 1/255 step of the
-# straight-through quantizer would move the reverse leg's input: not yet shown), D 1.4e-14
-# (float64); the control 9.3e-2.  Each limit sits ~3x above its passes' readings, the
-# bf16 one 3x below the control's.  The whole gradient's max error over its max is also
-# printed: the flow's ActNorm and invconv leaves dominate it, and it cannot see a halo.
+# the one-process pass; the halo controls (e) and (f) must break ST_BF16_TOL and ST_TOL.
+# Measured on an H100 80GB HBM3 at 700 W (worst leaf): (a) 5.8e-3, (b) 5.8e-3, (c)
+# fea/GAN 1.05e-2 - 1.16e-2 (bf16 encoders: cuDNN sums a band's convs in another order,
+# and a bf16 rounding moves), D 1.2e-14 - 1.4e-14 (float64); the controls 9.3e-2 (e) and
+# 5.9e-1 (f).  (d), float32, reads 3.08e-3 with or without its quantizer holding the
+# one-process codes, and 0 fake LR values flip: not the quantizer.  Nor a halo: a
+# one-process step that differs only by its convolutions' rounding (cuDNN off) reads the
+# same worst leaves to four digits (1.41e-2 on tools/probe_rescaling_mesh.py's batch),
+# and with the model's kinks smoothed (ReLU, leaky ReLU, L1) both read 4e-5 - 6e-5:
+# float32 rounding decides which side of a kink a few activations take, as it decides a
+# quantizer code.  So ST_TOL is 1e-2, 3x above (d) and 59x below (f); ST_BF16_TOL 3x
+# below (e).  The whole gradient's max error over its max is also printed: the flow's
+# ActNorm and invconv leaves dominate it, and it cannot see a halo.
 ST_HR, ST_ROWS, ST_REPS = 160, 2, 3
 ST_TOL, ST_BF16_TOL = 1e-2, 3e-2
 
@@ -815,8 +833,10 @@ def _sp_band(lr_hw, f, halo):
 
 def _spatial_rows(torch, gen, rows):
     """The kernels at phase 12's shapes, calls_per_pass 0: the x4 SR path's RRDBs and
-    chains in both recipes (LR 512), the x8 path's resident trunks and chains (LR 256),
-    the rescaling path's RRDBs, split-off chains and chain3s (LR 512)."""
+    chains in both recipes (LR 512), the x8 path's resident trunks and chains (LR 256)
+    and the rescaling path's RRDBs, split-off chains and chain3s (LR 512), each in the
+    bf16 recipe and in float32 as (f) and (g) serve them (their data from a generator of
+    their own, so that the later phases draw what they drew before)."""
     from hcflow_tpu_torch.parallel.dryrun import RRDB_HALO, STEP_HALO
 
     fcn, dense = STEP_HALO["FCN"], STEP_HALO["DenseBlock"]
@@ -830,23 +850,25 @@ def _spatial_rows(torch, gen, rows):
                                                 ("L1 main", False, 24, _sp_band(x4, 1, k13)),
                                                 ("L0 main", False, 12, _sp_band(x4, 2, k13))],
                     "spatial", cd=cd, key=ck, calls=0)
-    _trunk_rows(torch, gen, rows, [(_sp_band(x8, f, X8_NB * RRDB_HALO), 0) for f in (1, 2, 4)],
-                "spatial")
-    _chain_rows(torch, gen, rows, 13, 128, [("L2 cond", True, 45, _sp_band(x8, 1, k13)),
-                                            ("L1 cond", True, 12, _sp_band(x8, 2, k13)),
-                                            ("L0 cond", True, 6, _sp_band(x8, 4, k13)),
-                                            ("L2 main", False, 48, _sp_band(x8, 1, k13)),
-                                            ("L1 main", False, 24, _sp_band(x8, 2, k13)),
-                                            ("L0 main", False, 12, _sp_band(x8, 4, k13))],
-                "spatial", calls=0)
-    _rrdb_rows(torch, gen, rows, 16, [(_sp_band(rs, f, RRDB_HALO), 0) for f in (1, 2)],
-               "spatial")
-    _chain_rows(torch, gen, rows, 6, 64, [("L1 cond", True, 21, _sp_band(rs, 1, 6 * fcn)),
-                                          ("L0 cond", True, 6, _sp_band(rs, 2, 6 * fcn))],
-                "spatial", calls=0)
-    _chain3s_rows(torch, gen, rows, 8, [("L1 main", 24, _sp_band(rs, 1, 8 * dense)),
-                                        ("L0 main", 12, _sp_band(rs, 2, 8 * dense))], "spatial",
-                  calls=0)
+    f32_gen = torch.Generator(device=DEV).manual_seed(1200)
+    for cd, sfx, g in (("bfloat16", "", gen), (None, "_f32", f32_gen)):
+        _trunk_rows(torch, g, rows, [(_sp_band(x8, f, X8_NB * RRDB_HALO), 0) for f in (1, 2, 4)],
+                    "spatial", cd=cd, key="rrdb_trunk" + sfx)
+        _chain_rows(torch, g, rows, 13, 128, [("L2 cond", True, 45, _sp_band(x8, 1, k13)),
+                                              ("L1 cond", True, 12, _sp_band(x8, 2, k13)),
+                                              ("L0 cond", True, 6, _sp_band(x8, 4, k13)),
+                                              ("L2 main", False, 48, _sp_band(x8, 1, k13)),
+                                              ("L1 main", False, 24, _sp_band(x8, 2, k13)),
+                                              ("L0 main", False, 12, _sp_band(x8, 4, k13))],
+                    "spatial", cd=cd, key="chain" + sfx, calls=0)
+        _rrdb_rows(torch, g, rows, 16, [(_sp_band(rs, f, RRDB_HALO), 0) for f in (1, 2)],
+                   "spatial", cd=cd, key="rrdb" + sfx)
+        _chain_rows(torch, g, rows, 6, 64, [("L1 cond", True, 21, _sp_band(rs, 1, 6 * fcn)),
+                                            ("L0 cond", True, 6, _sp_band(rs, 2, 6 * fcn))],
+                    "spatial", cd=cd, key="chain" + sfx, calls=0)
+        _chain3s_rows(torch, g, rows, 8, [("L1 main", 24, _sp_band(rs, 1, 8 * dense)),
+                                          ("L0 main", 12, _sp_band(rs, 2, 8 * dense))],
+                      "spatial", cd=cd, key="chain3s" + sfx, calls=0)
 
 
 def _serving_rows(torch, gen, rows):
@@ -2438,13 +2460,53 @@ def _gb(nbytes):
     return None if nbytes is None else nbytes / 1e9
 
 
+def _sp_backend():
+    """The backend of phases 12 and 13's ranks (parallel.dryrun.launch's choice)."""
+    import torch
+
+    return "nccl" if torch.cuda.device_count() >= SP_WORLD else "gloo"
+
+
+def _sp_cards():
+    if _sp_backend() == "nccl":
+        return "a card a rank over NCCL"
+    return "the 2 ranks share one card over gloo, so their ms say nothing of the gain across cards"
+
+
+def _sp_past(name, got, ref):
+    """The float32 HR of a rescaling round as served, each side from its own codes: the
+    max abs difference and the pixels past F32_PATH_RTOL x max |unsharded|."""
+    d = (got - ref).abs()
+    lim = F32_PATH_RTOL * ref.abs().max().item()
+    out = dict(max_abs=d.max().item(), past=int((d > lim).sum()), limit=lim)
+    log(f"  {name}: max abs {out['max_abs']:.3e}, {out['past']} of {d.numel()} values past "
+        f"{F32_PATH_RTOL:g} x max ({lim:.3e})")
+    return out
+
+
+def _sp_flips(name, lr, ref):
+    """dryrun.code_flips of a sharded LR against the unsharded one, logged."""
+    from hcflow_tpu_torch.parallel import dryrun
+
+    f = dryrun.code_flips(lr, ref)
+    log(f"  {name}: {f['flips']} of {f['values']} LR values flip a code against the unsharded "
+        f"pass's (at most {f['steps']} code apart; largest LR difference at a flip "
+        f"{f['lr_diff']:.3e})")
+    return f
+
+
 def phase_spatial(torch, gen):
     """Spatially sharded serving at full width, batch 1, on a (1, 2) mesh: 2 ranks on the
     one card over gloo (dryrun.serve_spatial), each its band of the image's rows, against
     the unsharded pass computed here first; (a) x4 SR bf16, (b) x4 SR float32, (c) x8 SR
-    bf16 with resident trunks, (d) x4 rescaling bf16 (LR and HR), (e) (a) with every halo
-    one row short, which must break (a)'s limits.  Each rank's kernel launches must equal
-    the unsharded pass's, its halo exchanges and bytes dryrun.expected_exchanges'."""
+    bf16 with resident trunks, (d) x4 rescaling bf16 (LR and HR; its LR's code flips
+    reported), (e) (a) with every halo one row short, which must break (a)'s limits, (f)
+    x4 rescaling float32 upscaling the unsharded pass's 8-bit codes: the LR, its flips
+    against the unsharded LR's codes, and the HR from the same codes; the round as served
+    (each side from its own codes) beside it, held only where no LR value flips; (g) x8
+    SR float32 with resident trunks; (h) (f) with every halo one row short, which must
+    break (f)'s HR limit.  Each rank's kernel launches must equal the unsharded pass's,
+    its halo exchanges and bytes dryrun.expected_exchanges'."""
     import dataclasses
 
     from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
@@ -2453,42 +2515,65 @@ def phase_spatial(torch, gen):
     t_phase = time.perf_counter()
     cpu = torch.Generator().manual_seed(12)
 
-    def params(model):
-        return _to(perturb(model.init(0, device=DEV), gen), "cpu")
+    def params(model, g=gen):
+        return _to(perturb(model.init(0, device=DEV), g), "cpu")
+
+    # (f) and (g) draw from a generator of their own, so that later phases draw as before
+    f32_gen = torch.Generator(device=DEV).manual_seed(1201)
 
     x4 = {cd: HCFlowSRSpec.for_scale(SCALE, compute_dtype=cd) for cd in ("bfloat16", None)}
-    x8 = HCFlowSRSpec.for_scale(X8_SCALE, compute_dtype="bfloat16")
-    rs = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16")
+    x8 = {cd: HCFlowSRSpec.for_scale(X8_SCALE, compute_dtype=cd) for cd in ("bfloat16", None)}
+    rs = {cd: HCFlowRescalingSpec.default_x4(compute_dtype=cd) for cd in ("bfloat16", None)}
     lr4 = torch.rand(1, SP_X4_LR, SP_X4_LR, 3, generator=cpu)
     cases = {
         "a": dryrun.ServeCase(x4["bfloat16"], params(x4["bfloat16"]), lr4, HEAT, seed=1,
                               reps=SP_REPS),
         "b": dryrun.ServeCase(x4[None], params(x4[None]), lr4, HEAT, seed=2, reps=SP_REPS),
-        "c": dryrun.ServeCase(x8, params(x8), torch.rand(1, SP_X8_LR, SP_X8_LR, 3, generator=cpu),
-                              X8_HEAT, resident=True, seed=3, reps=SP_REPS),
-        "d": dryrun.ServeCase(rs, params(rs), torch.rand(1, SP_RS_HR, SP_RS_HR, 3, generator=cpu),
-                              RS_HEAT, seed=4, reps=SP_REPS),
+        "c": dryrun.ServeCase(x8["bfloat16"], params(x8["bfloat16"]),
+                              torch.rand(1, SP_X8_LR, SP_X8_LR, 3, generator=cpu), X8_HEAT,
+                              resident=True, seed=3, reps=SP_REPS),
+        "d": dryrun.ServeCase(rs["bfloat16"], params(rs["bfloat16"]),
+                              torch.rand(1, SP_RS_HR, SP_RS_HR, 3, generator=cpu), RS_HEAT, seed=4,
+                              reps=SP_REPS),
     }
     cases["e"] = dataclasses.replace(cases["a"], halo_cut=1, reps=0)
+    cases["f"] = dryrun.ServeCase(rs[None], params(rs[None], f32_gen),
+                                  torch.rand(1, SP_RS_HR, SP_RS_HR, 3, generator=cpu), RS_HEAT,
+                                  seed=5, reps=SP_REPS)
+    cases["g"] = dryrun.ServeCase(x8[None], params(x8[None], f32_gen),
+                                  torch.rand(1, SP_X8_LR, SP_X8_LR, 3, generator=cpu), X8_HEAT,
+                                  resident=True, seed=6, reps=SP_REPS)
     per_request = {"a": _per_request(rrdb=28 * 16, chain=4 * 13),
                    "b": _per_request(rrdb_f32=28 * 16, chain_f32=4 * 13),
                    "c": _per_request(rrdb_trunk=6, chain=6 * 13),
-                   "d": _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * _rs_main())}
+                   "d": _per_request(rrdb=2 * 6 * 16, chain=2 * 6, chain3s=2 * _rs_main()),
+                   "f": _per_request(rrdb_f32=2 * 6 * 16, chain_f32=2 * 6,
+                                     chain3s_f32=2 * _rs_main(True)),
+                   "g": _per_request(rrdb_trunk_f32=6, chain_f32=6 * 13)}
     refs = {}
-    for k in "abcd":
+    for k in "abcdfg":
         rec = dryrun.serve(cases[k], None, DEV)
         refs[k] = {**rec, "out": rec["out"].cpu(), "lr": None if rec["lr"] is None else
                    rec["lr"].cpu(), "launches": _named(rec["launches"])}
         del rec
         _check_counts(f"phase 12 ({k}) unsharded", refs[k]["launches"], per_request[k], 1)
-        log(f"  ({k}) unsharded: {_ms(refs[k]['ms'])} a pass (median of {SP_REPS}), peak "
+        log(f"  ({k}) unsharded: {_ms(refs[k]['ms'])} a pass (median of {cases[k].reps}), peak "
             f"{_gb(refs[k]['peak_bytes'])} GB")
+    # (f) upscales the unsharded pass's codes on the mesh; (f served) its own codes, as a
+    # server would
+    refs["f served"] = refs["f"]
+    cases["f served"] = dataclasses.replace(cases["f"], reps=0)
+    cases["f"] = dataclasses.replace(cases["f"], codes=dryrun.lr_codes(refs["f"]["lr"]))
+    cases["h"] = dataclasses.replace(cases["f"], halo_cut=1, reps=0)
+    order = ["a", "b", "c", "d", "e", "f", "f served", "g", "h"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = dryrun.serve_spatial(SP_WORLD, [cases[k] for k in "abcde"])
-    log(f"  {SP_WORLD} ranks (spawn, gloo group, 5 cases): {time.perf_counter() - t0:.1f} s")
+    ranks = dryrun.serve_spatial(SP_WORLD, [cases[k] for k in order])
+    log(f"  {SP_WORLD} ranks (spawn, {_sp_backend()} group, {len(order)} cases): "
+        f"{time.perf_counter() - t0:.1f} s")
+    got = {k: [rank[i] for rank in ranks] for i, k in enumerate(order)}
     out, launches = {}, _per_request()
-    for i, k in enumerate("abcd"):
+    for k in ("a", "b", "c", "d", "f", "f served", "g"):
         case, ref = cases[k], refs[k]
         rescaling = isinstance(case.model, HCFlowRescalingSpec)
         H, W = case.image.shape[1:3]
@@ -2497,8 +2582,7 @@ def phase_spatial(torch, gen):
                                                  SP_WORLD, resident=case.resident,
                                                  forward=rescaling)
         res = {"ranks": []}
-        for r, rank in enumerate(ranks):
-            rec = rank[i]
+        for r, rec in enumerate(got[k]):
             named = _named(rec["launches"])
             if named != ref["launches"]:
                 raise AssertionError(f"({k}) rank {r}: launches {named}, unsharded "
@@ -2517,24 +2601,39 @@ def phase_spatial(torch, gen):
                 f"against {_ms(ref['ms'])} unsharded; peak {_gb(rec['peak_bytes'])} GB "
                 f"against {_gb(ref['peak_bytes'])} GB")
         f32 = case.model.flow.compute_dtype is None
-        res["hr"] = _sp_check(f"({k}) HR", ranks[0][i]["image"], ref["out"], f32)
-        ok = res["hr"]["ok"]
+        image, lr = got[k][0]["image"], got[k][0]["lr_image"]
+        ok = True
         if rescaling:
-            res["lr"] = _sp_check(f"({k}) LR", ranks[0][i]["lr_image"], ref["lr"], f32)
-            ok = ok and res["lr"]["ok"]
+            res["lr"] = _sp_check(f"({k}) LR", lr, ref["lr"], f32)
+            res["flips"] = _sp_flips(f"({k}) LR", lr, ref["lr"])
+            ok = res["lr"]["ok"]
+        if k == "f served":  # each side from its own codes: held only without flips
+            res["hr"] = _sp_past("(f served) HR, each side from its own codes", image, ref["out"])
+            res["hr"]["held"] = res["flips"]["flips"] == 0
+            if res["hr"]["held"]:
+                res["hr"].update(_sp_check("(f served) HR, no LR value flipped", image,
+                                           ref["out"], f32))
+                ok = ok and res["hr"]["ok"]
+        else:
+            what = " from the unsharded pass's codes" if case.codes is not None else ""
+            res["hr"] = _sp_check(f"({k}) HR{what}", image, ref["out"], f32)
+            ok = ok and res["hr"]["ok"]
         if not ok:
             raise AssertionError(f"({k}): the sharded pass disagrees with the unsharded one")
         res.update(unsharded_ms=ref["ms"], unsharded_times_ms=ref["times_ms"],
                    unsharded_peak_gb=_gb(ref["peak_bytes"]), exchanges=exp_n, bytes=exp_b,
                    launches=ref["launches"])
         out[k] = res
-    out["e"] = _sp_check("(e) every halo one row short (a control)", ranks[0][4]["image"],
+    out["e"] = _sp_check("(e) every halo one row short (a control)", got["e"][0]["image"],
                          refs["a"]["out"], False)
     if out["e"]["ok"]:
         raise AssertionError("(e): a halo one row short stays within (a)'s limits")
+    out["h"] = _sp_check("(h) (f) with every halo one row short (a control), HR from the "
+                         "unsharded pass's codes", got["h"][0]["image"], refs["f"]["out"], True)
+    if out["h"]["ok"]:
+        raise AssertionError("(h): a halo one row short stays within (f)'s HR limit")
     wall = time.perf_counter() - t_phase
-    log(f"  phase 12 took {wall:.1f} s; the 2 ranks share one card, so their ms say nothing "
-        f"of the gain across cards; launches {launches}")
+    log(f"  phase 12 took {wall:.1f} s; {_sp_cards()}; launches {launches}")
     out.update(launches=launches, wall_s=wall)
     return out
 
@@ -2558,9 +2657,11 @@ def phase_spatial_train(torch, card):
     """Training on a (1, 2) mesh at full width: 2 ranks on the one card over gloo
     (dryrun.dryrun_multigpu with _st_plan()), each a band of the images' rows: (a) the x4
     NLL step (bf16 encoders, float32 couplings), (b) the pixel step, (c) the fea/GAN and
-    D steps, (d) the rescaling joint step, each pass's all-reduced gradient against the
-    one-process pass in every leaf; (e) (a) with every halo one row short must break
-    (a)'s limit.  Raises on a failed check (dryrun_multigpu raises on its own)."""
+    D steps, (d) the rescaling joint step (its quantizer upscaling the one-process
+    forward's 8-bit codes; the ranks' flips against them reported), each pass's
+    all-reduced gradient against the one-process pass in every leaf; (e) (a) and (f) (d)
+    with every halo one row short must break (a)'s and (d)'s limits.  Raises on a failed
+    check (dryrun_multigpu raises on its own)."""
     from hcflow_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
@@ -2593,14 +2694,21 @@ def phase_spatial_train(torch, card):
             ranks=[dict(exchanges=rec["exchanges"], bytes=rec["bytes"], ms=rec["ms"],
                         times_ms=rec["times_ms"], peak_gb=_gb(rec["peak_bytes"]))
                    for rec in ranks])
-    c = rep["control"]
-    log(f"  (e) (a) with every halo one row short (a control): worst leaf {c['max_abs_err']:.3e} "
-        f"of max |g| {c['max_abs_grad']:.3e}, {c['rel']:.3e} x: breaks (a)'s {c['tol']:g}; over "
-        f"the whole gradient's max {c['whole']:.3e} x [{card}]")
+    fl = rep["passes"]["rescaling"]["flips"]
+    log(f"  (d) the quantizer upscales the one-process forward's codes: {fl['flips']} of "
+        f"{fl['values']} fake LR values on the ranks flip a code against them (at most "
+        f"{fl['steps']} apart; largest LR difference at a flip {fl['lr_diff']:.3e}) [{card}]")
+    controls = rep["controls"]
+    for name, label in (("plusplus_nll", "(e) (a)"), ("rescaling", "(f) (d)")):
+        c = controls[name]
+        log(f"  {label} with every halo one row short (a control): worst leaf "
+            f"{c['max_abs_err']:.3e} of max |g| {c['max_abs_grad']:.3e}, {c['rel']:.3e} x: "
+            f"breaks {label[4:]}'s {c['tol']:g}; over the whole gradient's max {c['whole']:.3e} "
+            f"x [{card}]")
     log(f"  D loss on the ranks within {rep['d_loss']['rel']:.3e} of one process's; phase 13 "
-        f"took {wall:.1f} s; the 2 ranks share one card, so their ms say nothing of the gain "
-        "across cards; no kernel runs in training (the plain path)")
-    out.update(control=c, d_loss=rep["d_loss"], digests_equal=rep["digests_equal"])
+        f"took {wall:.1f} s; {_sp_cards()}; no kernel runs in training (the plain path)")
+    out["passes"]["rescaling"]["flips"] = fl
+    out.update(controls=controls, d_loss=rep["d_loss"], digests_equal=rep["digests_equal"])
     return out
 
 

@@ -26,9 +26,13 @@ Before each pass rank 0 also computes the one-process pass on the global batch w
 the same params, latents and noise; the pass's all-reduced gradient must lie within
 ``tol`` x max |g| of it in every leaf, max |g| the leaf's own (``bf16_tol`` for a model
 with bf16 nets; :func:`_leaf_err`), and the D loss
-(averaged over the ranks) within 1e-5 of it, relative.  On a spatial axis the ++
-iteration's NLL pass is also run with every halo one row short (``Mesh.halo_cut``), a
-control whose gradient must break that limit.  Every rank records a digest of its params
+(averaged over the ranks) within 1e-5 of it, relative.  The rescaling step's
+straight-through quantizer upscales, on every rank, the 8-bit codes of the one-process
+forward's LR (:class:`HeldCodes`), so that a fake LR value within float32 rounding of a
+code boundary cannot move the reverse leg's input; the flips that this hides are
+counted.  On a spatial axis the ++ iteration's NLL pass and the rescaling pass are also
+run with every halo one row short (``Mesh.halo_cut``), controls whose gradients must
+break their limits.  Every rank records a digest of its params
 after each pass, and its halo exchanges (forward and ``"<unit>.grad"``), bytes, ms and
 peak memory per pass; the digests must be equal.  The ActNorm calibration on the mesh
 (on the gathered global batch) must equal rank 0's calibration on the global batch bit
@@ -39,7 +43,9 @@ reverse, or the rescaling downscale -> quantize -> upscale) on a ('data', 'spati
 mesh of ``world`` ranks, each rank its band of the image's rows, and returns each
 rank's band, the gathered image, the kernel launches and halo exchanges of a pass, ms
 per pass and peak memory; :func:`serve` is one rank's request, or with no mesh the
-unsharded one.
+unsharded one.  A rescaling case may upscale given 8-bit codes (``ServeCase.codes``,
+:func:`lr_codes`), the unsharded pass's, so that both sides upscale the same LR;
+:func:`code_flips` counts where two LRs quantize apart.
 
     python -m hcflow_tpu_torch.parallel.dryrun [--world N] [--mesh-shape D,S] [--cpu]
 """
@@ -123,6 +129,65 @@ def launch(world: int, fn, args=(), cpu: bool = False):
                                    + (got["error"] if got else "no result"))
             results.append(got["result"])
     return results
+
+
+# ------------------------------------------------------------------ the 8-bit LR codes
+def lr_codes(lr: torch.Tensor) -> torch.Tensor:
+    """The rescaling LR's 8-bit codes round(clamp(lr, 0, 1) x 255), as uint8: what the
+    quantizer keeps of it (``from_codes(lr_codes(lr))`` is ``quantize(lr)`` bit for bit)."""
+    return torch.round(lr.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def from_codes(codes: torch.Tensor) -> torch.Tensor:
+    """The quantized LR of 8-bit codes: codes / 255 in float32."""
+    return codes.to(torch.float32) / 255.0
+
+
+def code_flips(lr: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Where ``lr`` and ``ref`` (the same shape) quantize to different codes, a *flip*:
+    ``flips`` (their count), ``steps`` (the most codes apart), ``lr_diff`` (the largest
+    |lr - ref| at a flip; 0 without one) and ``values`` (lr's count).  Two LRs closer than
+    1/255 flip by one code at most, and one within float32 rounding of ref flips only
+    where ref lies that close to a boundary (k + 1/2) / 255."""
+    a, b = lr_codes(lr).int(), lr_codes(ref).int()
+    at = a != b
+    n = int(at.sum())
+    return {"flips": n, "steps": int((a - b).abs().max()) if n else 0,
+            "lr_diff": float((lr - ref).abs()[at].max()) if n else 0.0, "values": lr.numel()}
+
+
+def add_flips(parts) -> dict:
+    """:func:`code_flips` of a whole LR from those of its parts (the ranks' bands)."""
+    return {"flips": sum(p["flips"] for p in parts), "steps": max(p["steps"] for p in parts),
+            "lr_diff": max(p["lr_diff"] for p in parts), "values": sum(p["values"] for p in parts)}
+
+
+class _Held(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q):
+        return q.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class HeldCodes:
+    """A straight-through quantizer for ``make_rescaling_step(quantize=...)`` that holds
+    the codes of a reference LR ``ref`` (detached): its forward value is
+    ``from_codes(lr_codes(ref))`` whatever its input, its backward the identity, as
+    ``quantize_ste``'s.  Each call appends its input's :func:`code_flips` against ref to
+    ``flips``.  Where the input's codes are ref's, the step is the default one bit for
+    bit."""
+
+    def __init__(self, ref: torch.Tensor):
+        self.ref = ref.detach()
+        self.q = from_codes(lr_codes(self.ref))
+        self.flips = []
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.flips.append(code_flips(x.detach(), self.ref))
+        return _Held.apply(x, self.q)
 
 
 # ---------------------------------------------------------------------- the dry run
@@ -242,6 +307,7 @@ def train_rank(tol: float, bf16_tol: float, cpu: bool, mesh_shape, plan: TrainPl
     """What each rank of :func:`dryrun_multigpu` runs; returns its report."""
     from ..models import HCFlowRescalingSpec, HCFlowSRSpec, vgg
     from ..models.discriminators import VGGDiscriminatorSpec
+    from ..ops import nets
     from ..train.losses import l1
     from ..train.schedules import schedule_from_opt
     from ..train.trainer import (detached, init_state, make_d_optimizer,
@@ -262,7 +328,7 @@ def train_rank(tol: float, bf16_tol: float, cpu: bool, mesh_shape, plan: TrainPl
     lr_r = hr_r.reshape(B, rhw // 4, 4, rhw // 4, 4, 3).mean((2, 4))
     noise = [torch.rand(hr.shape, generator=g).to(dev) for _ in range(3)]
     mine = m.shard
-    report = {"passes": {}, "digests": [], "records": {}, "control": None}
+    report = {"passes": {}, "digests": [], "records": {}, "controls": {}}
 
     def snapshot(params):  # a copy on the CPU, kept where the report keeps tensors
         return tree_map(lambda t: t.detach().cpu().clone(), params) if main and plan.keep else None
@@ -304,8 +370,8 @@ def train_rank(tol: float, bf16_tol: float, cpu: bool, mesh_shape, plan: TrainPl
                                      f"(tol {lim:g})")
             if cut is not None:
                 e, ae, sc, whole = _leaf_err(cut, ref[-1]["grads"])
-                report["control"] = {"pass": name, "rel": e, "max_abs_err": ae,
-                                      "max_abs_grad": sc, "tol": lim, "whole": whole}
+                report["controls"][name] = {"rel": e, "max_abs_err": ae, "max_abs_grad": sc,
+                                            "tol": lim, "whole": whole}
                 if e <= lim:
                     raise AssertionError(f"{name} with every halo one row short: the gradient "
                                          f"stays within {lim:g} x max |g| of every leaf ({e:.3e})")
@@ -390,17 +456,27 @@ def train_rank(tol: float, bf16_tol: float, cpu: bool, mesh_shape, plan: TrainPl
     if state.step != 1 or d_state.step != 1:
         raise AssertionError(f"G step {state.step}, D step {d_state.step} after an iteration")
 
-    # 3. the rescaling joint step
+    # 3. the rescaling joint step, its quantizer holding the one-process forward's codes
+    # (computed on every rank, as the one-process step computes it)
     rmodel = HCFlowRescalingSpec.default_x4(**plan.rescaling)
     rtopt = dict(topt, lr_G=2e-4)
     rtx = make_optimizer(rtopt, schedule_from_opt(rtopt))
     rstate = init_state(mesh.replicate(perturb(rmodel.init(0, device=dev), 12)), rtx)
     eps_r = sample_latents(rmodel, lr_r.shape, 1.0, torch.Generator(dev).manual_seed(4), dev,
                            deepest_first=False)
-    check("rescaling", make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0, reducer=reducer, mesh=m),
-          rstate, (mine(hr_r), mine(lr_r), None, eps_r),
+    with nets.exact_f32():
+        one_lr = mine(rmodel.forward(rstate.params, hr_r, grad=True)[0].detach())
+    held, held_cut = HeldCodes(one_lr), HeldCodes(one_lr)
+
+    def rescaling_step(mesh_, quantize):
+        return make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0, reducer=reducer, mesh=mesh_,
+                                   quantize=quantize)
+
+    check("rescaling", rescaling_step(m, held), rstate, (mine(hr_r), mine(lr_r), None, eps_r),
           make_rescaling_step(rmodel, rtx, 5e-2, 1e-5, 1.0), (hr_r, lr_r, None, eps_r), rtx,
-          rmodel)
+          rmodel, control=rescaling_step(cut, held_cut) if m.spatial > 1 else None)
+    # the counted pass's (check's first call; its timed passes start from moved params)
+    report["records"]["rescaling"]["flips"] = held.flips[0]
     report["mesh"] = {"shape": m.shape, "rank": m.rank}
     return report
 
@@ -411,8 +487,10 @@ def dryrun_multigpu(world: int, cpu: bool = False, tol: float = 1e-4, mesh_shape
     several on one card over gloo; with ``cpu`` on the CPU) on a mesh of ``mesh_shape``
     (default: spatial 2 where the world is even) and the passes of ``plan`` (default:
     :class:`TrainPlan`'s); returns rank 0's report: each pass's gradient error against
-    the one-process pass and the reference's record (``passes``), the halo control
-    (``control``), the D loss's error, ``calibrate_equal`` (with an NLL family), the first
+    the one-process pass and the reference's record (``passes``; the rescaling pass's
+    also ``flips``: :func:`code_flips` of the ranks' fake LRs against the one-process
+    forward's, over the ranks), the halo controls by pass (``controls``), the D loss's
+    error, ``calibrate_equal`` (with an NLL family), the first
     NLL pass's and the pixel pass's params, batch, noise and all-reduced gradient
     (``nll``, ``pixel``; with ``plan.keep``), ``digests_equal`` (the ranks' params after
     every pass) and ``ranks``: every rank's records by pass (exchanges, bytes, ms, peak).
@@ -424,6 +502,9 @@ def dryrun_multigpu(world: int, cpu: bool = False, tol: float = 1e-4, mesh_shape
     results = launch(world, rank_fn, (tol, bf16_tol, cpu, shape, plan), cpu=cpu)
     report = results[0]
     report["ranks"] = [r["records"] for r in results]
+    if "rescaling" in report["passes"]:
+        report["passes"]["rescaling"]["flips"] = add_flips(
+            [r["rescaling"]["flips"] for r in report["ranks"]])
     report["digests_equal"] = all(r["digests"] == report["digests"] for r in results)
     if not report["digests_equal"]:
         raise AssertionError("the ranks' params differ after a pass")
@@ -442,9 +523,11 @@ class ServeCase:
     is quantized and the reverse upscales it); ``params`` on the CPU, packed on the
     device by ``precompute_inference(params, fused, resident_trunk=resident)``; the
     latents at temperature ``heat`` drawn from a generator on the device seeded
-    ``seed``, or the global whitened latents ``eps_list``; :func:`serve_spatial` serves
-    it on a mesh of ``mesh_shape`` (data, spatial) with ``halo_cut`` rows withheld from
-    every exchange (a control); ``reps`` passes are timed after the counted one."""
+    ``seed``, or the global whitened latents ``eps_list``; ``codes``: the global 8-bit LR
+    codes (:func:`lr_codes`) that a rescaling request upscales instead of its own quantized
+    LR (None: its own), on a mesh each rank its part; :func:`serve_spatial` serves it on a
+    mesh of ``mesh_shape`` (data, spatial) with ``halo_cut`` rows withheld from every
+    exchange (a control); ``reps`` passes are timed after the counted one."""
 
     model: object
     params: dict
@@ -454,6 +537,7 @@ class ServeCase:
     resident: bool = False
     seed: int = 0
     eps_list: list = None
+    codes: torch.Tensor = None
     mesh_shape: tuple = (1, 2)
     halo_cut: int = 0
     reps: int = 0
@@ -487,7 +571,8 @@ def serve(case: ServeCase, m=None, device="cuda") -> dict:
     (the rescaling LR, else None) on the device, the kernel ``launches``, halo
     ``exchanges`` and ``bytes`` of the counted request, ``times_ms`` and their median
     ``ms`` (None without reps), and ``peak_bytes`` (on the card: the most memory
-    allocated from the counted request on)."""
+    allocated from the counted request on).  A rescaling request with ``case.codes``
+    still runs its own forward and returns its LR, and upscales the given codes."""
     from ..models import HCFlowRescalingSpec, quantize
     from ..models.hcflow_sr import to_device
 
@@ -497,15 +582,18 @@ def serve(case: ServeCase, m=None, device="cuda") -> dict:
     params = model.flow.precompute_inference(to_device(case.params, dev), fused=case.fused,
                                              resident_trunk=case.resident)
     image = case.image.to(dev)
+    held = None if case.codes is None else from_codes(case.codes.to(dev))
     if m is not None:
         image = m.shard(image)
+        held = None if held is None else m.shard(held).contiguous()
     eps = None if case.eps_list is None else [e.to(dev) for e in case.eps_list]
 
     def request():
         g = None if eps is not None else torch.Generator(dev).manual_seed(case.seed)
         if isinstance(model, HCFlowRescalingSpec):
             lr = model.forward(params, image, mesh=m)[0]
-            return lr, model.reverse(params, quantize(lr), case.heat, g, eps, mesh=m)
+            q = quantize(lr) if held is None else held
+            return lr, model.reverse(params, q, case.heat, g, eps, mesh=m)
         return None, model.reverse(params, image, case.heat, g, eps, mesh=m)
 
     def sync():
@@ -626,8 +714,11 @@ if __name__ == "__main__":
     for name, r in rep["passes"].items():
         print(f"{name}: all-reduced gradient within {r['rel']:.3e} x each leaf's max |g| of one "
               f"process (tol {r['tol']:g})")
-    if rep["control"]:
-        print(f"{rep['control']['pass']} with every halo one row short: {rep['control']['rel']:.3e}"
-              " x a leaf's max |g| (breaks the limit)")
+    for name, c in rep["controls"].items():
+        print(f"{name} with every halo one row short: {c['rel']:.3e} x a leaf's max |g| (breaks "
+              "the limit)")
+    f = rep["passes"]["rescaling"]["flips"]
+    print(f"rescaling: {f['flips']} of {f['values']} fake LR values flip a code against the "
+          "one-process forward's (the quantizer holds its codes)")
     print(f"D loss within {rep['d_loss']['rel']:.3e} relative; params equal on every rank; "
           "calibration on the mesh bit for bit")

@@ -119,10 +119,14 @@ def _tensor_leaves(tree) -> list:
 @torch.no_grad()
 def replicate(tree):
     """Every tensor of a nested dict/list overwritten by rank 0's, in place; returns
-    the tree."""
+    the tree.  NCCL broadcasts only contiguous tensors, so a strided leaf (an invconv
+    weight from its QR init) goes through a contiguous copy."""
     if world_size() > 1:
         for t in _tensor_leaves(tree):
-            dist.broadcast(t, 0)
+            c = t.contiguous()
+            dist.broadcast(c, 0)
+            if c is not t:
+                t.copy_(c)
     return tree
 
 

@@ -406,7 +406,7 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
                         gan_weight: float = 0.0, fea_weight: float = 0.0,
                         fea_criterion: Optional[Callable] = None,
                         d_apply: Optional[Callable] = None, f_apply: Optional[Callable] = None,
-                        reducer=None, mesh=None):
+                        reducer=None, mesh=None, *, quantize: Callable = quantize_ste):
     """The joint forward and inverse update through the straight-through quantizer
     (HCFlow_Rescaling_model.py:204-264):
 
@@ -423,7 +423,10 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
     ``step(state, hr, lr, generator=None, eps_list=None) -> (state, metrics)``.  The
     latents are drawn from ``generator`` at ``eps_std_reverse``, or given whitened as
     ``eps_list`` (already at the temperature).  metrics: ``l_g_lr``, ``l_g_z``,
-    ``l_g_hr`` (``l_g_fea``, ``l_g_gan``) and ``grads``.  Advances the step."""
+    ``l_g_hr`` (``l_g_fea``, ``l_g_gan``) and ``grads``.  Advances the step.
+
+    ``quantize``: the straight-through quantizer (``parallel.dryrun.HeldCodes`` holds
+    another pass's codes there, to compare a sharded step with one process's)."""
     lr_criterion = lr_criterion or l2
     hr_criterion = hr_criterion or l1
     has_heads = bool((fea_weight and f_apply is not None) or (gan_weight and d_apply is not None))
@@ -435,7 +438,7 @@ def make_rescaling_step(model, tx: Optimizer, weight_lr: float, weight_z: float,
             l_lr = weight_lr * lr_criterion(fake_lr, lr)
             z_flat = torch.cat([z.reshape(z.shape[0], -1) for z in fake_zs], 1)
             l_z = weight_z * (z_flat ** 2).mean()
-            fake_lr_q = quantize_ste(fake_lr)
+            fake_lr_q = quantize(fake_lr)
             if eps_list is None:
                 shape = fake_lr_q.shape if mesh is None else mesh.global_shape(fake_lr_q.shape)
                 eps_list = sample_latents(model, shape, eps_std_reverse, generator, hr.device,

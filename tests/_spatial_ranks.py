@@ -48,7 +48,29 @@ def run(path, cpu, shapes):
             stacks[(shape, n)] = (got - want).abs().max().item()
             grads[(shape, n)] = _stack_grad(m, x, ws[:n], n, g)
     return {"meshes": meshes, "stacks": stacks, "grads": grads,
-            "serve": dryrun.serve_ranks(path, cpu)}
+            "replicate": replicate_strided(), "serve": dryrun.serve_ranks(path, cpu)}
+
+
+def replicate_strided() -> list:
+    """``mesh.replicate`` of a tree with a strided leaf (a transposed weight, as an
+    invconv's init gives) and a contiguous one, each holding this rank's values, under a
+    broadcast that refuses a non-contiguous tensor as NCCL's does: the leaves after it."""
+    real = dist.broadcast
+
+    def strict(t, src, *args, **kw):
+        if not t.is_contiguous():
+            raise ValueError("Tensors must be contiguous")
+        return real(t, src, *args, **kw)
+
+    r = dist.get_rank()
+    tree = {"w": (torch.arange(12.0).reshape(3, 4) + 100 * r).t(),
+            "b": [torch.full((2,), float(r))]}
+    dist.broadcast = strict
+    try:
+        mesh.replicate(tree)
+    finally:
+        dist.broadcast = real
+    return [tree["w"], tree["b"][0]]
 
 
 def _stack_grad(m, x, ws, rows, g) -> float:

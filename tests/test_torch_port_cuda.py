@@ -841,14 +841,14 @@ def test_dryrun_multigpu_spatial_mesh_on_the_card(gen):
     """Training on a (1, 2) mesh, 2 ranks on the one card over gloo, each a band of the
     images' rows: every pass's all-reduced gradient within 1e-4 x max |g| of the
     one-process pass on the card in every leaf, the ranks' params equal, the calibration
-    one process's, a halo one row short breaking the NLL's limit."""
+    one process's, a halo one row short breaking the NLL's and the rescaling pass's limit."""
     from hcflow_tpu_torch.parallel.dryrun import dryrun_multigpu
 
     rep = dryrun_multigpu(2, mesh_shape=(1, 2))
     assert rep["mesh"]["shape"] == (1, 2)
     assert rep["digests_equal"] and rep["calibrate_equal"]
     assert all(r["rel"] <= 1e-4 for r in rep["passes"].values()) and rep["d_loss"]["rel"] <= 1e-5
-    assert rep["control"]["rel"] > 1e-4
+    assert all(rep["controls"][p]["rel"] > 1e-4 for p in ("plusplus_nll", "rescaling"))
 
 
 def test_train_cli_world_1_on_nccl(gen, tmp_path):
@@ -902,3 +902,69 @@ def test_spatial_serving_two_ranks_on_one_card(gen):
     assert got.shape == want.shape and torch.isfinite(got).all()
     d = (got - want).abs()
     assert d.max() <= 5e-2 * want.abs().max() and d.mean() <= 1e-2 * want.abs().mean()
+
+
+def _f32_mesh_case(name):
+    """A float32-recipe case (the shipped test configs' recipe) at the kernels' small
+    widths, batch 1, and the kernel launches of a request: x4 rescaling (RRDB nf 32 /
+    gc 16, chain3s growth 32, split-off chains hid 32) on HR 192x48; x8 SR on resident
+    trunks (nf 32 / gc 16, chains hid 32) from LR 64x12: at 2 ranks each band is taller
+    than an RRDB's or a trunk's halo."""
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
+    from hcflow_tpu_torch.parallel import dryrun
+
+    g = torch.Generator().manual_seed(5)
+    if name == "rescaling":
+        model = HCFlowRescalingSpec.default_x4(K=(4, 4), after_splitoff=(2, 2), rrdb_nb=(1, 1),
+                                               rrdb_nf=32, rrdb_gc=16, so_hidden_channels=32)
+        # both directions: 4 RRDBs each; 2 split-off steps and a main chain of 2 a level
+        want = {"rrdb": {"f32": 8 * rrdb.LAUNCHES_PER_RRDB}, "chain": {"f32 hid 32": 4},
+                "chain3s": {"f32": 2 * chain3s.launches_per_chain(2, True)}}
+        return (dryrun.ServeCase(model, dryrun.perturb(model.init(0, device="cpu"), 4),
+                                 torch.rand(1, 192, 48, 3, generator=g), 1.0, seed=2), want)
+    model = HCFlowSRSpec.for_scale(8, K=(2, 2, 2), after_splitoff=(1, 1, 1), rrdb_nb=(2, 1),
+                                   rrdb_nf=32, rrdb_gc=16, hidden_channels=32,
+                                   so_hidden_channels=32)
+    want = {"rrdb_trunk": {"f32": 6}, "chain": {"f32 hid 32": 6}}  # 2 trunks, 2 chains a level
+    return (dryrun.ServeCase(model, dryrun.perturb(model.init(0, device="cpu"), 4),
+                             torch.rand(1, 64, 12, 3, generator=g), 0.8, resident=True, seed=3),
+            want)
+
+
+@pytest.mark.parametrize("name", ["rescaling", "x8"])
+def test_float32_recipes_sharded_on_the_card(gen, name):
+    """x4 rescaling and x8 SR (resident trunks) in the float32 recipe on a (1, 2) mesh, 2
+    ranks on the card over gloo: each rank's launches of the float32 kernels the unsharded
+    pass's, its halo exchanges and bytes as counted from the model's structure; the
+    image within 1e-4 x max |unsharded|.  Rescaling: the ranks upscale the unsharded
+    pass's 8-bit codes (ServeCase.codes); its LR before quantization within 1e-4 x max,
+    its flips against the unsharded LR's codes one code at most, and the HR from the
+    same codes within 1e-4 x max."""
+    import dataclasses
+
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec
+    from hcflow_tpu_torch.parallel import dryrun
+
+    case, want = _f32_mesh_case(name)
+    ref = dryrun.serve(case, None, "cuda")
+    for k, counts in want.items():
+        assert ref["launches"][k] == counts, (k, ref["launches"])
+    rescaling = isinstance(case.model, HCFlowRescalingSpec)
+    if rescaling:
+        case = dataclasses.replace(case, codes=dryrun.lr_codes(ref["lr"]))
+    B, H, W = case.image.shape[:3]
+    f = 4 if rescaling else 1
+    counts, nbytes = dryrun.expected_exchanges(case.model.flow, (B, H // f // 2, W // f), 2,
+                                               resident=case.resident, forward=rescaling)
+    ranks = dryrun.serve_spatial(2, [case])
+    for r, rec in enumerate(ranks):
+        assert rec[0]["launches"] == ref["launches"], r
+        assert rec[0]["exchanges"] == counts and rec[0]["bytes"] == nbytes, r
+    pairs = [(ranks[0][0]["image"], ref["out"].cpu())]
+    if rescaling:
+        lr, want_lr = ranks[0][0]["lr_image"], ref["lr"].cpu()
+        pairs.append((lr, want_lr))
+        assert dryrun.code_flips(lr, want_lr)["steps"] <= 1
+    for got, want_t in pairs:
+        assert got.shape == want_t.shape and torch.isfinite(got).all()
+        assert (got - want_t).abs().max().item() <= 1e-4 * want_t.abs().max().item()

@@ -15,8 +15,14 @@ mesh, ``parallel/halo.py``'s halo exchange) on the CPU, in gloo ranks started by
   max; the JAX package's own case (tests/test_sharding.py: LR 16x16 at heat 0, 2 rows a
   device on its (1, 8) mesh) at spatial 4 against JAX's SPMD result at 1e-4; sampling
   from a seeded generator at heat 0.9 sharded as unsharded; the x8 reverse on
-  resident-trunk packs; the rescaling downscale -> quantize -> upscale (LR and HR) against
-  the unsharded run and JAX;
+  resident-trunk packs and the rescaling downscale -> quantize -> upscale (LR and HR),
+  bf16 and float32 (the shipped test configs' recipe), against the unsharded run and
+  JAX; the float32 rescaling case upscales the unsharded pass's 8-bit codes on the mesh
+  (``ServeCase.codes``), and JAX upscales them too, so that an LR value that float32
+  rounding moves across a code boundary cannot decide the comparison;
+- the codes: ``dryrun.code_flips`` counts one flip for two LRs 1e-7 apart across a
+  boundary and none away from it; ``dryrun.HeldCodes`` returns the codes it holds and
+  passes the gradient as ``quantize_ste``;
 - every rank's halo exchanges and bytes equal ``dryrun.expected_exchanges``, its kernel
   launches the unsharded pass's (none on the CPU); a halo one row short breaks the
   result; a height (or batch) that the axis does not divide raises; a mesh of one rank
@@ -85,23 +91,34 @@ def _cases():
                                                  fused=False, mesh_shape=(1, 4)),
                                 ("spmd", jp, lr16))
 
-    model = HCFlowSRSpec.for_scale(8, compute_dtype="bfloat16", **TINY8)
-    params, jp = _port_params(model)
     lr8 = np.random.default_rng(5).uniform(size=(B, 4, 4, 3)).astype(np.float32)
     eps8 = [randn(6, (B, 16, 16, 6)), randn(7, (B, 8, 8, 12)), randn(8, (B, 4, 4, 45))]
-    out["x8 resident"] = (dryrun.ServeCase(model, params, torch.from_numpy(lr8), 0.8,
-                                           resident=True,
-                                           eps_list=[torch.from_numpy(e) for e in eps8]),
-                          ("x8", jp, lr8, eps8))
-
-    model = HCFlowRescalingSpec.default_x4(compute_dtype="bfloat16", **TINY_RS)
-    params, jp = _port_params(model)
     hr = np.random.default_rng(9).uniform(size=(B, 16, 24, 3)).astype(np.float32)
     eps_r = [0.3 * randn(10, (B, 8, 12, 6)), 0.3 * randn(11, (B, 4, 6, 21))]
-    out["rescaling"] = (dryrun.ServeCase(model, params, torch.from_numpy(hr), 1.0,
-                                         eps_list=[torch.from_numpy(e) for e in eps_r]),
-                        ("rescaling", jp, hr, eps_r))
+    for cd, sfx in (("bfloat16", ""), (None, " f32")):
+        model = HCFlowSRSpec.for_scale(8, compute_dtype=cd, **TINY8)
+        params, jp = _port_params(model)
+        out["x8 resident" + sfx] = (dryrun.ServeCase(
+            model, params, torch.from_numpy(lr8), 0.8, resident=True,
+            eps_list=[torch.from_numpy(e) for e in eps8]), ("x8", jp, lr8, eps8, cd))
+        model = HCFlowRescalingSpec.default_x4(compute_dtype=cd, **TINY_RS)
+        params, jp = _port_params(model)
+        out["rescaling" + sfx] = (dryrun.ServeCase(model, params, torch.from_numpy(hr), 1.0,
+                                                   eps_list=[torch.from_numpy(e) for e in eps_r]),
+                                  ("rescaling", jp, hr, eps_r, cd))
     return out
+
+
+HOLD_CODES = {"rescaling f32"}  # cases that upscale the unsharded pass's codes on the mesh
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    """A case as the ranks serve it: with the unsharded pass's codes where it holds them."""
+    case = _cases()[name][0]
+    if name in HOLD_CODES:
+        case = dataclasses.replace(case, codes=dryrun.lr_codes(_unsharded(name)["lr"]))
+    return case
 
 
 def _names(world):
@@ -112,13 +129,14 @@ def _names(world):
 def _launch(world):
     """One launch of ``world`` ranks for every case and check of that world."""
     names = _names(world)
-    ranks = dryrun.serve_spatial(world, [_cases()[n][0] for n in names], cpu=True,
+    ranks = dryrun.serve_spatial(world, [_case(n) for n in names], cpu=True,
                                  rank_fn=_spatial_ranks.run, args=(WORLD_MESHES[world],))
     return names, ranks
 
 
 @functools.lru_cache(maxsize=None)
 def _unsharded(name):
+    """The unsharded pass (a rescaling case from its own codes)."""
     rec = dryrun.serve(_cases()[name][0], None, "cpu")
     return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
 
@@ -141,8 +159,8 @@ def _jax(name):
     if ref[0] == "x4":
         return _jax_x4(ref[1])
     if ref[0] == "x8":
-        _, jp, lr, eps = ref
-        jm = JSR.for_scale(8, compute_dtype="bfloat16", **TINY8)
+        _, jp, lr, eps, cd = ref
+        jm = JSR.for_scale(8, compute_dtype=cd, **TINY8)
         fn = lambda p, x, e: jm.flow.reverse_flow(p, key, x, 0.8, eps_list=e)  # noqa: E731
         return np.clip(np.asarray(jax_run(fn, jm.flow.precompute_inference(jp), lr, eps)), 0, 1)
     if ref[0] == "spmd":  # tests/test_sharding.py's setup, on the port's params
@@ -156,12 +174,15 @@ def _jax(name):
         rev = jax.jit(lambda p, k, x: jm.reverse(p, k, x, 0.0))
         return np.asarray(rev(jax.device_put(jp, NamedSharding(m, P())), jax.random.PRNGKey(2),
                               jax.device_put(lr, NamedSharding(m, P("data", "spatial")))))
-    _, jp, hr, eps = ref
-    jm = JRescaling.default_x4(compute_dtype="bfloat16", **TINY_RS)
+    _, jp, hr, eps, cd = ref
+    jm = JRescaling.default_x4(compute_dtype=cd, **TINY_RS)
     jlr = np.asarray(jax_run(jm.forward, jp, hr)[0])
-    # the JAX upscale of the port's quantized LR: a rounding tie may put the two
-    # frameworks' LRs one level apart, which the LR check allows and the HR one would not
-    lq = quantize(_result(name)[0]["lr_image"]).numpy()
+    # the JAX upscale of the codes the port's sharded pass upscaled: a rounding tie may
+    # put the two frameworks' LRs one level apart, which the LR check allows and the HR
+    # one would not
+    codes = _case(name).codes
+    lq = (quantize(_result(name)[0]["lr_image"]) if codes is None
+          else dryrun.from_codes(codes)).numpy()
     fn = lambda p, x, e: jm.flow.reverse_flow(p, key, x, 1.0, eps_list=e)  # noqa: E731
     jhr = np.clip(np.asarray(jax_run(fn, jm.flow.precompute_inference(jp), lq, eps)), 0, 1)
     return {"lr": jlr, "hr": jhr}
@@ -227,12 +248,62 @@ def test_x8_reverse_on_resident_trunks_matches_jax_and_unsharded():
     _sharded_vs_unsharded(name)
 
 
+def test_x8_float32_reverse_on_resident_trunks_matches_jax_and_unsharded():
+    name = "x8 resident f32"
+    _close(_result(name)[0]["image"].numpy(), _jax(name), TOL[None], name)
+    _sharded_vs_unsharded(name)
+
+
 def test_rescaling_downscale_quantize_upscale_matches_jax_and_unsharded():
     name = "rescaling"
     got, ref = _result(name)[0], _jax(name)
     _close(got["lr_image"].numpy(), ref["lr"], TOL["bfloat16"], "LR")
     _close(got["image"].numpy(), ref["hr"], TOL["bfloat16"], "HR")
     _sharded_vs_unsharded(name)
+
+
+def test_float32_rescaling_on_the_unsharded_codes_matches_jax_and_unsharded():
+    """The LR before quantization, then the HR that both sides (and JAX) upscale from the
+    unsharded pass's codes; the sharded LR's flips against them are at most one code."""
+    name = "rescaling f32"
+    got, ref = _result(name)[0], _jax(name)
+    _close(got["lr_image"].numpy(), ref["lr"], TOL[None], "LR")
+    _close(got["image"].numpy(), ref["hr"], TOL[None], "HR")
+    _sharded_vs_unsharded(name)
+    assert dryrun.code_flips(got["lr_image"], _unsharded(name)["lr"])["steps"] <= 1
+
+
+@pytest.mark.parametrize("across", [True, False])
+def test_code_flips_count_a_boundary_crossing(across):
+    """Two LRs 1e-7 apart: one flip across the boundary (100 + 1/2) / 255, none away
+    from it; the LR difference at the flip is theirs."""
+    mid = (100.5 if across else 100.25) / 255
+    lr = torch.tensor([mid - 5e-8, 0.25, 0.6], dtype=torch.float64).float()
+    ref = torch.tensor([mid + 5e-8, 0.25, 0.6], dtype=torch.float64).float()
+    f = dryrun.code_flips(lr, ref)
+    assert f["values"] == 3
+    if across:
+        assert f["flips"] == 1 and f["steps"] == 1
+        assert f["lr_diff"] == (ref - lr).abs().max().item() and f["lr_diff"] < 2e-7
+    else:
+        assert f == {"flips": 0, "steps": 0, "lr_diff": 0.0, "values": 3}
+    assert torch.equal(dryrun.from_codes(dryrun.lr_codes(lr)), quantize(lr))
+
+
+def test_held_codes_quantizer_returns_its_codes_and_passes_the_gradient():
+    from hcflow_tpu_torch.ops.quant import quantize_ste
+
+    g = torch.Generator().manual_seed(0)
+    ref = torch.rand(2, 4, 6, 3, generator=g) * 1.2 - 0.1
+    x = (ref + 0.01 * torch.randn(ref.shape, generator=g)).requires_grad_()
+    held = dryrun.HeldCodes(ref)
+    q = held(x)
+    assert torch.equal(q, quantize(ref)) and torch.equal(dryrun.lr_codes(q), dryrun.lr_codes(ref))
+    assert held.flips == [dryrun.code_flips(x.detach(), ref)] and held.flips[0]["flips"] > 0
+    v = torch.randn(ref.shape, generator=g)
+    got, = torch.autograd.grad((q * v).sum(), x)
+    want, = torch.autograd.grad((quantize_ste(x) * v).sum(), x)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", [n for n in _cases() if "short" not in n])
@@ -278,6 +349,18 @@ def test_mesh_ranks_and_groups(world, shape):
         col = [layout[i][m["spatial_index"]] for i in range(shape[0])]
         assert m["spatial_peers"] == (row if len(row) > 1 else None)
         assert m["data_peers"] == (col if len(col) > 1 else None)
+
+
+@pytest.mark.parametrize("world", WORLD_MESHES)
+def test_replicate_takes_strided_leaves_through_a_contiguous_broadcast(world):
+    """Every rank holds rank 0's leaves after ``mesh.replicate``, a strided one too, under
+    a broadcast that refuses non-contiguous tensors as NCCL does (without a contiguous
+    copy, training on the mesh over NCCL raises on the invconv weights)."""
+    _, ranks = _launch(world)
+    want = [torch.arange(12.0).reshape(3, 4).t(), torch.zeros(2)]
+    for r in ranks:
+        assert all(torch.equal(a, b) for a, b in zip(r["replicate"], want))
+        assert not r["replicate"][0].is_contiguous()
 
 
 @pytest.mark.parametrize("n,axes,shape", [(8, ("data", "spatial"), (2, 4)),

@@ -7,7 +7,10 @@ at the JAX package's ``dryrun_multichip`` topologies (tests/_spatial_ranks.py ``
   all-reduced gradient within 1e-5 x max |g| of the port's one-process pass on the
   global batch in every leaf, the D loss within 1e-5; the ranks' params bit-identical
   after every pass; the calibration on the mesh equal to one process's bit for bit;
-- the ++ NLL pass with every halo one row short breaks that limit;
+- the rescaling step's quantizer holds the one-process forward's 8-bit codes
+  (``dryrun.HeldCodes``), and the sharded fake LR's flips against them are counted: at
+  most one code; with its own codes the step is the default step bit for bit;
+- the ++ NLL pass and the rescaling pass with every halo one row short break that limit;
 - the halo exchanges: every rank's the same, one backward exchange for each forward one
   that carried a gradient, ``remat_steps`` rerunning forward exchanges inside the
   backward pass, the discriminators' gathers;
@@ -56,8 +59,52 @@ def test_ranks_params_bit_identical_and_calibration_equal(report):
 
 
 def test_a_halo_one_row_short_breaks_the_nll_gradient(report):
-    c = report["control"]
-    assert c["pass"] == "plusplus_nll" and c["rel"] > 1e3 * TOL_MESH, c
+    c = report["controls"]["plusplus_nll"]
+    assert c["rel"] > 1e3 * TOL_MESH, c
+
+
+def test_a_halo_one_row_short_breaks_the_rescaling_gradient(report):
+    c = report["controls"]["rescaling"]
+    assert c["tol"] == TOL_MESH and c["rel"] > 1e3 * TOL_MESH, c
+
+
+def test_rescaling_flips_against_the_held_codes_are_counted(report):
+    f = report["passes"]["rescaling"]["flips"]
+    plan = dryrun.TrainPlan()
+    B, hw = SHAPE[0] * plan.rows, plan.rs_hr // 4
+    assert f["values"] == B * hw * hw * 3 and f["steps"] <= 1, f
+    assert sum(r["rescaling"]["flips"]["flips"] for r in report["ranks"]) == f["flips"]
+
+
+def test_held_codes_of_its_own_lr_leave_the_rescaling_step_bit_for_bit():
+    """make_rescaling_step with dryrun.HeldCodes of the step's own forward LR (no flips)
+    gives the default step's gradient and update bit for bit."""
+    from hcflow_tpu_torch.models import HCFlowRescalingSpec
+    from hcflow_tpu_torch.ops import nets
+    from hcflow_tpu_torch.train.schedules import schedule_from_opt
+    from hcflow_tpu_torch.train.trainer import (init_state, make_optimizer, make_rescaling_step,
+                                                sample_latents, tree_leaves)
+
+    model = HCFlowRescalingSpec.default_x4(**dict(dryrun.TINY, K=(2, 2)))
+    opt = {"lr_G": 2e-4, "lr_steps": [100]}
+    tx = make_optimizer(opt, schedule_from_opt(opt))
+    params = dryrun.perturb(model.init(0, device="cpu"), 12)
+    g = torch.Generator().manual_seed(1)
+    hr = torch.rand(2, 16, 16, 3, generator=g)
+    lr = hr.reshape(2, 4, 4, 4, 4, 3).mean((2, 4))
+    eps = sample_latents(model, lr.shape, 1.0, torch.Generator().manual_seed(4), "cpu",
+                         deepest_first=False)
+    state = init_state(params, tx)
+    with nets.exact_f32():
+        own = model.forward(state.params, hr, grad=True)[0]
+    held = dryrun.HeldCodes(own)
+    outs = [make_rescaling_step(model, tx, 5e-2, 1e-5, 1.0, **kw)(init_state(params, tx), hr, lr,
+                                                                   None, eps)
+            for kw in ({}, {"quantize": held})]
+    assert held.flips[0]["flips"] == 0
+    (s0, m0), (s1, m1) = outs
+    assert all(torch.equal(a, b) for a, b in zip(m0["grads"], m1["grads"]))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s0.params), tree_leaves(s1.params)))
 
 
 def test_exchanges_forward_and_backward(report):
