@@ -1,0 +1,10 @@
+"""The same reading as ``rrdb_f32_roofline``, in the tiled cell, whose rate is ``hr_mps.tiled``."""
+
+UNIT, BETTER, SOURCE = "%", "higher", "device_trace"
+LAYER = "RRDB kernel"
+MOVES = "hr_mps.tiled"
+WORKLOADS = ["sr_x4_f32.tiles"]
+
+
+def read(r):
+    return r.roofline_pct("rrdb")
