@@ -48,6 +48,7 @@ import torch
 
 from ..ops import chain, coupling, densities, nets, rrdb
 from ..parallel import halo
+from ..utils import profiling
 from . import stack
 from .flowstep import FlowStepSpec
 
@@ -127,6 +128,7 @@ class ConditionalFlowSpec:
             return rrdb.trunk_apply(packed, x, mesh)
         return nets.apply_rrdb_trunk(params[name], x, cd, remat=self.remat_trunks, mesh=mesh)
 
+    @profiling.spanned("hcflow.encoder")
     def cond_feature(self, params: dict, u: torch.Tensor, mesh=None) -> torch.Tensor:
         """The encoder's cond features of u; ``mesh``: on this rank's band of u, each conv
         and RRDB (or trunk kernel) on the band plus the halo it reads."""
@@ -181,6 +183,7 @@ class ConditionalFlowSpec:
         return stack.on_band(lambda z, u: fn(ss, steps, z, u, remat=remat)[0], z, cond,
                              nets.halo_rows(steps), mesh), None
 
+    @profiling.spanned("hcflow.cond")
     def forward(self, params: dict, a: torch.Tensor, u: torch.Tensor, logdet=None, mesh=None):
         """Run the steps on a.  SR: add the prior's log-density of the result into
         logdet (shape (B,)) and return (logdet, cond); rescaling: return (fake_z,
@@ -193,6 +196,7 @@ class ConditionalFlowSpec:
             return logdet + densities.gaussian_logp(mean, logs, z), cond
         return (z - mean) * torch.exp(-logs), cond
 
+    @profiling.spanned("hcflow.cond")
     def encode_eps(self, params: dict, a: torch.Tensor, u: torch.Tensor, cond=None):
         """The whitened latent of a under the conditional prior, (f(a) - mean) /
         std, which ``reverse(..., eps=...)`` maps back to a.  ``cond``: the level's
@@ -219,6 +223,7 @@ class ConditionalFlowSpec:
         return new, (z - mean) * torch.exp(-logs), cond
 
     # ------------------------------------------------------------------- reverse
+    @profiling.spanned("hcflow.cond")
     def reverse(self, params: dict, u: torch.Tensor, eps_std, generator=None, eps=None,
                 mesh=None):
         """Sample a from the conditional prior at temperature eps_std (or take the

@@ -44,6 +44,7 @@ from ..ops.squeeze import (
     unsqueeze2d,
 )
 from ..parallel import halo
+from ..utils import profiling
 from . import stack
 from .conditional import ConditionalFlowSpec
 from .flowstep import FlowStepSpec
@@ -158,6 +159,7 @@ class FlowNetSpec:
         return haar_unsqueeze2d(x) if self.squeeze == "haar" else unsqueeze2d(x)
 
     # --------------------------------------------------------------- main chains
+    @profiling.spanned("hcflow.main")
     def _main_forward(self, lv: LevelSpec, main: list, z: torch.Tensor, logdet=None,
                       mesh=None):
         # as the JAX package: the homogeneous chains recompute with remat_steps, the
@@ -195,6 +197,7 @@ class FlowNetSpec:
             z = ys[-1]
         return ys, a_s, logdet, mains
 
+    @profiling.spanned("hcflow.main")
     def _main_inverse(self, lv: LevelSpec, level_params: dict, z: torch.Tensor,
                       mesh=None) -> torch.Tensor:
         """The chain kernels when packed, else the plain step loop; ``mesh``: on this

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from ..flow.flownet import FlowNetSpec
+from ..utils import profiling
 from .hcflow_sr import device_for, to_device
 
 
@@ -48,6 +49,7 @@ class HCFlowRescalingSpec:
         device = device_for(device)
         return to_device(self.flow.init(torch.Generator().manual_seed(seed)), device)
 
+    @profiling.spanned("hcflow.forward")
     def forward(self, params: dict, hr: torch.Tensor, grad: bool = False, mesh=None):
         """HR -> (LR clamped to [0, 1], [whitened latent per level]); NHWC.  Serving
         runs without autograd; ``grad=True`` records the graph (the training step).
@@ -57,6 +59,7 @@ class HCFlowRescalingSpec:
             z, fake_zs = self.flow.normal_flow(params, hr, mesh=mesh)
             return z.clamp(0.0, 1.0), fake_zs
 
+    @profiling.spanned("hcflow.reverse")
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
                 eps_list=None, grad: bool = False, mesh=None) -> torch.Tensor:
         """LR -> HR at temperature eps_std; NHWC, clamped to [0, 1].

@@ -25,6 +25,7 @@ from ..flow.flownet import FlowNetSpec
 from ..parallel import halo
 from ..ops.densities import gaussian_logp
 from ..ops.quant import quantize_ste
+from ..utils import profiling
 
 
 def device_for(device) -> torch.device:
@@ -89,6 +90,7 @@ class HCFlowSRSpec:
         return hr + noise / self.quant, logdet
 
     # ------------------------------------------------------------- normal flow
+    @profiling.spanned("hcflow.forward")
     def forward(self, params: dict, hr: torch.Tensor, lr: torch.Tensor, generator=None,
                 noise=None, mesh=None):
         """HR -> (fake LR in [0, 1], NLL in bits/dim, the batch mean); hr and lr NHWC in
@@ -109,6 +111,7 @@ class HCFlowSRSpec:
         return fake_lr.clamp(0.0, 1.0), nll
 
     # ------------------------------------------------------------ reverse flow
+    @profiling.spanned("hcflow.reverse")
     def reverse(self, params: dict, lr: torch.Tensor, eps_std, generator=None,
                 eps_list=None, grad: bool = False, mesh=None) -> torch.Tensor:
         """LR -> HR sample at temperature eps_std; NHWC, clamped to [0, 1].

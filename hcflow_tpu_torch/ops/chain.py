@@ -45,6 +45,7 @@ import math
 import torch
 
 from .. import _build
+from ..utils import profiling
 from . import nets
 
 # chain-step kernel launches (one per flow step), by variant: "bf16 hid 64", "f32 hid 32", ...
@@ -202,6 +203,7 @@ def inverse_chain_plain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     return z
 
 
+@profiling.spanned("hcflow.chain")
 def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     """Run the K-step inverse chain (k = K-1 down to 0) on NHWC float32 z.
 
@@ -210,7 +212,7 @@ def inverse_chain(packed: dict, z: torch.Tensor, uc=None) -> torch.Tensor:
     at the pack's hid, in the packed weights' dtype.  A CPU tensor takes the plain
     version; a CUDA tensor the kernel, which takes the padded pack, bf16 or float32, of
     widths it takes (:func:`takes`), or raises.  Either raises under autograd when an
-    input requires grad."""
+    input requires grad.  Runs in the span ``hcflow.chain``."""
     _build.refuse_grad("chain", z, uc, packed)
     K, _, _, hid, _ = _dims(packed)
     if uc is not None and uc.shape[-1] != K * hid:

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils import profiling
 from . import nets
 
 launches_by = {}  # chain3s kernel launches (launches_per_chain a chain), by recipe
@@ -350,10 +351,12 @@ def inverse_chain3s_plain(packed: dict, z: torch.Tensor):
     return z, -packed["logsum"] * (z.shape[1] * z.shape[2])
 
 
+@profiling.spanned("hcflow.chain3s")
 def inverse_chain(packed: dict, z: torch.Tensor):
     """Run the K-step inverse chain (k = K-1 down to 0) on NHWC float32 z.  Returns
     (z, logdet_delta).  A CPU tensor takes the plain version; a CUDA tensor the
-    kernel.  Either raises under autograd when an input requires grad."""
+    kernel.  Either raises under autograd when an input requires grad.  Runs in the span
+    ``hcflow.chain3s``."""
     _build.refuse_grad("chain3s", z, packed)
     if not z.is_cuda:
         return inverse_chain3s_plain(packed, z)

@@ -59,6 +59,7 @@ import torch
 
 from .. import _build
 from ..parallel import halo
+from ..utils import profiling
 from . import nets
 
 # CUDA kernel launches made by rrdb_apply (16 per RRDB), by recipe: "bf16", "f32"
@@ -302,6 +303,7 @@ def halo_rows(packed: dict) -> int:
                for w in packed["w"])
 
 
+@profiling.spanned("hcflow.rrdb")
 def trunk_apply(packed, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """A trunk of RRDBs on NHWC x; float32 out.  ``packed`` from
     :func:`pack_rrdb_trunk`: a list runs the per-RRDB kernel once per RRDB, a stacked
@@ -310,7 +312,7 @@ def trunk_apply(packed, x: torch.Tensor, mesh=None) -> torch.Tensor:
     output loses them once after the last.  ``mesh``: each kernel call on this rank's
     band plus the halo it reads (:func:`halo_rows`), exchanged before it; at a padded
     nf only the real channels are exchanged, and each call pads the band and its halo
-    and cuts its output back."""
+    and cuts its output back.  Runs in the span ``hcflow.rrdb``."""
     nf = x.shape[-1]
     pad = (packed if isinstance(packed, dict) else packed[0])["b"][4].shape[-1] - nf
     once = not (pad and halo.sharded(mesh))  # the padded channels are 0: exchange none

@@ -1,40 +1,61 @@
-"""Profiling utilities, as the JAX package's ``hcflow_tpu/utils/profiling.py``: a scope
-timer that waits for the card's queued work before it reads the clock, a throughput
-meter (images and megapixels per second) for training and serving loops, and a thin
-wrapper over ``torch.profiler`` that writes a trace viewable in Perfetto / TensorBoard.
+"""Profiling utilities: the program's spans, a throughput meter (images and megapixels
+per second) for training and serving loops, and a thin wrapper over ``torch.profiler``
+that writes a trace viewable in Perfetto / TensorBoard.
+
+Spans.  The program opens a span, named ``hcflow.<layer>``, at each layer boundary of a
+serving or training pass:
+
+- ``hcflow.reverse`` / ``hcflow.forward``: the models' entry calls
+  (``models/hcflow_sr.py``, ``models/hcflow_rescaling.py``);
+- ``hcflow.cond``: one level's conditional flow (``flow/conditional.py``
+  ``forward``, ``reverse``, ``encode_eps``), and inside it ``hcflow.encoder``, the
+  conditioning encoder (``cond_feature``: conv_first, both trunks, trunk_conv1);
+- ``hcflow.main``: one level's main chain (``flow/flownet.py`` ``_main_inverse``,
+  ``_main_forward``);
+- ``hcflow.rrdb``, ``hcflow.chain``, ``hcflow.chain3s``: the kernel wrappers
+  (``ops/rrdb.py`` ``trunk_apply``, ``ops/chain.py`` and ``ops/chain3s.py``
+  ``inverse_chain``), on the card and on the CPU's plain versions alike.
+
+A span is a ``torch.profiler.record_function`` while a profile with CPU activity
+records, and otherwise one shared null context, so that a pass outside a profile pays
+one check a span.  Spans and the card's operations are on the profiler's one clock: a
+device operation belongs to the spans open on the host when it was launched (the trace
+links each to its launch).  To see them, profile a pass with CPU and CUDA activity,
+with :func:`trace` or any ``torch.profiler.profile``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Optional
 
 import torch
 
+_NO_SPAN = contextlib.nullcontext()
 
-class ScopeTimer:
-    """``with ScopeTimer('fwd') as t: ...``; synchronises the card at exit."""
 
-    def __init__(self, name: str = "", logger=None, sync=True):
-        self.name = name
-        self.logger = logger
-        self.sync = sync
-        self.elapsed = None
+def span(name: str):
+    """A span named ``name`` (``hcflow.<layer>``) while a profile records; otherwise
+    one shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
-    def __enter__(self):
-        if self.sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.t0 = time.perf_counter()
-        return self
 
-    def __exit__(self, *exc):
-        if self.sync and torch.cuda.is_available():
-            torch.cuda.synchronize()  # the work queued in the scope has finished
-        self.elapsed = time.perf_counter() - self.t0
-        msg = f"{self.name}: {self.elapsed * 1e3:.2f} ms"
-        (self.logger.info if self.logger else print)(msg)
-        return False
+def spanned(name: str):
+    """Decorate a function to run inside :func:`span` ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 class ThroughputMeter:
@@ -77,7 +98,8 @@ class ThroughputMeter:
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = "profiles/torch-trace"):
     """Profile the host and the card over the block; write a trace under ``log_dir``
-    (TensorBoard's trace handler) and yield the profiler."""
+    (TensorBoard's trace handler), which holds the program's spans, and yield the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]

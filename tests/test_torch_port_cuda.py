@@ -968,3 +968,69 @@ def test_float32_recipes_sharded_on_the_card(gen, name):
     for got, want_t in pairs:
         assert got.shape == want_t.shape and torch.isfinite(got).all()
         assert (got - want_t).abs().max().item() <= 1e-4 * want_t.abs().max().item()
+
+
+# the port's kernels by name: csrc/chain.cu, chain3s.cu, rrdb.cu, rrdb_trunk.cu and the
+# tile conv's conv3x3.cuh
+PORT_KERNELS = ("chain_step_", "chain3s_", "to_dense_kernel", "feature_kernel",
+                "residual_kernel", "trunk_kernel")
+
+
+@pytest.mark.parametrize("config", ["sr_x4_f32", "rescaling_x4_f32"])
+def test_kernel_launches_fall_under_the_wrapper_spans(gen, config):
+    """A fused float32 reverse of the benchmark's configurations at a few steps and narrow
+    (unpadded) widths, profiled: every device operation of the port's kernels was launched
+    inside an ``hcflow.rrdb|chain|chain3s`` span, and each wrapper opens one span a call
+    that the benchmark's ``Calls`` hook counts."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo))
+    from h100_bench import harness, program_trace, trace, weights
+    from h100_bench.reference.hcflow import Topology
+    from hcflow_tpu_torch import convert
+
+    cfg = json.loads((repo / "h100_bench" / "configs" / f"{config}.json").read_text())
+    fd = cfg["network_G"]["flowDownsampler"]
+    fd.update(K=4, hidden_channels=32)
+    fd["splitOff"].update(after_flowstep=[2, 2], hidden_channels=32, RRDB_nf=32, RRDB_gc=16,
+                          RRDB_nb=[1, 2])
+    sr = config.startswith("sr")
+    top = Topology(cfg["network_G"], sr)
+    model = harness.build_model(cfg)
+    params = model.flow.precompute_inference(
+        convert.params_from_state_dict(weights.state_dict(top, 3, "cuda"), model, "cuda"),
+        fused=True)
+    lr = torch.rand(2, 12, 20, 3, device="cuda", generator=gen)
+    calls, seen = trace.Calls(top), []
+    calls._add = lambda name, flops, nbytes: seen.append(name)
+    calls.install()
+    try:
+        with torch.no_grad():
+            model.reverse(params, lr, 0.8, generator=gen)  # warm-up
+            seen.clear()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with trace.span("bench.window"):
+                    model.reverse(params, lr, 0.8, generator=gen)
+                    torch.cuda.synchronize()
+    finally:
+        calls.uninstall()
+    events = trace.chrome_events(prof)
+    pt = program_trace.ProgramTrace(events)
+    launch = {(e.get("args") or {}).get("correlation"): e["ts"] for e in events
+              if e.get("ph") == "X" and str(e.get("cat", "")).lower() in trace._LAUNCH}
+    ops = [e for e in events if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+           and any(k in e["name"] for k in PORT_KERNELS)]
+    assert len(ops) >= 3 * 16  # the three RRDBs of a level's trunks, at least
+    wrappers = {f"hcflow.{w}" for w in trace.WRAPPERS}
+    for op in ops:
+        i = pt.innermost(launch[op["args"]["correlation"]])
+        assert i >= 0 and pt.names[pt.in_program[i]] in wrappers, op["name"]
+    assert {w: pt.names.count(f"hcflow.{w}") for w in trace.WRAPPERS} == \
+        {w: seen.count(w) for w in trace.WRAPPERS}
+    assert {w for w in trace.WRAPPERS if w in seen} == (
+        {"rrdb", "chain"} | (set() if sr else {"chain3s"}))

@@ -19,14 +19,13 @@ the files it and the data-prep / convert CLIs write, against the JAX package:
 - ``prepare_data`` (pkl, png2npy) writes JAX's files; ``convert model`` on the tiny
   trained checkpoint writes JAX's ``.ckpt`` leaf for leaf; ``convert vgg`` / ``lpips``
   write JAX's ``.npz``;
-- the profiling helpers: ``ScopeTimer`` times and reports its block, ``ThroughputMeter``
-  keeps its window's rates, ``trace`` writes a ``torch.profiler`` trace of its block.
+- the profiling helpers: ``ThroughputMeter`` keeps its window's rates, ``trace`` writes
+  a ``torch.profiler`` trace of its block (the spans: tests/test_torch_port_tracing.py).
 """
 
 import os
 import pickle
 import signal
-import time
 from pathlib import Path
 
 import jax
@@ -396,19 +395,6 @@ def test_convert_vgg_and_lpips_write_jax_npz(tmp_path):
         assert all(np.array_equal(a[k], b[k]) for k in a.files), kind
     back = lpips.load(str(tmp_path / "lpips_port.npz"), device="cpu")
     assert all(torch.equal(back[k][leaf], alex[k][leaf]) for k in alex for leaf in alex[k])
-
-
-def test_scope_timer_times_its_block():
-    lines = []
-
-    class Log:
-        def info(self, msg):
-            lines.append(msg)
-
-    with profiling.ScopeTimer("block", logger=Log()) as t:
-        time.sleep(0.02)
-    assert 0.02 <= t.elapsed < 5.0
-    assert len(lines) == 1 and lines[0] == f"block: {t.elapsed * 1e3:.2f} ms"
 
 
 def test_throughput_meter_keeps_its_window(monkeypatch):
