@@ -4,9 +4,9 @@
 // rrdb.cu, rrdb_trunk.cu, chain3s.cu and conv.cu.
 //
 // The conv is an implicit GEMM: M = output pixels, N = COUT (16, 32, 48 or 64), K =
-// 9 taps x cin.  The dense-block kernels keep their concats free: a dense block owns
-// one NHWC bf16 buffer (B,H,W,ctot) holding [input | x1 | x2 | x3 | x4], and conv i
-// reads a channel prefix of it.
+// 9 taps x cin (the wide float32 conv, below, turns it around).  The dense-block kernels
+// keep their concats free: a dense block owns one NHWC bf16 buffer (B,H,W,ctot) holding
+// [input | x1 | x2 | x3 | x4], and conv i reads a channel prefix of it.
 //
 // Tiles.  A block of two warpgroups computes a tile 16 pixels tall and 8 MT wide
 // (MT = 1 or 2, a template parameter chosen per image width by with_mt so that the
@@ -64,29 +64,44 @@
 // order as before; chain3s's coupling, which needs channels that sit in different
 // threads, stages the sums through shared memory once (stage_acc).
 //
-// The float32 recipe (conv_tile_f32: float32 dense buffers, which the kernels take when
-// the weights are float pointers) computes what the plain version computes under
-// exact_f32(): float32 operands and sums, no rounding of the features.  The card has no
-// float32 tensor-core product, so each product is split in three TF32 ones (3xTF32): x =
-// hi + lo with hi = rna(x) and lo = rna(x - hi) (TF32, to nearest, ties away from zero),
-// and a*b ~ lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, summed in float32: about 21 bits of each
-// operand, an error of ~2^-21 relative a product (single-pass TF32: 2^-11).  Each operand
-// is split once, never in the tap loop: the weights when they are packed
-// (nets.pack_tf32: a hi and a lo plane in device memory, laid out as wgmma's K-major B
-// core matrices of 8 outputs x 4 inputs, which cp.async copies unchanged), the input once
-// a stage: cp.async lands the float32 chunk as [channel group of 4][halo pixel][4
-// channels] (the bf16 layout with 4 channels to a 16-byte group, so a tap window is
-// again a start address), and each thread splits the pieces it copied itself, in place,
-// into a hi and a lo plane while the products of the chunk before run.  The products are
-// wgmma m64nNk8 .tf32 with both operands from shared memory (its .tf32 form takes only
-// K-major operands), three a k8 step in one fixed order (lo x hi, hi x lo, hi x hi; at
-// COUT 16, where a product is bound by its reads of shared memory, hi x hi and hi x lo as
-// one product twice as wide: 10% off the gc-16 RRDBs, while at COUT 32 the second
-// accumulator made the resident trunk spill), on the bf16 design's tiles and warpgroups,
-// so the accumulator fragment is wgmma's there too and Acc, for_each_pair and the
-// epilogues serve both recipes.  A stage holds CK_F32
-// = 8 input channels (A hi + lo and B hi + lo: 57.6 KB at COUT 64 on 16-wide tiles), 2
-// to 4 stages by COUT and MT (stages_f32), so that 2 blocks share an SM.
+// The float32 recipe (float32 dense buffers, which the kernels take when the weights are
+// float pointers) computes what the plain version computes under exact_f32(): float32
+// operands and sums, no rounding of the features.  The card has no float32 tensor-core
+// product, so each product is split in TF32 ones: x = hi + lo with hi = rna(x) and lo =
+// rna(x - hi) (TF32, to nearest, ties away from zero), and a*b ~ lo_a*hi_b + hi_a*lo_b +
+// hi_a*hi_b, summed in float32: about 21 bits of each operand, an error of ~2^-21
+// relative a product (single-pass TF32: 2^-11).  Each operand is split once, never in the
+// tap loop: the weights when they are packed (nets.pack_tf32: a hi and a lo plane in
+// device memory, K-major core matrices of 8 outputs x 4 inputs, which cp.async copies
+// unchanged), the input once a stage: cp.async lands the float32 chunk as [channel group
+// of 4][halo pixel][4 channels] (the bf16 layout with 4 channels to a 16-byte group, so a
+// tap window is again a start address), and each thread splits the pieces it copied
+// itself, in place, into a hi and a lo plane while the products of the chunk before run.
+// A stage holds CK_F32 = 8 input channels (input hi + lo and weights hi + lo: 48.4 KB at
+// COUT 64 on 16-wide tiles), 2 to 4 stages by COUT and MT (stages_f32), so that 2 blocks
+// share an SM.  The products are wgmma m64nNk8 .tf32 with both operands from shared
+// memory; that form takes only K-major operands, and both staged layouts are K-major
+// core matrices (8 rows x 16 bytes) in either role, so the GEMM runs either way round:
+//
+// - narrow (conv_tile_f32; COUT 16, and chain3s.cu): M = a sub-tile's 64 pixels, N =
+//   COUT, on the bf16 design's tiles and fragment (Acc, for_each_pair and the epilogues
+//   serve both recipes); lo x hi, hi x lo, hi x hi a k8 step, and at COUT 16 hi x hi and
+//   hi x lo as one product twice as wide (10% off the gc-16 RRDBs).
+// - wide (conv_tile_f32w; COUT 32 and 64, wide_f32): M = the output channels, the weights
+//   as A, N = the warpgroup's 16 x 8 pixel column (128; at MT 1 its 8 x 8 pixels, 64).  A
+//   product from shared memory is bound by its reads, not by the tensor cores: m64nNk8
+//   reads 2 KB of A and 32 N bytes of B for N / 8 clocks of tensor work, 192 bytes a clock
+//   at the narrow N 32 and 128 at N 64 against an SM's 128, 96 at N 128.  At COUT 32
+//   [W hi; W lo] is one A of 64 rows (each channel group's lo rows staged after its hi
+//   rows), two products a k8 step give all four TF32 terms (lo x lo too, for free) and
+//   the epilogue adds rows o and o + 32.  At COUT 16 [W hi; W lo] would fill 32 of M's 64
+//   rows: it stays narrow.  The fragment's rows are channels and its columns pixels, so
+//   the epilogues stage it through the freed ring (AccW, stage_accw, for_each_quad) and
+//   store NHWC coalesced, with the narrow epilogues' arithmetic and fmaf order.
+//
+// Measured (PERF.md, H100): the wide conv took 8% off a float32 RRDB at nf 64 / gc 32
+// (4-5% at gc 16); there one product a k8 step instead of two or three is 34% faster,
+// the weights left unstaged 18-19%, the input left unsplit 2-4%.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,20 +133,33 @@ __host__ __device__ constexpr int smem_bytes() { return STAGES * stage_bytes<COU
 // A and B each as a hi and a lo TF32 plane; as many stages (2 to F32_STAGES) as let
 // F32_BLOCKS blocks share an SM.  A plane of A holds the tile of width 8 MT with its halo.
 constexpr int CK_F32 = 8, F32_BLOCKS = 2, F32_STAGES = 4;
-// Where COUT is at most F32_FUSE, hi x hi and hi x lo run as one product of twice the
-// width (see conv_tile_f32)
+// Whether a float32 dense-block conv of cout outputs runs the wide tile conv
+// (conv_tile_f32w: output channels as wgmma's M, pixels as N) and not the narrow one
+// (conv_tile_f32: pixels as M, the outputs as N): where [W hi; W lo] fills M's 64 rows.
+// The kernel libraries export it (hcflow_rrdb_f32_wide) for the wrappers' counts.
+__host__ __device__ constexpr bool wide_f32(int cout) { return 2 * cout >= 64; }
+// Where COUT is at most F32_FUSE, the narrow conv runs hi x hi and hi x lo as one product
+// of twice the width (see conv_tile_f32)
 constexpr int F32_FUSE = 16;
 template <int COUT>
 __host__ __device__ constexpr bool fuse_f32() { return COUT <= F32_FUSE; }
-// B's rows (16 bytes: 4 input channels of an output) in a stage: [tap][channel group of
-// 4][COUT outputs], b_k_rows apart from one group to the next, each lo row b_lo_rows
-// after its hi row: the lo plane after the hi plane or, where fused, each group's lo rows
-// after its hi rows, so that B hi | B lo is one operand 2 COUT wide
-template <int COUT>
-__host__ __device__ constexpr int b_k_rows() { return fuse_f32<COUT>() ? 2 * COUT : COUT; }
-template <int COUT>
+// Whether each channel group's lo rows of the weights follow its hi rows in a stage: in
+// the narrow conv where fused (B hi | B lo one operand 2 COUT wide), in the wide one at
+// COUT 32 ([W hi; W lo] one A operand of 64 rows)
+template <int COUT, bool WIDE>
+__host__ __device__ constexpr bool interleaved_f32() {
+  return WIDE ? COUT < 64 : fuse_f32<COUT>();
+}
+// The weights' rows (16 bytes: 4 input channels of an output) in a stage: [tap][channel
+// group of 4][COUT outputs], b_k_rows apart from one group to the next, each lo row
+// b_lo_rows after its hi row: the lo plane after the hi plane, or interleaved
+template <int COUT, bool WIDE = false>
+__host__ __device__ constexpr int b_k_rows() {
+  return interleaved_f32<COUT, WIDE>() ? 2 * COUT : COUT;
+}
+template <int COUT, bool WIDE = false>
 __host__ __device__ constexpr int b_lo_rows() {
-  return fuse_f32<COUT>() ? COUT : 9 * CK_F32 / 4 * COUT;
+  return interleaved_f32<COUT, WIDE>() ? COUT : 9 * CK_F32 / 4 * COUT;
 }
 constexpr int SM_SMEM = 233472;     // shared memory of an SM; 1 KB of it reserved a block
 constexpr int BLOCK_SMEM = 232448;  // the most a block may have
@@ -370,6 +398,15 @@ CONV3X3_WGMMA_TF32(64,
                    "%31}",
                    "%32", "%33", "%34", CONV3X3_ACC8(0), CONV3X3_ACC8(8), CONV3X3_ACC8(16),
                    CONV3X3_ACC8(24))
+CONV3X3_WGMMA_TF32(128,
+                   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+                   "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+                   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                   "%61, %62, %63}",
+                   "%64", "%65", "%66", CONV3X3_ACC8(0), CONV3X3_ACC8(8), CONV3X3_ACC8(16),
+                   CONV3X3_ACC8(24), CONV3X3_ACC8(32), CONV3X3_ACC8(40), CONV3X3_ACC8(48),
+                   CONV3X3_ACC8(56))
 #undef CONV3X3_WGMMA_TF32
 #undef CONV3X3_ACC8
 
@@ -550,39 +587,55 @@ __device__ __forceinline__ void conv_tile(Acc<COUT, MT>& acc, unsigned char* sme
 // weights' TF32 planes w (2, 9, cin / 4, COUT, 4) into one float32 ring stage: the input
 // into A's hi plane [channel group of 4][halo pixel][4 channels] (zero outside the
 // image; split_chunk_f32 splits it), the planes as b_k_rows and b_lo_rows lay them out.
-// Every copy is 16 bytes.  (load_input_f32, then load_weights_f32.)
-template <int MT>
+// Every copy is 16 bytes.  (load_input_f32, then load_weights_f32.)  A copy loop that is
+// unrolled lets the compiler keep its addresses in registers from chunk to chunk: LEAN
+// rolls both loops up for a caller that holds much of its own state across the conv (the
+// resident trunk, which spilled up to 380 bytes, and 432 with the wide accumulator; the
+// per-conv kernels ran 4% slower rolled up), WIDE the weights' loop (beside its
+// accumulator, conv_tile_f32w's per-conv kernels spilled).
+template <bool ROLLED, int N, class Fn>
+__device__ __forceinline__ void for_each_thread(Fn fn) {  // fn(i), i < N, a thread's i
+  if constexpr (ROLLED) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < N; i += NTHREADS) fn(i);
+  } else {
+    for (int i = threadIdx.x; i < N; i += NTHREADS) fn(i);
+  }
+}
+
+template <int MT, bool LEAN = false>
 __device__ __forceinline__ void load_input_f32(unsigned char* stage, const float* src, int ctot,
                                                int c0, int H, int W, int x0, int y0, size_t img) {
   constexpr int IW = 8 * MT + 2, NPX = IH * IW, G = CK_F32 / 4;
   const uint32_t s_a = smem_addr(stage);
-  for (int i = threadIdx.x; i < G * NPX; i += NTHREADS) {
+  for_each_thread<LEAN, G * NPX>([&](int i) {
     const int g = i % G, q = i / G;
     const int gy = y0 - 1 + q / IW, gx = x0 - 1 + q % IW;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
     const size_t pix = img + size_t(gy) * W + gx;
     cp_async16(s_a + (g * NPX + q) * 16, in ? src + pix * ctot + c0 + 4 * g : src, in);
-  }
+  });
 }
 
-template <int COUT, int MT>
+template <int COUT, int MT, bool WIDE = false, bool LEAN = false>
 __device__ __forceinline__ void load_weights_f32(unsigned char* stage, int c0, const float* w,
                                                  int cin) {
   constexpr int G = CK_F32 / 4, ROWS = 9 * G * COUT;  // 16-byte rows of a plane a stage
   const uint32_t s_b = smem_addr(stage) + 2 * a_plane_f32<MT>();
-  for (int e = threadIdx.x; e < 2 * ROWS; e += NTHREADS) {
+  for_each_thread<WIDE || LEAN, 2 * ROWS>([&](int e) {
     const int p = e / ROWS, r = e % ROWS, tap = r / (G * COUT), kc = r % (G * COUT);
-    const int row = r / COUT * b_k_rows<COUT>() + p * b_lo_rows<COUT>() + r % COUT;
+    const int row = r / COUT * b_k_rows<COUT, WIDE>() + p * b_lo_rows<COUT, WIDE>() + r % COUT;
     cp_async16(s_b + row * 16, w + (size_t(p * 9 + tap) * cin + c0) * COUT + kc * 4, true);
-  }
+  });
 }
 
-template <int COUT, int MT>
+// WIDE: for conv_tile_f32w, the weights laid out for it
+template <int COUT, int MT, bool WIDE = false, bool LEAN = false>
 __device__ __forceinline__ void load_chunk_f32(unsigned char* stage, const float* src, int ctot,
                                                int c0, const float* w, int cin, int H, int W,
                                                int x0, int y0, size_t img) {
-  load_input_f32<MT>(stage, src, ctot, c0, H, W, x0, y0, img);
-  load_weights_f32<COUT, MT>(stage, c0, w, cin);
+  load_input_f32<MT, LEAN>(stage, src, ctot, c0, H, W, x0, y0, img);
+  load_weights_f32<COUT, MT, WIDE, LEAN>(stage, c0, w, cin);
 }
 
 // The chunk a tile's float32 conv starts at (its number modulo the chunk count; see
@@ -646,7 +699,8 @@ __device__ __forceinline__ void split_chunk_f32(unsigned char* stage) {
 // order), taps, k steps and products run in one fixed order, so every kernel that calls
 // this gives bit-identical sums for the same inputs.  PREFETCHED: the caller has copied
 // the first chunks' weights (prefetch_weights_f32), and the ring stages only their input.
-template <int COUT, int MT, bool PREFETCHED = false>
+// LEAN: the copy loops rolled up (see for_each_thread).
+template <int COUT, int MT, bool PREFETCHED = false, bool LEAN = false>
 __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char* smem,
                                               const float* __restrict__ src, int ctot, int cin,
                                               const float* __restrict__ w, int H, int W, int x0,
@@ -682,9 +736,10 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
   for (int c = 0; c < S - 1; ++c) {
     if (c < nchunks) {
       if constexpr (PREFETCHED)
-        load_input_f32<MT>(smem + c * SB, src, ctot, c0(c), H, W, x0, y0, img);
+        load_input_f32<MT, LEAN>(smem + c * SB, src, ctot, c0(c), H, W, x0, y0, img);
       else
-        load_chunk_f32<COUT, MT>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0, y0, img);
+        load_chunk_f32<COUT, MT, false, LEAN>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0,
+                                              y0, img);
     }
     cp_async_commit();
   }
@@ -723,8 +778,8 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
     // while the products of chunk c run: refill chunk c-1's stage, then split chunk c+1
     const int next = c + S - 1;
     if (next < nchunks)
-      load_chunk_f32<COUT, MT>(smem + next % S * SB, src, ctot, c0(next), w, cin, H, W, x0, y0,
-                               img);
+      load_chunk_f32<COUT, MT, false, LEAN>(smem + next % S * SB, src, ctot, c0(next), w, cin, H,
+                                            W, x0, y0, img);
     cp_async_commit();
     if (c + 1 < nchunks) {
       cp_async_wait<S - 2>();  // this thread's copies of chunk c+1 have landed
@@ -749,15 +804,114 @@ __device__ __forceinline__ void conv_tile_f32(Acc<COUT, MT>& acc, unsigned char*
   }
 }
 
+// The wide float32 tile conv's sums (conv_tile_f32w): warpgroup g's 64 x 64 MT fragment
+// of wgmma, rows the output channels (at COUT 32, rows o and o + 32 hold W hi and W lo
+// times the input; the epilogue adds them) and columns its 64 MT pixels: at MT 2 tile
+// column 8g + n % 8 of row n / 8, at MT 1 column n % 8 of row 8g + n / 8 (stage_accw).
+template <int COUT, int MT>
+struct AccW {
+  float v[32 * MT];
+};
+
+// conv_tile_f32 turned around, for COUT 32 and 64 (wide_f32): the implicit GEMM is COUT x
+// pixels.  A is the weights, K-major as load_weights_f32<COUT, MT, true> stages them (a
+// core matrix is 8 outputs x 4 channels: SBO 128 bytes, LBO the next channel group); B
+// is the input, K-major as staged (a core matrix is 8 pixels of a halo row x 4 channels),
+// N running down the warpgroup's 8-pixel column of the tile, one core matrix a row (SBO
+// the halo row pitch, LBO the next channel plane): N = 128 at MT 2, 64 at MT 1 (the
+// warpgroup's 8 rows).  Each k8 step takes, at COUT 64, W lo x X hi, W hi x X lo and W hi
+// x X hi; at COUT 32, [W hi; W lo] x X lo and [W hi; W lo] x X hi (the four products of
+// a split operand pair in two: the epilogue adds rows o and o + 32).  The ring, the
+// split, the tiles and the chunk order are conv_tile_f32's; chunks, taps, k steps and
+// products run in one fixed order, so every kernel that calls this gives bit-identical
+// sums for the same inputs.  LEAN: the input's copy loop rolled up too (see
+// for_each_thread).
+template <int COUT, int MT, bool LEAN = false>
+__device__ __forceinline__ void conv_tile_f32w(AccW<COUT, MT>& acc, unsigned char* smem,
+                                               const float* __restrict__ src, int ctot, int cin,
+                                               const float* __restrict__ w, int H, int W,
+                                               int x0, int y0, int image) {
+  static_assert((COUT == 32 || COUT == 64) && wide_f32(COUT), "COUT must be 32 or 64");
+  static_assert(MT >= 1 && MT <= MAX_MT, "MT must be 1 or 2");
+  static_assert(CK_F32 % 8 == 0 && smem_bytes_f32<COUT, MT>() <= BLOCK_SMEM, "float32 ring");
+  constexpr int S = stages_f32<COUT, MT>(), SB = stage_bytes_f32<COUT, MT>(), IW = 8 * MT + 2;
+  constexpr int N = 64 * MT;
+  constexpr uint32_t X_PLANE = a_plane_f32<MT>();
+  constexpr uint32_t lbo_x = IH * IW * 16, sbo_x = IW * 16;  // next 4 channels, next halo row
+  constexpr uint32_t lbo_w = b_k_rows<COUT, true>() * 16, sbo_w = 128;  // 4 channels, 8 outputs
+  // The chunk count, hidden from the optimizer (see conv_tile_f32)
+  int nchunks = cin / CK_F32;
+  asm volatile("" : "+r"(nchunks));
+  const int wg = threadIdx.x / 128;
+  const int px0 = MT == 1 ? 8 * wg * IW : 8 * wg;  // the warpgroup's first halo pixel
+  src += size_t(image) * H * W * ctot;  // the tile's image (one pointer live, not two)
+  const int first = first_chunk_f32<MT>(nchunks, H, W, x0, y0, image);
+  auto c0 = [&](int c) { return (c + first) % nchunks * CK_F32; };
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc.v[j] = 0.f;
+
+  __syncthreads();  // the ring's last contents (another tile, an epilogue) are consumed
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nchunks)
+      load_chunk_f32<COUT, MT, true, LEAN>(smem + c * SB, src, ctot, c0(c), w, cin, H, W, x0, y0,
+                                           0);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 2>();  // this thread's copies of chunk 0 have landed
+  split_chunk_f32<MT>(smem);
+  fence_proxy_async();  // its stores and copies, before wgmma reads them
+#pragma unroll 1
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // every thread has split chunk c; each warpgroup waited out chunk c-1
+    const uint32_t s_x = smem_addr(smem + c % S * SB), s_w = s_x + 2 * X_PLANE;
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+      for (int k = 0; k < CK_F32 / 8; ++k) {
+        const uint32_t ow = (tap * CK_F32 / 4 + 2 * k) * lbo_w;
+        const uint32_t ox = (px0 + dy * IW + dx) * 16 + 2 * k * lbo_x;
+        const uint64_t wh = desc(s_w + ow, lbo_w, sbo_w);  // (at COUT 32: [W hi; W lo])
+        const uint64_t xh = desc(s_x + ox, lbo_x, sbo_x);
+        const uint64_t xl = desc(s_x + X_PLANE + ox, lbo_x, sbo_x);
+        if constexpr (COUT == 64) {
+          const uint64_t wl = desc(s_w + ow + b_lo_rows<COUT, true>() * 16, lbo_w, sbo_w);
+          WgmmaTF32<N>::mma(acc.v, wl, xh);
+        }
+        WgmmaTF32<N>::mma(acc.v, wh, xl);
+        WgmmaTF32<N>::mma(acc.v, wh, xh);
+      }
+    }
+    wgmma_commit();
+    // while the products of chunk c run: refill chunk c-1's stage, then split chunk c+1
+    const int next = c + S - 1;
+    if (next < nchunks)
+      load_chunk_f32<COUT, MT, true, LEAN>(smem + next % S * SB, src, ctot, c0(next), w, cin, H,
+                                           W, x0, y0, 0);
+    cp_async_commit();
+    if (c + 1 < nchunks) {
+      cp_async_wait<S - 2>();  // this thread's copies of chunk c+1 have landed
+      split_chunk_f32<MT>(smem + (c + 1) % S * SB);
+      fence_proxy_async();
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) asm volatile("" : "+f"(acc.v[j])::"memory");
+  }
+}
+
 // The tile conv of a dense-block kernel whose buffers and weights hold T: bf16 on
-// wgmma (conv_tile), float32 in 3xTF32 (conv_tile_f32).
-template <int COUT, int MT, class T>
+// wgmma (conv_tile), float32 in 3xTF32 (conv_tile_f32; feature_tile and residual_tile
+// take conv_tile_f32w where wide_f32).  LEAN: see for_each_thread.
+template <bool LEAN, int COUT, int MT, class T>
 __device__ __forceinline__ void conv_dense(Acc<COUT, MT>& acc, unsigned char* smem,
                                            const T* __restrict__ src, int ctot, int cin,
                                            const T* __restrict__ w, int H, int W, int x0, int y0,
                                            int image) {
   if constexpr (std::is_same<T, float>::value)
-    conv_tile_f32(acc, smem, src, ctot, cin, w, H, W, x0, y0, image);
+    conv_tile_f32<COUT, MT, false, LEAN>(acc, smem, src, ctot, cin, w, H, W, x0, y0, image);
   else
     conv_tile(acc, smem, src, ctot, cin, w, H, W, x0, y0, image);
 }
@@ -843,6 +997,130 @@ __device__ __forceinline__ void residual_store(const Acc<COUT, MT>& acc, int cto
                       });
 }
 
+// The wide fragment (AccW) staged in shared memory as s[local * ACCW_LD + row]: local the
+// pixel's index in the tile (row-major, width 8 MT), row the fragment's (0..63).  68
+// floats a pixel: each of a warp's stores falls in 32 banks (lane l of warp q holds rows
+// 16q + l/4 and 16q + l/4 + 8, columns 8i + 2(l%4) + {0, 1}), and a pixel's rows stay
+// 16-byte aligned.
+constexpr int ACCW_LD = 68;
+
+template <int COUT, int MT>
+__device__ __forceinline__ void stage_accw(const AccW<COUT, MT>& acc, float* s) {
+  static_assert(TH * 8 * MT * ACCW_LD * 4 <= smem_bytes_f32<COUT, MT>(),
+                "staging must fit the ring");
+  const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32, wg = threadIdx.x / 128;
+  // column block i of the fragment is tile row i (MT 2) or 8g + i (MT 1)
+  const int px = (MT == 1 ? 64 * wg : 8 * wg) + 2 * (lane % 4), row = 16 * warp + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 8 * MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[(px + 8 * MT * i + j) * ACCW_LD + row + 8 * h] = acc.v[4 * i + 2 * h + j];
+}
+
+// After a barrier that frees the ring: the wide fragment into shared memory, then fn(pix,
+// o, v) for each 4 output channels o .. o+3 of each tile pixel in the image, pix the
+// pixel's index in (B,H,W), v their sums (at COUT 32, rows o and o + 32 added).
+// Consecutive threads take consecutive channels of a pixel: the NHWC stores coalesce.
+template <int COUT, int MT, class Fn>
+__device__ __forceinline__ void for_each_quad(const AccW<COUT, MT>& acc, unsigned char* smem,
+                                              int H, int W, int x0, int y0, int image, Fn fn) {
+  constexpr int Q = COUT / 4, TW = 8 * MT;
+  float* s = reinterpret_cast<float*>(smem);
+  __syncthreads();  // both warpgroups' products are done with the ring
+  stage_accw(acc, s);
+  __syncthreads();
+#pragma unroll 1  // unrolled, its loads and stores made the resident trunk spill more
+  for (int e = threadIdx.x; e < TH * TW * Q; e += NTHREADS) {
+    const int local = e / Q, o = 4 * (e % Q), gy = y0 + local / TW, gx = x0 + local % TW;
+    if (gy >= H || gx >= W) continue;
+    float4 v = *reinterpret_cast<const float4*>(s + local * ACCW_LD + o);
+    if constexpr (COUT == 32) {  // W hi x X + W lo x X
+      const float4 l = *reinterpret_cast<const float4*>(s + local * ACCW_LD + o + 32);
+      v = make_float4(v.x + l.x, v.y + l.y, v.z + l.z, v.w + l.w);
+    }
+    fn((size_t(image) * H + gy) * W + gx, o, v);
+  }
+}
+
+__device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : 0.2f * v; }
+
+// feature_store for the wide fragment (float32 dense buffers), through shared memory
+template <int COUT, int MT>
+__device__ __forceinline__ void feature_store(const AccW<COUT, MT>& acc, unsigned char* smem,
+                                              float* dense, int ctot,
+                                              const float* __restrict__ bias, int out_off, int H,
+                                              int W, int x0, int y0, int image) {
+  for_each_quad(acc, smem, H, W, x0, y0, image, [&](size_t pix, int o, float4 v) {
+    *reinterpret_cast<float4*>(dense + pix * ctot + out_off + o) =
+        make_float4(lrelu(v.x + bias[o]), lrelu(v.y + bias[o + 1]), lrelu(v.z + bias[o + 2]),
+                    lrelu(v.w + bias[o + 3]));
+  });
+}
+
+// residual_store for the wide fragment (float32 dense buffers), through shared memory;
+// each element of xres, xrrdb and xout is read and then written by the same thread
+template <int COUT, int MT>
+__device__ __forceinline__ void residual_store(const AccW<COUT, MT>& acc, unsigned char* smem,
+                                               int ctot, const float* __restrict__ bias,
+                                               const float* xres, float* xout,
+                                               const float* xrrdb, float* next, int H, int W,
+                                               int x0, int y0, int image) {
+  for_each_quad(acc, smem, H, W, x0, y0, image, [&](size_t pix, int o, float4 v) {
+    const size_t e = pix * COUT + o;
+    const float4 r = *reinterpret_cast<const float4*>(xres + e);
+    float4 a = make_float4(fmaf(v.x + bias[o], 0.2f, r.x), fmaf(v.y + bias[o + 1], 0.2f, r.y),
+                           fmaf(v.z + bias[o + 2], 0.2f, r.z), fmaf(v.w + bias[o + 3], 0.2f, r.w));
+    if (xrrdb != nullptr) {
+      const float4 q = *reinterpret_cast<const float4*>(xrrdb + e);
+      a = make_float4(fmaf(a.x, 0.2f, q.x), fmaf(a.y, 0.2f, q.y), fmaf(a.z, 0.2f, q.z),
+                      fmaf(a.w, 0.2f, q.w));
+    }
+    *reinterpret_cast<float4*>(xout + e) = a;
+    if (next != nullptr) *reinterpret_cast<float4*>(next + pix * ctot + o) = a;
+  });
+}
+
+// A dense-block feature conv on one tile (rrdb.cu, rrdb_trunk.cu): dense[..., out_off + o]
+// = T(lrelu_0.2(conv + bias)), the float32 conv wide where wide_f32(COUT); LEAN for the
+// resident trunk (see for_each_thread).
+template <int COUT, int MT, bool LEAN = false, class T>
+__device__ __forceinline__ void feature_tile(unsigned char* smem, T* dense, int ctot, int cin,
+                                             const T* __restrict__ w,
+                                             const float* __restrict__ bias, int out_off, int H,
+                                             int W, int x0, int y0, int image) {
+  if constexpr (std::is_same<T, float>::value && wide_f32(COUT)) {
+    AccW<COUT, MT> acc;
+    conv_tile_f32w<COUT, MT, LEAN>(acc, smem, dense, ctot, cin, w, H, W, x0, y0, image);
+    feature_store(acc, smem, dense, ctot, bias, out_off, H, W, x0, y0, image);
+  } else {
+    Acc<COUT, MT> acc;
+    conv_dense<LEAN>(acc, smem, dense, ctot, cin, w, H, W, x0, y0, image);
+    feature_store(acc, dense, ctot, bias, out_off, H, W, x0, y0, image);
+  }
+}
+
+// A dense block's conv5 on one tile (residual_store's arithmetic), reading all ctot
+// channels of dense; the float32 conv wide where wide_f32(COUT), LEAN as feature_tile's.
+template <int COUT, int MT, bool LEAN = false, class T>
+__device__ __forceinline__ void residual_tile(unsigned char* smem, const T* dense, int ctot,
+                                              const T* __restrict__ w,
+                                              const float* __restrict__ bias, const float* xres,
+                                              float* xout, const float* xrrdb, T* next, int H,
+                                              int W, int x0, int y0, int image) {
+  if constexpr (std::is_same<T, float>::value && wide_f32(COUT)) {
+    AccW<COUT, MT> acc;
+    conv_tile_f32w<COUT, MT, LEAN>(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, image);
+    residual_store(acc, smem, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, image);
+  } else {
+    Acc<COUT, MT> acc;
+    conv_dense<LEAN>(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, image);
+    residual_store(acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, image);
+  }
+}
+
 // Allow Kernel the dynamic shared memory it launches with (above 48 KB), once per
 // card: the attribute then holds for the process.
 template <auto Kernel>
@@ -874,9 +1152,7 @@ feature_kernel(T* __restrict__ dense, int ctot, int cin, const T* __restrict__ w
                const float* __restrict__ bias, int out_off, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * TH;
-  Acc<COUT, MT> acc;
-  conv_dense(acc, smem, dense, ctot, cin, w, H, W, x0, y0, blockIdx.z);
-  feature_store(acc, dense, ctot, bias, out_off, H, W, x0, y0, blockIdx.z);
+  feature_tile<COUT, MT>(smem, dense, ctot, cin, w, bias, out_off, H, W, x0, y0, blockIdx.z);
 }
 
 template <int COUT, class T>

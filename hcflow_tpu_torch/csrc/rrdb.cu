@@ -24,11 +24,18 @@
 //
 // The float32 recipe (hcflow_rrdb_apply_f32; the JAX kernel runs it at
 // Precision.HIGHEST) keeps the same launches with float32 dense buffers and features
-// (no rounding), the products of conv3x3.cuh's conv_tile_f32: 3xTF32 on wgmma, each
-// operand split once (the weights at pack time), an error of float32's order.  Bound:
-// operations, at the float32 rates: 2.58 TFLOP an x4 pass is 38.5 ms at the 67 TFLOP/s
-// of float32 outside the tensor cores and 15.6 ms at the 165 TFLOP/s that three TF32
-// products a product leave of the 495 TF32 peak.
+// (no rounding), the products of conv3x3.cuh's float32 tile convs: TF32 on wgmma, each
+// operand split once (the weights at pack time), an error of float32's order.  Every
+// conv of 32 or 64 outputs (the gc-32 feature convs, every conv5 at nf 32 and 64) runs
+// the wide one, output channels x pixels (conv_tile_f32w); the gc-16 feature convs the
+// narrow one, pixels x output channels (conv_tile_f32), where [W hi; W lo] would fill
+// half of wgmma's 64 rows; hcflow_rrdb_f32_wide exports that rule.  Bound: operations,
+// at the float32 rates: 2.58 TFLOP an x4 pass is 38.5 ms at the 67 TFLOP/s of float32
+// outside the tensor cores, and 18.5 ms at the 140 TFLOP/s that the TF32 products leave
+// of the 495 TF32 peak (three a product at COUT 64 and 16, four at COUT 32: 3.54 on
+// average at nf 64 / gc 32, so a roofline share of the work at 495 TFLOP/s is ~28% at
+// most).  Measured: the wide conv took 8% off an RRDB there; what is left is set about a
+// third by the products and a sixth by the weights' copies (PERF.md).
 
 #include "conv3x3.cuh"
 
@@ -46,9 +53,8 @@ residual_kernel(const T* __restrict__ dense, int ctot, const T* __restrict__ w,
                 const float* xrrdb, T* __restrict__ next, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x0 = blockIdx.x * 8 * MT, y0 = blockIdx.y * conv3x3::TH;
-  conv3x3::Acc<COUT, MT> acc;
-  conv3x3::conv_dense(acc, smem, dense, ctot, ctot, w, H, W, x0, y0, blockIdx.z);
-  conv3x3::residual_store(acc, ctot, bias, xres, xout, xrrdb, next, H, W, x0, y0, blockIdx.z);
+  conv3x3::residual_tile<COUT, MT>(smem, dense, ctot, w, bias, xres, xout, xrrdb, next, H, W, x0,
+                                   y0, blockIdx.z);
 }
 
 template <int COUT, class T>
@@ -135,5 +141,10 @@ int hcflow_rrdb_apply_f32(const float* x, float* out, float* dense0, float* dens
                           int nf, int gc, cudaStream_t stream) {
   return rrdb_apply(x, out, dense0, dense1, w, bias, B, H, W, nf, gc, stream);
 }
+
+// 1 where the float32 recipe's conv of cout outputs runs the wide tile conv (output
+// channels x pixels), 0 where the narrow one (pixels x output channels): the rule the
+// kernels dispatch on (conv3x3::wide_f32), for the wrapper's counts.
+int hcflow_rrdb_f32_wide(int cout) { return conv3x3::wide_f32(cout); }
 
 }  // extern "C"

@@ -18,10 +18,11 @@
 // conv stage (conv3x3.cuh's wgmma tile conv with its cp.async ring and its
 // epilogues, with the same tiles as rrdb.cu), then waiting at a grid-wide barrier
 // before the next stage: one stage converts the input to bf16, then 15 per RRDB.
-// At 2 blocks/SM (86.4 KB of shared memory and 128 registers each) ptxas spills
-// 40-332 bytes here, which the per-conv kernels do not (332 at nf 64, gc 32 on
-// 16-wide tiles, which leaves it 12% behind the per-RRDB kernel at 80x80; 8-wide
-// tiles there spill 104 bytes and took 30% longer, PERF.md, PR 4).  The
+// At 2 blocks/SM (up to 99.3 KB of shared memory and 128 registers each) the trunk holds
+// its own loop state across every conv, which the per-conv kernels do not: ptxas spills
+// 24-376 bytes in the bf16 recipe; the float32 convs roll their copy loops up (LEAN),
+// which left 0-216 bytes (0 at nf 64, gc 32; unrolled, up to 380 bytes; PERF.md).
+// 8-wide tiles at 80x80 took 30% longer in bf16 (PERF.md).  The
 // state stays in device memory, allocated once per call: the float32 carry, the
 // float32 RRDB base (the output buffer: each RRDB's third conv5 writes 0.2 x + base
 // there, the next RRDB's input) and two bf16 dense buffers; each RRDB's last conv5
@@ -34,9 +35,9 @@
 // scatter-by-source layout and its bf16 RRDB base (_FIT16), VMEM workarounds.
 //
 // The float32 recipe (hcflow_rrdb_trunk_apply_f32) is the same kernel on float32 dense
-// buffers and the weights' TF32 planes, its convs conv3x3.cuh's conv_tile_f32
-// (bit-identical to the float32 per-RRDB kernel, as the bf16 one is to its own), 2
-// blocks/SM.
+// buffers and the weights' TF32 planes, its convs conv3x3.cuh's float32 tile convs (wide
+// at 32 and 64 outputs, narrow at 16, as rrdb.cu's), bit-identical to the float32
+// per-RRDB kernel as the bf16 one is to its own, 2 blocks/SM.
 //
 // Layouts: x, out, carry (B,H,W,nf) float32; dense0, dense1 (B,H,W,nf+4gc) bf16
 // (float32); w[i] (3nb, 9, nf+i*gc, cout_i) bf16 [block][tap][ci][co] (float32: the TF32
@@ -95,9 +96,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a
       const float* bias = a.b[i] + size_t(j) * GC;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
-        conv3x3::Acc<GC, MT> acc;
-        conv3x3::conv_dense(acc, smem, d, CTOT, cin, w, H, W, x0, y0, image);
-        conv3x3::feature_store(acc, d, CTOT, bias, cin, H, W, x0, y0, image);
+        conv3x3::feature_tile<GC, MT, true>(smem, d, CTOT, cin, w, bias, cin, H, W, x0, y0, image);
       }
     }
     grid.sync();
@@ -114,9 +113,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_kernel(const TrunkArgs<T> a
     const float* bias = a.b[4] + size_t(j) * NF;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int x0 = t % tx * TW, y0 = t / tx % ty * TH, image = t / (tx * ty);
-      conv3x3::Acc<NF, MT> acc;
-      conv3x3::conv_dense(acc, smem, d, CTOT, CTOT, w, H, W, x0, y0, image);
-      conv3x3::residual_store(acc, CTOT, bias, xres, xout, xrrdb, next, H, W, x0, y0, image);
+      conv3x3::residual_tile<NF, MT, true>(smem, d, CTOT, w, bias, xres, xout, xrrdb, next, H, W,
+                                           x0, y0, image);
     }
   }
 }
@@ -204,5 +202,9 @@ int hcflow_rrdb_trunk_apply_f32(const float* x, float* out, float* carry, float*
                                 cudaStream_t stream) {
   return trunk_apply(x, out, carry, dense0, dense1, w, b, B, H, W, nf, gc, nb, stream);
 }
+
+// conv3x3::wide_f32, as rrdb.cu exports it: 1 where the float32 recipe's conv of cout
+// outputs runs the wide tile conv, 0 where the narrow one.
+int hcflow_rrdb_f32_wide(int cout) { return conv3x3::wide_f32(cout); }
 
 }  // extern "C"

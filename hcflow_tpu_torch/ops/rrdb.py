@@ -32,9 +32,12 @@ and no conversion pass runs between RRDBs; its output is bit-identical to the
 per-RRDB kernel's.
 
 The float32 recipe runs the same launches on float32 dense buffers, every product in
-3xTF32 (``csrc/conv3x3.cuh``'s ``conv_tile_f32``: each operand split into two TF32
-values, three ``wgmma`` TF32 products, an error of float32's order; no single-pass
-TF32).  The weights are split once, at pack time: a float32 pack holds the float32
+TF32 on ``wgmma`` with each operand split into two TF32 values (three or four TF32
+products a product, an error of float32's order; no single-pass TF32).  A conv of 32 or
+64 outputs runs ``csrc/conv3x3.cuh``'s wide tile conv (``conv_tile_f32w``: output
+channels x pixels), one of 16 the narrow one (``conv_tile_f32``: pixels x output
+channels); :data:`conv_paths_by` counts both, by the rule the library exports
+(:func:`conv_paths`).  The weights are split once, at pack time: a float32 pack holds the float32
 weights K-major, ``(9, cout, cin)`` ``[tap][co][ci]`` (``nets.pack_taps``, which the
 plain version reads; ``nets.taps`` gives either pack's weight as ``(9, cin, cout)``),
 and their hi and lo TF32 planes (``nets.pack_tf32``), which the kernels read; the
@@ -67,6 +70,9 @@ launches_by = {}
 LAUNCHES_PER_RRDB = 16  # the input staged into the dense buffer, then 15 convs
 # cooperative launches of the resident-trunk kernel (1 per trunk), by recipe
 trunk_launches_by = {}
+# float32 convs run by both kernels, by the orientation of their tile conv's implicit
+# GEMM: "f32.wide" (output channels x pixels), "f32.narrow" (pixels x output channels)
+conv_paths_by = {}
 WIDTHS = (16, 32, 64)  # the nf and gc both kernels take
 
 # the C entry points by the packed weights' dtype: the bf16 and the float32 recipe
@@ -169,6 +175,23 @@ def rrdb_apply_plain(packed: dict, x: torch.Tensor) -> torch.Tensor:
     return x * 0.2 + x_in
 
 
+def conv_paths(lib, nf: int, gc: int) -> dict:
+    """The float32 convs of one RRDB (nf, gc) by orientation, by the rule the kernel
+    library ``lib`` exports (``hcflow_rrdb_f32_wide``): 12 convs of gc outputs, 3 of nf."""
+    wide = lib.hcflow_rrdb_f32_wide
+    wide.argtypes, wide.restype = [ctypes.c_int], ctypes.c_int
+    paths = {"f32.wide": 0, "f32.narrow": 0}
+    for cout, n in ((gc, 12), (nf, 3)):
+        paths["f32.wide" if wide(cout) else "f32.narrow"] += n
+    return paths
+
+
+def _count_paths(lib, nf: int, gc: int, rrdbs: int) -> None:
+    """Add ``rrdbs`` float32 RRDBs' convs (nf, gc) to :data:`conv_paths_by`."""
+    for key, n in conv_paths(lib, nf, gc).items():
+        conv_paths_by[key] = conv_paths_by.get(key, 0) + rrdbs * n
+
+
 def _check_tf32(packed: dict, kernel: str, lead: tuple) -> list:
     """The TF32 planes of a float32 pack (``nets.pack_tf32``, rows ``lead`` stacked in
     front), which the float32 kernel reads in place of the float32 weights; raises a
@@ -230,6 +253,8 @@ def rrdb_apply(packed: dict, x: torch.Tensor) -> torch.Tensor:
     _build.check(lib, fn, err)
     key = _RECIPE[wd]
     launches_by[key] = launches_by.get(key, 0) + LAUNCHES_PER_RRDB
+    if wd == torch.float32:
+        _count_paths(lib, nf, gc, 1)
     return out
 
 
@@ -292,6 +317,8 @@ def trunk_apply_resident(packed: dict, x: torch.Tensor) -> torch.Tensor:
     _build.check(lib, fn, err)
     key = _RECIPE[wd]
     trunk_launches_by[key] = trunk_launches_by.get(key, 0) + 1
+    if wd == torch.float32:
+        _count_paths(lib, nf, gc, nb)
     return out
 
 

@@ -197,9 +197,12 @@ def test_chain_kernel_widths_and_recipes(gen, cd, hid, cond, c, K, H, W):
 # The float32 recipe's RRDB, resident-trunk and chain3s kernels (3xTF32 products on
 # tensor cores) against their plain versions (float32, TF32 off): an error of float32's
 # order, ~2^-21 relative a product, summed over the 15 convs of an RRDB: 1e-5 of the
-# output's largest magnitude, as the float32 chain kernel.  Odd widths, gc 16 and nf 32.
-@pytest.mark.parametrize("nf,gc", WIDTHS)
-@pytest.mark.parametrize("B,H,W", SHAPES)
+# output's largest magnitude, as the float32 chain kernel.  Odd widths, gc 16 and nf 32;
+# every instance of the wide tile conv (output channels x pixels: the gc-32 feature convs,
+# conv5 at nf 32 and 64) beside the narrow gc-16 convs, on 8- and 16-wide tiles and at
+# the benchmark's own LR, 339 x 510.
+@pytest.mark.parametrize("nf,gc", WIDTHS + [(32, 32)])
+@pytest.mark.parametrize("B,H,W", SHAPES + [(1, 339, 510)])
 def test_rrdb_kernel_f32_matches_plain(gen, B, H, W, nf, gc):
     trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(1), 1, nf, gc), gen)
     packed = rrdb.pack_rrdb(trunk[0])
@@ -229,6 +232,26 @@ def test_rrdb_trunk_kernel_f32_equals_per_rrdb_kernel(gen, B, H, W, nf, gc):
     assert torch.equal(got, rrdb.trunk_apply(rrdb.pack_rrdb_trunk(trunk, None), x))
     ref = rrdb.trunk_apply_resident_plain(res, x)
     assert (got - ref).abs().max().item() <= F32_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("nf,gc,wide,narrow", [(64, 32, 15, 0), (64, 16, 3, 12)])
+def test_rrdb_conv_paths_counted(gen, nf, gc, wide, narrow):
+    """rrdb.conv_paths_by: a gc-32 RRDB runs its 15 convs wide, a gc-16 one its 12
+    feature convs narrow and its 3 conv5 wide; a resident trunk of nb 2 twice that."""
+    trunk = _perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(3), 2, nf, gc), gen)
+    x = torch.randn(1, 8, 16, nf, device="cuda", generator=gen)
+
+    def counts():
+        return (rrdb.conv_paths_by.get("f32.wide", 0), rrdb.conv_paths_by.get("f32.narrow", 0))
+
+    before = counts()
+    rrdb.rrdb_apply(rrdb.pack_rrdb(trunk[0]), x)
+    assert counts() == (before[0] + wide, before[1] + narrow)
+    rrdb.trunk_apply(rrdb.pack_rrdb_trunk(trunk, None, resident=True), x)
+    assert counts() == (before[0] + 3 * wide, before[1] + 3 * narrow)
+    rrdb.rrdb_apply(rrdb.pack_rrdb(trunk[0], "bfloat16"), x)  # bf16: no float32 conv
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 3 * wide, before[1] + 3 * narrow)
 
 
 # conv5 of width 16 (c 6, and the odd steps), 32 (c 12), 48 (c 24) and 64 (c 35), on 8-

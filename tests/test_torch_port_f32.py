@@ -356,3 +356,94 @@ def test_float32_packs_without_tf32_planes_fail_the_kernel_checks():
     del packed["blob_w"]
     with pytest.raises(ValueError, match="weight and bias blobs"):
         chain3s.check_pack(packed)
+
+
+@pytest.mark.parametrize("M,cin", [(256, 64), (256, 192), (160, 64)])
+def test_wide_cout32_product_from_the_planes_matches_float64(M, cin):
+    """The wide float32 tile conv at 32 outputs (csrc/conv3x3.cuh ``conv_tile_f32w``):
+    [W hi; W lo] times X lo, then times X hi, one 64-row product each, and the epilogue
+    adds rows o and o + 32, so all four TF32 products of a split pair are summed, lo x lo
+    too: within product_3xtf32's float64 bound."""
+    N = 32
+    a = torch.from_numpy(randn(3, (M, 9 * cin)))
+    w = torch.from_numpy((randn(4, (N, cin, 3, 3)) / np.sqrt(9 * cin)).astype(np.float32))
+    b = w.permute(2, 3, 1, 0).reshape(9 * cin, N)
+    bh, bl = (p.permute(0, 1, 3, 2).reshape(9 * cin, N) for p in nets.pack_tf32(w))
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    got = (al @ bh + ah @ bh) + (al @ bl + ah @ bl)
+    ref = a.double() @ b.double()
+    assert (got.double() - ref).abs().max().item() <= 2e-6 * ref.abs().max().item()
+
+
+# ------------------------------------ the float32 tile conv's orientation, counted
+def _stub_library(calls):
+    """A kernel library where the card is absent: its RRDB entry points record their
+    arguments and return 0; ``hcflow_rrdb_f32_wide`` the rule of csrc/conv3x3.cuh
+    ``wide_f32`` (wide where [W hi; W lo] fills wgmma's 64 rows)."""
+    import types
+
+    def wide(cout):
+        return int(2 * cout >= 64)
+
+    return types.SimpleNamespace(
+        hcflow_rrdb_f32_wide=wide,
+        hcflow_rrdb_apply=lambda *args: calls.append(args) or 0,
+        hcflow_rrdb_apply_f32=lambda *args: calls.append(args) or 0,
+        hcflow_rrdb_trunk_apply_f32=lambda *args: calls.append(args) or 0)
+
+
+@pytest.mark.parametrize("nf,gc,wide,narrow", [(64, 32, 15, 0), (64, 16, 3, 12), (32, 32, 15, 0),
+                                               (32, 16, 3, 12), (16, 16, 0, 15), (16, 32, 12, 3)])
+def test_rrdb_conv_paths_follow_the_library_rule(nf, gc, wide, narrow):
+    """rrdb.conv_paths: an RRDB's 12 feature convs (gc outputs) and 3 conv5 (nf outputs)
+    by the orientation the library's rule gives their width."""
+    got = rrdb.conv_paths(_stub_library([]), nf, gc)
+    assert got == {"f32.wide": wide, "f32.narrow": narrow}
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, to reach a wrapper's kernel branch
+    with a stub library."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_rrdb_wrappers_count_conv_paths(monkeypatch):
+    """The float32 wrappers add their convs to rrdb.conv_paths_by after each launch: a
+    gc-16 RRDB 3 wide and 12 narrow, a resident trunk of nb 2 at gc 32 30 wide; the plain
+    path on the CPU and a bf16 launch count nothing."""
+    import types
+
+    calls = []
+    lib = _stub_library(calls)
+    monkeypatch.setattr(rrdb._build, "load", lambda name, fn, argtypes: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for name in ("launches_by", "trunk_launches_by", "conv_paths_by"):
+        monkeypatch.setattr(rrdb, name, {})
+
+    def card(tree):
+        if isinstance(tree, dict):
+            return {k: card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [card(v) for v in tree]
+        return tree.as_subclass(_OnCard)
+
+    x = torch.from_numpy(randn(5, (1, 8, 16, 64)))
+    narrow = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(2), 1, 64, 16))
+    wide = perturb(nets.init_rrdb_trunk(torch.Generator().manual_seed(3), 2, 64, 32))
+    with torch.no_grad():
+        rrdb.rrdb_apply(rrdb.pack_rrdb(narrow[0]), x)  # the plain path
+        assert rrdb.conv_paths_by == {} and not calls
+        rrdb.rrdb_apply(card(rrdb.pack_rrdb(narrow[0])), x.as_subclass(_OnCard))
+        assert rrdb.conv_paths_by == {"f32.wide": 3, "f32.narrow": 12}
+        rrdb.trunk_apply_resident(card(rrdb.pack_rrdb_trunk(wide, resident=True)),
+                                  x.as_subclass(_OnCard))
+        assert rrdb.conv_paths_by == {"f32.wide": 33, "f32.narrow": 12}
+        rrdb.rrdb_apply(card(rrdb.pack_rrdb(narrow[0], "bfloat16")), x.as_subclass(_OnCard))
+    assert len(calls) == 3  # a bf16 RRDB runs no float32 conv
+    assert rrdb.conv_paths_by == {"f32.wide": 33, "f32.narrow": 12}
+    assert rrdb.launches_by == {"f32": 16, "bf16": 16} and rrdb.trunk_launches_by == {"f32": 1}
