@@ -1,14 +1,15 @@
 """The entries a request drives, on the program's side and on the reference's.
 
 ``reverse`` (LR -> HR: SR sampling, or the rescaling upscale from stored 8-bit codes):
-the request's uint8 LR goes to the card, becomes [0, 1] floats and runs the model's
-``reverse`` with the request's latents; the HR goes back to pinned host memory on a
-copy stream, so that with two requests in flight the next one's work overlaps the read
-back.  ``forward`` (the rescaling downscale, an image store taking a photo in): the
-uint8 HR goes to the card, runs the model's ``forward`` and ``quantize``; its 8-bit LR
-codes go to host memory, its latents stay on the card.  ``tiled_reverse``: the
-predictor's whole-image path (``cli/tiled.py`` ``tiled_reverse`` as
-``Predictor.predict`` calls it), synchronous, each batch of tiles with its own latents.
+the request's B uint8 LR images (the mix's ``batch``) go to the card in one copy, become
+[0, 1] floats and run the model's ``reverse`` as one batch with the request's latents;
+the B HR images go back to pinned host memory on a copy stream, so that with two
+requests in flight the next one's work overlaps the read back.  ``forward`` (the
+rescaling downscale, an image store taking a photo in): the uint8 HR goes to the card,
+runs the model's ``forward`` and ``quantize``; its 8-bit LR codes go to host memory, its
+latents stay on the card.  ``tiled_reverse``: the predictor's whole-image path
+(``cli/tiled.py`` ``tiled_reverse`` as ``Predictor.predict`` calls it), synchronous, each
+batch of tiles with its own latents.
 
 A request is done when its output is in host memory.  :meth:`check` runs the reference
 on a done request's inputs and returns what is compared.
@@ -77,8 +78,13 @@ class Client:
         h.out, h._dev = buf, t  # the device tensor lives until its copy is done
 
     def _input(self, r):
-        x = self.inputs[r % len(self.inputs)].to(self.device, non_blocking=True)
-        return (x.float() / 255.0)[None]
+        ids = self.t.image_ids(r, len(self.inputs))
+        if ids == list(range(ids[0], ids[0] + len(ids))):  # a slice of the pinned pool
+            x = self.inputs[ids[0]: ids[0] + len(ids)]
+        else:
+            x = self.inputs[ids]
+        x = x.to(self.device, non_blocking=True)
+        return x.float() / 255.0
 
     # ------------------------------------------------------------------ requests
     def issue(self, r: int) -> Handle:
@@ -91,11 +97,11 @@ class Client:
                 return h
             x = self._input(r)
             if entry == "reverse":
-                eps = self.t.eps(r)
+                eps = self.t.eps(r, 0, x.shape[0])
                 self._count(x.shape[0], x.shape[1] * self.t.scale, x.shape[2] * self.t.scale)
                 with self.span("bench.entry"):
                     hr = self.model.reverse(self.params, x, self.t.heat, eps_list=eps)
-                self._to_host(h, hr[0])
+                self._to_host(h, hr)
             elif entry == "forward":
                 self._count(*x.shape[:3])
                 with self.span("bench.entry"):
@@ -149,17 +155,17 @@ def _nchw(t):
 
 
 def check(traffic, pool, ref, h: Handle, device) -> dict:
-    """The reference on request h's inputs, against what the program returned: for an
-    HR, the absolute differences (``diff``); for codes and latents, the codes and the
-    latents' differences.  ``pool``: the inputs the program was given.  Runs once the
+    """The reference on request h's inputs, against what the program returned: for the
+    HR images, the absolute differences (``hr``); for codes and latents, the codes and
+    the latents' differences.  ``pool``: the inputs the program was given.  Runs once the
     program's state is freed."""
     dev = torch.device(device)
     entry, r = traffic.entry, h.r
     img = pool[r % len(pool)]
-    if entry == "reverse":
-        x = _nchw(img.to(dev).float()[None] / 255.0)
-        hr = ref.reverse(x, [_nchw(e) for e in traffic.eps(r)])
-        got = torch.as_tensor(h.out).to(dev).permute(2, 0, 1)[None]
+    if entry == "reverse":  # the request's B images and latents, as the program had them
+        x = _nchw(pool[traffic.image_ids(r, len(pool))].to(dev).float() / 255.0)
+        hr = ref.reverse(x, [_nchw(e) for e in traffic.eps(r, 0, traffic.batch)])
+        got = _nchw(torch.as_tensor(h.out).to(dev))
         return {"hr": (got - hr).abs()}
     if entry == "tiled_reverse":
         p = traffic.p

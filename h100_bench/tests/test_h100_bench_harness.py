@@ -39,7 +39,7 @@ def _tiny(config: dict) -> dict:
     cfg = copy.deepcopy(config)
     fd = cfg["network_G"]["flowDownsampler"]
     fd.update(K=4, hidden_channels=8)
-    fd["splitOff"].update(after_flowstep=[2, 2], hidden_channels=8, RRDB_nf=8, RRDB_gc=8,
+    fd["splitOff"].update(after_flowstep=[2] * fd["L"], hidden_channels=8, RRDB_nf=8, RRDB_gc=8,
                           RRDB_nb=[1, 2] if "SR" in cfg["model"] else [2, 1])
     return cfg
 
@@ -52,6 +52,9 @@ TINY_TRAFFIC = {
     "tiles": {"entry": "tiled_reverse", "lr_hw": [19, 30], "tile": 12, "overlap": 2,
               "tile_batch": 4, "in_flight": 1, "heat": 0.9, "pool": 2, "sample": 2},
     "ingest": {"entry": "forward", "hr_hw": [36, 56], "in_flight": 2, "pool": 3, "sample": 2},
+    # 3 images a request from a pool of 5: request 1 takes images 3, 4 and 0
+    "faces": {"entry": "reverse", "lr_hw": [5, 6], "batch": 3, "in_flight": 2, "heat": 0.8,
+              "pool": 5, "sample": 2},
 }
 
 
@@ -201,14 +204,47 @@ def test_work_functions_match_hand_counts():
     assert tf == 7 * rf and tb == 7 * rb - 6 * 2 * 50 * 64 * 4
 
 
-def test_model_flops_of_the_x4_pass():
-    """The whole x4 SR pass: about 7 TFLOP a HR megapixel, 87% of it in the trunks."""
-    cfg = json.loads((BENCH / "configs" / "sr_x4_f32.json").read_text())
+# Multiply-adds a pixel of each level, by hand: conv_first 9 x cin x 64 (cin the level's
+# retained channels and 128 for each deeper level's cond), nb RRDBs of three blocks of
+# 239,616, trunk_conv1 9 x 64 x 64, the prior head 9 x 128 x 2a, 13 conditional steps
+# 9 x (a1 + 128) x 64 + 64 x 64 + 9 x 64 x 2(a - a1) + a x a, 13 main steps
+# 9 x c/2 x 64 + 64 x 64 + 9 x 64 x c + c x c.
+X4_MACS = [  # (c, retained, a) = (12, 6, 6), (24, 3, 21); 14 RRDBs
+    9 * 134 * 64 + 14 * 3 * 239_616 + 36_864 + 9 * 128 * 12
+    + 13 * (9 * 131 * 64 + 4_096 + 9 * 64 * 6 + 36)
+    + 13 * (9 * 6 * 64 + 4_096 + 9 * 64 * 12 + 144),
+    9 * 3 * 64 + 14 * 3 * 239_616 + 36_864 + 9 * 128 * 42
+    + 13 * (9 * 138 * 64 + 4_096 + 9 * 64 * 22 + 441)
+    + 13 * (9 * 12 * 64 + 4_096 + 9 * 64 * 24 + 576),
+]
+X8_MACS = [  # (12, 6, 6), (24, 12, 12), (48, 3, 45); 10 RRDBs; conv_first 262, 140, 3 wide
+    9 * 262 * 64 + 10 * 3 * 239_616 + 36_864 + 9 * 128 * 12
+    + 13 * (9 * 131 * 64 + 4_096 + 9 * 64 * 6 + 36)
+    + 13 * (9 * 6 * 64 + 4_096 + 9 * 64 * 12 + 144),
+    9 * 140 * 64 + 10 * 3 * 239_616 + 36_864 + 9 * 128 * 24
+    + 13 * (9 * 134 * 64 + 4_096 + 9 * 64 * 12 + 144)
+    + 13 * (9 * 12 * 64 + 4_096 + 9 * 64 * 24 + 576),
+    9 * 3 * 64 + 10 * 3 * 239_616 + 36_864 + 9 * 128 * 90
+    + 13 * (9 * 150 * 64 + 4_096 + 9 * 64 * 46 + 2_025)
+    + 13 * (9 * 24 * 64 + 4_096 + 9 * 64 * 48 + 2_304),
+]
+
+
+@pytest.mark.parametrize("config, macs, hr, B, tflop, trunk_share", [
+    ("sr_x4_f32", X4_MACS, 1000, 1, (6.5, 7.5), (0.85, 0.92)),  # ~7 TFLOP a HR MP
+    ("sr_x8_f32", X8_MACS, 160, 16, (2.34, 2.35), (0.82, 0.83)),  # a faces request
+])
+def test_model_flops_of_the_sr_passes(config, macs, hr, B, tflop, trunk_share):
+    """The whole SR pass, counted by hand a level; most of it in the trunks."""
+    cfg = json.loads((BENCH / "configs" / f"{config}.json").read_text())
     top = Topology(cfg["network_G"], True)
-    total = work.model_flops(top, 1, 1000, 1000)
-    trunks = sum(work.trunk_work(1, 1000 >> (i + 1), 1000 >> (i + 1), 64, 32, 14)[0]
-                 for i in range(2))
-    assert 6.5e12 < total < 7.5e12 and 0.85 < trunks / total < 0.92
+    assert [work.level_macs(top, i) for i in range(top.L)] == macs
+    total = work.model_flops(top, B, hr, hr)
+    assert total == sum(2 * m * B * (hr >> (i + 1)) ** 2 for i, m in enumerate(macs))
+    trunks = sum(work.trunk_work(B, hr >> (i + 1), hr >> (i + 1), 64, 32, sum(top.nb))[0]
+                 for i in range(top.L))
+    assert tflop[0] < total / 1e12 < tflop[1]
+    assert trunk_share[0] < trunks / total < trunk_share[1]
 
 
 # -------------------------------------------------------------------- reference
@@ -223,14 +259,16 @@ def _port_and_ref(cfg, sr, seed=5):
     return model, params, HCFlowReference(sd, cfg["network_G"], sr, "cpu"), top
 
 
-@pytest.mark.parametrize("config", ["sr_x4_f32", "rescaling_x4_f32"])
-def test_reference_agrees_with_the_port_on_the_cpu(config):
+@pytest.mark.parametrize("config, B", [("sr_x4_f32", 2), ("rescaling_x4_f32", 2),
+                                       ("sr_x8_f32", 3)])
+def test_reference_agrees_with_the_port_on_the_cpu(config, B):
     cfg = _tiny(json.loads((BENCH / "configs" / f"{config}.json").read_text()))
     sr = config.startswith("sr")
     model, params, ref, top = _port_and_ref(cfg, sr)
-    t = Traffic({"entry": "reverse", "lr_hw": [10, 12], "heat": 0.8}, top, 4, 3, "cpu")
-    lr = torch.rand(2, 10, 12, 3, generator=torch.Generator().manual_seed(0))
-    eps = t.eps(0, 0, 2)
+    t = Traffic({"entry": "reverse", "lr_hw": [10, 12], "heat": 0.8}, top, cfg["scale"], 3,
+                "cpu")
+    lr = torch.rand(B, 10, 12, 3, generator=torch.Generator().manual_seed(0))
+    eps = t.eps(0, 0, B)
     with torch.no_grad():
         hr = model.reverse(params, lr, 0.8, eps_list=eps)
     want = ref.reverse(lr.permute(0, 3, 1, 2), [e.permute(0, 3, 1, 2) for e in eps])
@@ -278,22 +316,27 @@ def test_the_bf16_control_comes_out_not_correct(root):
     assert not _run(root, "rescaling_x4_f32.ingest", program="port_bf16")["correct"]
 
 
-def _alter_one(t: torch.Tensor, by: float) -> torch.Tensor:
-    t = t.clone()
-    v = t.reshape(-1)  # the first value: a tiled image keeps its first tile's corner
+def _alter_one(t: torch.Tensor, by: float, image: int = 0) -> torch.Tensor:
+    t = t.clone(memory_format=torch.contiguous_format)
+    v = t[image].view(-1)  # its first value: a tiled image keeps its first tile's corner
     v[0] += by if v[0] < 0.5 else -by
     return t
 
 
-@pytest.mark.parametrize("name", ["sr_x4_f32.photos", "rescaling_x4_f32.view",
-                                  "sr_x4_f32.tiles"])
-def test_an_answer_altered_where_produced_is_not_correct(root, name, monkeypatch):
+@pytest.mark.parametrize("name, image", [
+    pytest.param("sr_x4_f32.photos", 0, id="sr_x4_f32.photos"),
+    pytest.param("rescaling_x4_f32.view", 0, id="rescaling_x4_f32.view"),
+    pytest.param("sr_x4_f32.tiles", 0, id="sr_x4_f32.tiles"),
+    pytest.param("sr_x8_f32.faces", 0, id="sr_x8_f32.faces"),
+    pytest.param("sr_x8_f32.faces", -1, id="sr_x8_f32.faces-last_image_of_a_batch"),
+])
+def test_an_answer_altered_where_produced_is_not_correct(root, name, image, monkeypatch):
     from hcflow_tpu_torch.models import HCFlowRescalingSpec, HCFlowSRSpec
 
     cls = HCFlowSRSpec if name.startswith("sr") else HCFlowRescalingSpec
     orig = cls.reverse
     monkeypatch.setattr(cls, "reverse",
-                        lambda self, *a, **k: _alter_one(orig(self, *a, **k), 2.0 / 255))
+                        lambda self, *a, **k: _alter_one(orig(self, *a, **k), 2.0 / 255, image))
     assert not _run(root, name)["correct"]
 
 
@@ -328,6 +371,50 @@ def test_half_of_a_tile_batch_left_out_is_not_correct(root, monkeypatch):
 
 
 # ----------------------------------------------------------------- pieces
+# A batch-1 mix draws what it drew before the batch key: request r's input and its
+# latents (sha1 of their bytes, first 16 digits) and its HR megapixels, as recorded from
+# the harness of single-image requests at the tiny sr_x4_f32 and the tiny photos mix.
+BATCH1_INPUTS = ["ea73e9a217f4b632", "254673500d5c3bb0", "8bb4b7c5bde32bfe",
+                 "ea73e9a217f4b632", "254673500d5c3bb0"]
+BATCH1_EPS = [["2886a77638561cc7", "28d5f5933575fde3"], ["483d2d8c667edbe4", "d9fa5290a3f7e41b"],
+              ["e2f8e2e7bd09cf11", "1b8ab72711dbbc50"]]
+
+
+def test_a_batch_of_one_draws_the_single_image_requests_inputs_and_latents():
+    from h100_bench import clients
+
+    def sha(t):
+        return hashlib.sha1(t.contiguous().numpy().tobytes()).hexdigest()[:16]
+
+    cfg = _tiny(json.loads((BENCH / "configs" / "sr_x4_f32.json").read_text()))
+    t = Traffic(TINY_TRAFFIC["photos"], Topology(cfg["network_G"], True), 4, SEED, "cpu")
+    assert t.batch == 1 and t.hr_mp == 0.002016
+    client = clients.Client(t, None, None, "cpu")
+    for r, want in enumerate(BATCH1_INPUTS):
+        x = client._input(r)
+        assert x.shape == (1, 9, 14, 3) and sha(x) == want
+    for r, want in enumerate(BATCH1_EPS):
+        eps = t.eps(r, 0, t.batch)
+        assert [e.shape for e in eps] == [(1, 18, 28, 6), (1, 9, 14, 21)]
+        assert [sha(e) for e in eps] == want
+
+
+@pytest.mark.parametrize("entry", ["forward", "tiled_reverse"])
+def test_batch_is_refused_outside_the_reverse_entry(entry):
+    cfg = _tiny(json.loads((BENCH / "configs" / "sr_x4_f32.json").read_text()))
+    params = {"entry": entry, "lr_hw": [8, 8], "hr_hw": [32, 32], "batch": 2}
+    with pytest.raises(ValueError, match="'batch'"):
+        Traffic(params, Topology(cfg["network_G"], True), 4, SEED, "cpu")
+
+
+def test_a_request_takes_its_batch_from_the_pool_in_turn():
+    cfg = _tiny(json.loads((BENCH / "configs" / "sr_x8_f32.json").read_text()))
+    t = Traffic(TINY_TRAFFIC["faces"], Topology(cfg["network_G"], True), 8, SEED, "cpu")
+    assert [t.image_ids(r, 5) for r in range(3)] == [[0, 1, 2], [3, 4, 0], [1, 2, 3]]
+    assert t.hr_mp == 3 * 40 * 48 / 1e6
+    assert [e.shape for e in t.eps(1, 0, 3)] == [(3, 20, 24, 6), (3, 10, 12, 12), (3, 5, 6, 45)]
+
+
 def test_reservoir_is_a_seeded_uniform_sample():
     def draw(seed):
         res = harness.Reservoir(3, seed)

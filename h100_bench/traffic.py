@@ -5,14 +5,17 @@ A mix (``traffic/<name>.json``) names its ``entry`` (what a request asks of the 
 ``forward``, HR -> 8-bit LR codes and latents), the size of its images (``lr_hw`` or
 ``hr_hw``, height and width), the requests kept in flight (``in_flight``, a closed
 loop), the ``heat`` at which the latents are drawn, the ``pool`` of distinct images
-and the ``sample`` of window requests checked against the reference; the tiled entry
-also ``tile``, ``overlap`` and ``tile_batch``.
+and the ``sample`` of window requests checked against the reference; the ``reverse``
+entry also a ``batch`` of images a request (default 1), the tiled entry ``tile``,
+``overlap`` and ``tile_batch``.
 
 Inputs are 8-bit images, as a server receives photos and an image store keeps its LR
 codes: smooth random fields with fine noise, made on the device from the seed at
-set-up and kept in pinned host memory.  Request r takes image ``r % pool`` and its own
-latents, drawn on the device from (seed, r, batch) at the mix's heat; every seed gives
-the same sizes and the same number of requests for the same time.
+set-up and kept in pinned host memory.  Request r takes the B = ``batch`` images
+``(r * B + j) % pool``, j = 0 ... B - 1, and its own latents, drawn on the device from
+(seed, r, batch) at the mix's heat; every seed gives the same sizes and the same number
+of requests for the same time.  A request is its B images: ``hr_mp`` counts them all,
+and what a per-layer metric gives a request it gives a batch.
 """
 
 from __future__ import annotations
@@ -34,10 +37,13 @@ class Traffic:
         else:
             self.lr_hw = tuple(params["lr_hw"])
             self.hr_hw = (self.lr_hw[0] * scale, self.lr_hw[1] * scale)
+        if "batch" in params and self.entry != "reverse":
+            raise ValueError(f"traffic key 'batch' is for the reverse entry, not {self.entry!r}")
+        self.batch = params.get("batch", 1)
         self.in_flight = params.get("in_flight", 1)
         self.heat = params.get("heat", 1.0)
         self.sample = params.get("sample", 2)
-        self.hr_mp = self.hr_hw[0] * self.hr_hw[1] / 1e6  # HR megapixels a request
+        self.hr_mp = self.batch * self.hr_hw[0] * self.hr_hw[1] / 1e6  # HR megapixels a request
 
     def images(self) -> torch.Tensor:
         """The pool of input images, uint8 NHWC in pinned host memory (on the CPU,
@@ -52,6 +58,10 @@ class Traffic:
         out = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
         out.copy_(u8)
         return out
+
+    def image_ids(self, r: int, pool: int) -> list:
+        """The pool indices of request r's images."""
+        return [(r * self.batch + j) % pool for j in range(self.batch)]
 
     def eps_shapes(self, B: int, lr_hw) -> list:
         """NHWC shapes of the whitened latents of a batch of B images of LR size lr_hw."""
