@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import halo
+from ..utils import profiling
 from . import actnorm
 
 _DTYPES = {"bfloat16": torch.bfloat16}  # compute_dtype None is the float32 recipe
@@ -71,7 +72,9 @@ def conv2d(x, w, b=None, compute_dtype=None, mesh=None) -> torch.Tensor:
     """'same'-padded stride-1 conv, NHWC x OIHW -> NHWC float32.
 
     compute_dtype=None: full float32.  compute_dtype='bfloat16': bf16 operands, the
-    output rounded through bf16 and upcast, as hcflow_tpu/ops/nets.py:48-55 writes it.
+    output rounded through bf16 and upcast, as hcflow_tpu/ops/nets.py:48-55 writes it;
+    the operands' casts and the output's upcast each run in a span ``hcflow.cast``, and
+    the conv between them in its caller's span.
     ``mesh``: on this rank's band plus the rows of halo the kernel reads.
     """
     pad = (w.shape[2] - 1) // 2
@@ -80,7 +83,11 @@ def conv2d(x, w, b=None, compute_dtype=None, mesh=None) -> torch.Tensor:
     xc = x.permute(0, 3, 1, 2)
     if compute_dtype is not None:
         dt = _DTYPES[compute_dtype]
-        y = F.conv2d(xc.to(dt), w.to(dt), padding=pad).float()
+        with profiling.span("hcflow.cast"):
+            xb, wb = xc.to(dt), w.to(dt)
+        y = F.conv2d(xb, wb, padding=pad)
+        with profiling.span("hcflow.cast"):
+            y = y.float()
     else:
         with exact_f32():
             y = F.conv2d(xc.float(), w, padding=pad)

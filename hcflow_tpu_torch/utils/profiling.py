@@ -14,7 +14,11 @@ serving or training pass:
   ``_main_forward``);
 - ``hcflow.rrdb``, ``hcflow.chain``, ``hcflow.chain3s``: the kernel wrappers
   (``ops/rrdb.py`` ``trunk_apply``, ``ops/chain.py`` and ``ops/chain3s.py``
-  ``inverse_chain``), on the card and on the CPU's plain versions alike.
+  ``inverse_chain``), on the card and on the CPU's plain versions alike;
+- ``hcflow.cast``: in the bf16 recipe, each library conv's casts (``ops/nets.py``
+  ``conv2d``): one span around the operands' casts to bf16 and one around the output's
+  upcast to float32, with the conv between them left to its layer's span; the float32
+  recipe opens none.
 
 A span is a ``torch.profiler.record_function`` while a profile with CPU activity
 records, and otherwise one shared null context, so that a pass outside a profile pays
